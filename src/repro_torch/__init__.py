@@ -1,0 +1,25 @@
+"""PyTorch/CUDA port of the FAGP system in ``repro`` (the JAX package).
+
+The layout mirrors ``repro`` (``core/``, ``kernels/``, ``data/``,
+``launch/``) so every module has a counterpart there, and the JAX package
+is the reference each module is tested against.  The package imports
+``torch`` only: nothing of ``jax`` and nothing of ``repro``.
+
+Every entry point takes ``device=`` and defaults to ``"cuda"``; with no
+card it raises instead of carrying on on the CPU (pass ``device="cpu"`` to
+run the plain PyTorch versions of the kernels, as the tests do).
+
+Precision: everything is float32.  TF32 is switched off here, at import,
+for both matmul and cuDNN: the scaled system B = I + D G D / sigma^2 is
+factorized by an f32 Cholesky whose condition number reaches ~1e5 at
+paper scale, and the JAX package's cross-backend gates (1e-3 on B and b,
+5e-3 on u and chol) do not hold with TF32's ~3 decimal digits.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .device import resolve_device  # noqa: E402
+
+__all__ = ["resolve_device"]

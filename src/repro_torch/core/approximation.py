@@ -1,0 +1,109 @@
+"""Approximation registry behind ``GP`` (the ``fagp`` family only).
+
+Counterpart of ``repro/core/approximation.py``, cut to what the FAGP
+family needs: the structured refusal :class:`UnsupportedError` and the
+name -> family registry that ``core/gp.py`` dispatches through.  The
+Vecchia family registers here in a later slice of the port.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+__all__ = [
+    "Approximation",
+    "UnsupportedError",
+    "available_approximations",
+    "get_approximation",
+    "register_approximation",
+    "require_capability",
+]
+
+
+def _describe(spec: Any) -> str:
+    describe = getattr(spec, "describe", None)
+    return describe() if callable(describe) else repr(spec)
+
+
+class UnsupportedError(ValueError):
+    """A layer refused an operation it does not implement for this spec.
+
+    layer:      ``"approximation"``, ``"backend"`` or ``"port"`` (an
+                operation the JAX package has and this port does not yet).
+    capability: what was asked of it.
+    spec:       the offending ``GPSpec`` (or None).
+
+    The message always contains "does not support".
+    """
+
+    def __init__(self, message: str, *, layer: str, capability: str,
+                 spec: Any = None):
+        super().__init__(message)
+        self.layer = layer
+        self.capability = capability
+        self.spec = spec
+
+
+class Approximation:
+    """One registered approximation family behind the ``GP`` facade.
+
+    Subclasses set ``name`` and ``capabilities`` and implement the
+    operations they declare; ``GP`` checks the flags before calling.
+    """
+
+    name: str = "abstract"
+    capabilities: frozenset = frozenset()
+
+    def validate(self, spec: Any) -> None:
+        raise NotImplementedError
+
+    def fit(self, X, y, spec):
+        self.refuse("fit", spec)
+
+    def predict(self, state, Xs, *, mode: str = "fused"):
+        self.refuse("predict", getattr(state, "spec", None))
+
+    def mean_var(self, state, Xs):
+        self.refuse("mean_var", getattr(state, "spec", None))
+
+    def update(self, state, X_new, y_new):
+        self.refuse("update", getattr(state, "spec", None))
+
+    def nlml(self, X, y, spec, *, mask=None):
+        self.refuse("nlml", spec)
+
+    def refuse(self, capability: str, spec: Any) -> None:
+        raise UnsupportedError(
+            f"approximation {self.name!r} does not support {capability!r} "
+            f"for {_describe(spec)}; its capabilities are "
+            f"{sorted(self.capabilities)}",
+            layer="approximation", capability=capability, spec=spec,
+        )
+
+
+_APPROXIMATIONS: dict = {}
+
+
+def register_approximation(approx: Approximation) -> None:
+    _APPROXIMATIONS[approx.name] = approx
+
+
+def get_approximation(name: str) -> Approximation:
+    try:
+        return _APPROXIMATIONS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown approximation {name!r}; registered: "
+            f"{available_approximations()}"
+        ) from None
+
+
+def available_approximations() -> list:
+    return sorted(_APPROXIMATIONS)
+
+
+def require_capability(approx: Approximation, capability: str,
+                       spec: Any) -> None:
+    """Raise the family's structured refusal unless it declares
+    ``capability``."""
+    if capability not in approx.capabilities:
+        approx.refuse(capability, spec)

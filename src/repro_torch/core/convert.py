@@ -1,0 +1,83 @@
+"""Carry a spec and a fitted state across from the JAX package.
+
+The caller hands over the JAX ``GPSpec`` / ``FAGPState`` leaves as numpy
+arrays (``np.asarray(jax_state.chol)``, ...) plus the static fields; this
+module never imports JAX.  A state carried across serves exactly as it
+did in the JAX package: ``GP.from_state(state_from_numpy(...)).mean_var``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .fagp import FAGPState, GPSpec, _check_backend_support
+
+__all__ = ["spec_from_numpy", "state_from_numpy"]
+
+
+def _t(x, dev, dtype=torch.float32):
+    return torch.as_tensor(np.array(x), dtype=dtype, device=dev).contiguous()
+
+
+def spec_from_numpy(
+    *,
+    eps,
+    rho,
+    noise,
+    n: int,
+    index_set: str = "full",
+    degree: Optional[int] = None,
+    expansion: str = "hermite",
+    backend: str = "jnp",
+    omega=None,
+    block_rows: int = 4096,
+    device=None,
+) -> GPSpec:
+    """A port ``GPSpec`` from the JAX spec's leaves (numpy) and static
+    fields.  The leaves are taken as they are (no re-draw of omega)."""
+    dev = resolve_device(device)
+    spec = GPSpec(
+        eps=_t(np.atleast_1d(eps), dev), rho=_t(np.atleast_1d(rho), dev),
+        noise=_t(noise, dev), n=int(n), index_set=index_set, degree=degree,
+        block_rows=int(block_rows), backend=backend, expansion=expansion,
+        omega=None if omega is None else _t(omega, dev),
+    )
+    _check_backend_support(spec)
+    return spec
+
+
+def state_from_numpy(
+    *,
+    idx,
+    lam,
+    sqrtlam,
+    chol,
+    u,
+    b,
+    spec: Optional[GPSpec] = None,
+    device=None,
+    **spec_fields,
+) -> FAGPState:
+    """A port ``FAGPState`` from the JAX state's leaves (numpy).  Pass the
+    port ``spec``, or the fields :func:`spec_from_numpy` takes.  The index
+    table must be the one the spec generates."""
+    if spec is None:
+        spec = spec_from_numpy(device=device, **spec_fields)
+    elif spec_fields:
+        raise TypeError("pass either spec= or the spec fields, not both")
+    idx = np.asarray(idx)
+    want = spec.indices()
+    if idx.shape != want.shape or not np.array_equal(idx, want):
+        raise ValueError(
+            f"state_from_numpy: the index table {idx.shape} is not the one "
+            f"{spec.describe()} generates {want.shape}"
+        )
+    dev = spec.device
+    return FAGPState(
+        idx=_t(idx, dev, torch.int32), lam=_t(lam, dev),
+        sqrtlam=_t(sqrtlam, dev), chol=_t(chol, dev), u=_t(u, dev),
+        b=_t(b, dev), spec=spec,
+    )

@@ -1,0 +1,695 @@
+"""Fast Approximate Gaussian Process (FAGP): fit, serve, update, NLML.
+
+Counterpart of ``repro/core/fagp.py`` (paper Eqs. 8-12).  The N x N kernel
+inverse is replaced, through the Woodbury identity, by the M x M system
+
+    B = I + D G D / sigma^2,   G = Phi^T Phi,   D = diag(sqrt(lambda))
+
+assembled in log space in one place (``_assemble_scaled_system``), so
+eigenvalues that underflow float32 leave inert identity rows.
+
+    spec = GPSpec.create(n=8, eps=[0.8, 0.8], noise=0.05, device="cuda")
+    state = fit(X, y, spec)                 # spec baked into the state
+    mu, var = predict_mean_var(state, Xs)   # serving path
+    state = fit_update(state, X_new, y_new) # rank-k ingest, no refit
+    loss = nlml(X, y, spec)
+
+Execution goes through a registry of backends that keeps the JAX names so a
+spec carries across unchanged:
+
+* ``"jnp"``    -- the plain path: row blocks of the expansion's feature
+  map accumulated with matmuls, triangular solves for the variance;
+* ``"pallas"`` -- the kernel path: the streaming fused fit, the expansion
+  features and the diag-quad kernels of ``kernels/`` (hand-written CUDA on
+  a CUDA tensor, their plain versions on a CPU tensor), and the rank-K
+  Cholesky sweep kernel for ``fit_update``.
+
+Everything is float32 on the spec's device; inputs are moved there.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels import chol_update as _chol
+from ..kernels import ops
+from .approximation import (
+    Approximation,
+    UnsupportedError,
+    get_approximation,
+    register_approximation,
+)
+from .expansions import available_expansions, get_expansion
+
+__all__ = [
+    "FAGPState",
+    "FitBackend",
+    "GPSpec",
+    "available_backends",
+    "available_expansions",
+    "build_features",
+    "fit",
+    "fit_update",
+    "get_backend",
+    "get_expansion",
+    "nlml",
+    "predict",
+    "predict_mean_var",
+    "register_backend",
+]
+
+
+def _f32(x, device) -> torch.Tensor:
+    """x (tensor, numpy, JAX array, list or scalar) as float32 on device."""
+    if not isinstance(x, torch.Tensor):
+        x = np.array(x, dtype=np.float32)   # a writable copy
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GPSpec:
+    """The one self-describing specification of a GP session.
+
+    eps:   per-dimension inverse length scales, (p,).
+    rho:   per-dimension Mercer scale factors, (p,) (unused by RFF).
+    noise: observation noise std sigma_n (scalar tensor).
+    omega: (R, p) eps-free spectral base draws for the RFF expansions.
+    n / index_set / degree: Hermite truncation (``mercer.make_index_set``).
+    block_rows: row-block size of the plain moment accumulation.
+    backend: 'jnp' (plain) or 'pallas' (kernels).
+    expansion: 'hermite' | 'rff_se' | 'rff_matern52'.
+    approximation: registered family ('fagp' is the only one ported).
+
+    The tensors live on one device (``spec.device``), which every fit and
+    prediction of the session runs on.
+    """
+
+    eps: torch.Tensor
+    rho: torch.Tensor
+    noise: torch.Tensor
+    n: int
+    index_set: str = "full"
+    degree: Optional[int] = None
+    block_rows: int = 4096
+    backend: str = "jnp"
+    expansion: str = "hermite"
+    omega: Optional[torch.Tensor] = None
+    approximation: str = "fagp"
+
+    @staticmethod
+    def create(
+        n: int,
+        eps,
+        rho=2.0,
+        noise=1e-2,
+        *,
+        index_set: str = "full",
+        degree: Optional[int] = None,
+        block_rows: int = 4096,
+        backend: str = "jnp",
+        expansion: str = "hermite",
+        num_features: Optional[int] = None,
+        seed: int = 0,
+        omega=None,
+        approximation: str = "fagp",
+        device=None,
+    ) -> "GPSpec":
+        """Constructor with scalar broadcasting (``eps`` fixes p).  The RFF
+        families draw their base frequencies here from (num_features, seed)
+        with numpy, exactly as the JAX package does.  ``device`` defaults to
+        "cuda" and raises where there is no card."""
+        dev = resolve_device(device)
+        eps = torch.atleast_1d(_f32(eps, dev))
+        rho = torch.broadcast_to(_f32(rho, dev), eps.shape).clone()
+        exp = get_expansion(expansion)
+        if omega is None:
+            if num_features is not None and num_features < 1:
+                raise ValueError(f"num_features must be >= 1, got {num_features}")
+            omega = exp.draw_spec_data(
+                eps.shape[0], 256 if num_features is None else num_features, seed
+            )
+            if omega is None and num_features is not None:
+                raise ValueError(
+                    f"expansion {expansion!r} draws no spectral data; "
+                    f"num_features only applies to the RFF families — did "
+                    f"you mean expansion='rff_se' / 'rff_matern52'?"
+                )
+        elif exp.draw_spec_data(1, 1, 0) is None:
+            raise ValueError(
+                f"expansion {expansion!r} takes no omega (it draws no "
+                f"spectral data)"
+            )
+        elif num_features is not None and len(omega) != num_features:
+            raise ValueError(
+                f"explicit omega has {len(omega)} rows but "
+                f"num_features={num_features}"
+            )
+        spec = GPSpec(
+            eps=eps, rho=rho, noise=_f32(noise, dev), n=int(n),
+            index_set=index_set, degree=degree, block_rows=block_rows,
+            backend=backend, expansion=expansion,
+            omega=None if omega is None else _f32(omega, dev),
+            approximation=approximation,
+        )
+        get_approximation(approximation).validate(spec)
+        return spec
+
+    @staticmethod
+    def create_rff(eps, noise=1e-2, *, kernel: str = "se",
+                   num_features: int = 256, seed: int = 0, rho=2.0,
+                   block_rows: int = 4096, backend: str = "jnp",
+                   device=None) -> "GPSpec":
+        """Sugar for the RFF families: M = 2 * num_features."""
+        return GPSpec.create(
+            1, eps, rho, noise, block_rows=block_rows, backend=backend,
+            expansion=f"rff_{kernel}", num_features=num_features, seed=seed,
+            device=device,
+        )
+
+    @property
+    def p(self) -> int:
+        return self.eps.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.eps.device
+
+    def indices(self, p: Optional[int] = None) -> np.ndarray:
+        """The expansion's static (M, w) index table; its row count is M."""
+        return get_expansion(self.expansion).indices(self, p or self.p)
+
+    def n_features(self, p: Optional[int] = None) -> int:
+        return self.indices(p).shape[0]
+
+    def replace(self, **overrides) -> "GPSpec":
+        return dataclasses.replace(self, **overrides)
+
+    def describe(self) -> str:
+        extra = (
+            f"n={self.n}, index_set={self.index_set!r}, degree={self.degree}"
+            if self.expansion == "hermite"
+            else f"R={0 if self.omega is None else self.omega.shape[0]}"
+        )
+        return (
+            f"GPSpec(expansion={self.expansion!r}, {extra}, p={self.p}, "
+            f"backend={self.backend!r}, device={str(self.device)!r})"
+        )
+
+
+# fields frozen into the factorization: with_spec may not change them
+_STRUCTURAL_FIELDS = ("approximation", "expansion", "n", "index_set", "degree")
+_HYPER_FIELDS = ("eps", "rho", "noise", "omega")
+
+
+def _leaf_equal(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    a = torch.as_tensor(a).detach().to("cpu", torch.float32)
+    b = torch.as_tensor(b).detach().to("cpu", torch.float32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FAGPState:
+    """Fitted FAGP statistics in the scaled-system form, spec baked in.
+
+    ``serving`` is a per-state cache of what the serving path derives from
+    the fit (B^{-1} for the diag-quad kernel, the kernels' feature tables);
+    every new state (``fit_update``, ``with_spec``) starts with it empty.
+    """
+
+    idx: torch.Tensor          # (M, w) int32 expansion index table
+    lam: torch.Tensor          # (M,)   weights (may underflow; info only)
+    sqrtlam: torch.Tensor      # (M,)   exp(0.5 log lambda) -- the scaling D
+    chol: torch.Tensor         # (M, M) lower Cholesky of B
+    u: torch.Tensor            # (M,) or (M, T) mean weights
+    b: torch.Tensor            # (M,) or (M, T) raw moment Phi^T y
+    spec: GPSpec
+    serving: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
+
+    @property
+    def n_features(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def n_tasks(self) -> int:
+        return 1 if self.u.ndim == 1 else self.u.shape[1]
+
+    def with_spec(self, spec: Optional[GPSpec] = None, **overrides) -> "FAGPState":
+        """Swap execution knobs (backend, block_rows) at serve time.
+        Structural fields and hyperparameters are frozen into the
+        factorization and are rejected."""
+        if spec is None:
+            spec = dataclasses.replace(self.spec, **overrides)
+        elif overrides:
+            raise TypeError("pass either a full spec or keyword overrides, not both")
+        for f in _STRUCTURAL_FIELDS:
+            if getattr(spec, f) != getattr(self.spec, f):
+                raise ValueError(
+                    f"spec/state mismatch: state was fitted with "
+                    f"{self.spec.describe()} but the new spec has "
+                    f"{f}={getattr(spec, f)!r}; structural choices are "
+                    f"frozen into the factorization — refit instead"
+                )
+        want = spec.indices()
+        have = self.idx.detach().cpu().numpy()
+        if want.shape != have.shape or not np.array_equal(want, have):
+            raise ValueError(
+                f"spec/state mismatch: {spec.describe()} generates a "
+                f"different index table than this state was fitted with — "
+                f"refit instead"
+            )
+        for f in _HYPER_FIELDS:
+            if not _leaf_equal(getattr(spec, f), getattr(self.spec, f)):
+                raise ValueError(
+                    f"with_spec: spec/state mismatch: {f} differs from the "
+                    f"value this state was fitted with; hyperparameters are "
+                    f"frozen into the factorization — refit instead"
+                )
+        if spec.device != self.spec.device:
+            raise ValueError(
+                f"with_spec: the state lives on {self.spec.device}, the spec "
+                f"on {spec.device}"
+            )
+        _check_backend_support(spec)
+        return dataclasses.replace(self, spec=spec)
+
+
+def build_features(X: torch.Tensor, spec: GPSpec,
+                   idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Phi(X) under the spec's expansion (plain path): (N, p) -> (N, M)."""
+    if idx is None:
+        idx = _idx_tensor(spec)
+    return get_expansion(spec.expansion).features(X, idx, spec)
+
+
+def _idx_tensor(spec: GPSpec, p: Optional[int] = None) -> torch.Tensor:
+    return torch.from_numpy(spec.indices(p)).to(spec.device)
+
+
+def _tscale(d: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Scale the leading (M) axis of v by d, for v of shape (M,) or (M, T)."""
+    return d[:, None] * v if v.ndim == 2 else d * v
+
+
+def _row_weight(mi: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Per-row weight mi (N,) applied to v of shape (N,) or (N, T)."""
+    return mi[:, None] * v if v.ndim == 2 else mi * v
+
+
+def _assemble_scaled_system(G: torch.Tensor, loglam: torch.Tensor, sig2):
+    """The one home of the f32 log-space scaled system:
+    B = I + D G D / sigma^2, D = diag(exp(0.5 log lambda)).
+    Returns (B, sqrtlam)."""
+    M = G.shape[0]
+    sqrtlam = torch.exp(0.5 * loglam)
+    B = torch.eye(M, dtype=G.dtype, device=G.device) \
+        + (sqrtlam[:, None] * G * sqrtlam[None, :]) / sig2
+    return B, sqrtlam
+
+
+def _solve_mean_weights(chol, sqrtlam, b, sig2):
+    """u = D B^{-1} D b / sig2, batched over task columns of b (M, T)."""
+    rhs = _tscale(sqrtlam, b)
+    sol = torch.cholesky_solve(rhs[:, None] if rhs.ndim == 1 else rhs, chol)
+    if b.ndim == 1:
+        sol = sol[:, 0]
+    return _tscale(sqrtlam, sol) / sig2
+
+
+def _block_scan_moments(X, y, feats_fn, M: int, block_rows: int,
+                        row_mask=None, want_gram: bool = True):
+    """The one home of the streaming row-block accumulation: G = Phi^T Phi
+    (skipped when ``want_gram`` is False) and b = Phi^T y over row blocks of
+    ``feats_fn(Xi)``, masked rows contributing nothing; y is (N,) or (N, T).
+    O(M^2) live memory beyond one (block_rows, M) tile."""
+    N = X.shape[0]
+    G = torch.zeros((M, M), dtype=torch.float32, device=X.device) if want_gram else None
+    b = torch.zeros((M,) + tuple(y.shape[1:]), dtype=torch.float32, device=X.device)
+    for lo in range(0, N, block_rows):
+        Phi_i = feats_fn(X[lo:lo + block_rows])
+        yi = y[lo:lo + block_rows]
+        if row_mask is not None:
+            mi = row_mask[lo:lo + block_rows]
+            Phi_i = Phi_i * mi[:, None]
+            yi = _row_weight(mi, yi)
+        if want_gram:
+            G += Phi_i.T @ Phi_i
+        b += Phi_i.T @ yi
+    return G, b
+
+
+def _finish_fit(B, b, loglam, sqrtlam, sig2, idx, spec):
+    """Shared fit epilogue: M x M Cholesky and the mean weights."""
+    chol = torch.linalg.cholesky(B)
+    u = _solve_mean_weights(chol, sqrtlam, b, sig2)
+    return FAGPState(idx=idx, lam=torch.exp(loglam), sqrtlam=sqrtlam,
+                     chol=chol, u=u, b=b, spec=spec)
+
+
+# ---------------------------------------------------------------------------
+# Backend registry
+# ---------------------------------------------------------------------------
+
+
+def _supports_everything(spec: "GPSpec") -> Optional[str]:
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class FitBackend:
+    """Execution backend for the FAGP hot paths.
+
+    fit:         (X, y, idx, spec) -> FAGPState.
+    features:    (X, spec, idx, state=None) -> (N, M).
+    mean_var:    (state, Xs) -> (mu, var), the serving path.
+    moments:     (X, y, spec, idx, block_rows, mask) -> raw (G, b).
+    rank_update: (chol, W) -> chol(chol chol^T + W^T W), the K*8 <= M
+                 branch of ``fit_update``.
+    supports:    spec -> None, or the reason the backend refuses it.
+    """
+
+    name: str
+    fit: Callable[..., "FAGPState"]
+    features: Callable[..., torch.Tensor]
+    mean_var: Callable[..., tuple]
+    moments: Callable[..., tuple]
+    rank_update: Callable[..., torch.Tensor]
+    supports: Callable[["GPSpec"], Optional[str]] = _supports_everything
+
+
+_BACKENDS: dict = {}
+
+
+def register_backend(backend: FitBackend) -> None:
+    _BACKENDS[backend.name] = backend
+
+
+def get_backend(name: str) -> FitBackend:
+    try:
+        return _BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; registered: {available_backends()}"
+        ) from None
+
+
+def available_backends() -> list:
+    return sorted(_BACKENDS)
+
+
+def _check_backend_support(spec: GPSpec) -> FitBackend:
+    """Validate the spec against its expansion and its backend's declared
+    capabilities; refusals are structured ``UnsupportedError``s."""
+    if spec.approximation != "fagp":
+        raise UnsupportedError(
+            f"the fagp module does not support {spec.describe()}: its entry "
+            f"points run the 'fagp' family only",
+            layer="approximation", capability="fagp", spec=spec,
+        )
+    get_expansion(spec.expansion).validate(spec)
+    backend = get_backend(spec.backend)
+    reason = backend.supports(spec)
+    if reason is not None:
+        raise UnsupportedError(
+            f"backend {spec.backend!r} does not support {spec.describe()}: "
+            f"{reason} (registered backends: {available_backends()})",
+            layer="backend", capability=spec.backend, spec=spec,
+        )
+    return backend
+
+
+# --- jnp backend: the plain path -------------------------------------------
+
+
+def _jnp_features(X, spec, idx, state=None):
+    return get_expansion(spec.expansion).features(X, idx, spec)
+
+
+def _jnp_moments(X, y, spec, idx, block_rows, mask=None):
+    return _block_scan_moments(
+        X, y, lambda Xi: _jnp_features(Xi, spec, idx), idx.shape[0],
+        block_rows, row_mask=mask,
+    )
+
+
+def _jnp_fit(X, y, idx, spec):
+    exp = get_expansion(spec.expansion)
+    sig2 = spec.noise**2
+    loglam = exp.log_eigenvalues(idx, spec)
+    G, b = _jnp_moments(X, y, spec, idx, spec.block_rows)
+    B, sqrtlam = _assemble_scaled_system(G, loglam, sig2)
+    return _finish_fit(B, b, loglam, sqrtlam, sig2, idx, spec)
+
+
+def _jnp_mean_var(state, Xs):
+    Phis = _jnp_features(Xs, state.spec, state.idx)
+    mu = Phis @ state.u
+    PhisD = Phis * state.sqrtlam[None, :]
+    V = torch.linalg.solve_triangular(state.chol, PhisD.T, upper=False)
+    return mu, torch.sum(V * V, dim=0)
+
+
+# --- pallas backend: the kernels --------------------------------------------
+
+
+def _tile(spec, idx, state=None):
+    """The expansion's kernel feature table (cached on a fitted state)."""
+    if state is not None and "tile" in state.serving:
+        return state.serving["tile"]
+    tile = get_expansion(spec.expansion).tile_args(spec, idx)
+    if state is not None:
+        state.serving["tile"] = tile
+    return tile
+
+
+def _pallas_supports(spec: GPSpec) -> Optional[str]:
+    return get_expansion(spec.expansion).pallas_supports(spec)
+
+
+def _pallas_features(X, spec, idx, state=None):
+    return ops.expansion_phi(X, _tile(spec, idx, state))
+
+
+def _pallas_streamed_bt(X, Y, spec, idx, mask=None):
+    """Per-task b = Phi^T Y for multi-output y through the features kernel,
+    one row block at a time (a second pass over X, as in the JAX package)."""
+    tile = _tile(spec, idx)
+    _, b = _block_scan_moments(
+        X, Y, lambda Xi: ops.expansion_phi(Xi, tile), idx.shape[0],
+        spec.block_rows, row_mask=mask, want_gram=False,
+    )
+    return b
+
+
+def _pallas_moments(X, y, spec, idx, block_rows, mask=None):
+    y0 = y if y.ndim == 1 else y[:, 0]
+    G, b = ops.fused_fit_moments(X, y0, _tile(spec, idx), None, 1.0, mask,
+                                 scale=False)
+    if y.ndim == 2:
+        b = _pallas_streamed_bt(X, y, spec, idx, mask)
+    return G, b
+
+
+def _pallas_fit(X, y, idx, spec):
+    """The streaming fused kernel builds B = I + D G D / sig2 and b from X
+    directly; multi-output b takes a second pass through the features
+    kernel."""
+    exp = get_expansion(spec.expansion)
+    sig2 = spec.noise**2
+    loglam = exp.log_eigenvalues(idx, spec)
+    sqrtlam = torch.exp(0.5 * loglam)
+    y0 = y if y.ndim == 1 else y[:, 0]
+    B, b = ops.fused_fit_moments(X, y0, _tile(spec, idx), sqrtlam, float(sig2))
+    if y.ndim == 2:
+        b = _pallas_streamed_bt(X, y, spec, idx)
+    return _finish_fit(B, b, loglam, sqrtlam, sig2, idx, spec)
+
+
+def _binv(state: FAGPState) -> torch.Tensor:
+    """B^{-1} from the fitted factor, computed once per state."""
+    if "binv" not in state.serving:
+        state.serving["binv"] = torch.cholesky_inverse(state.chol)
+    return state.serving["binv"]
+
+
+def _pallas_mean_var(state, Xs):
+    Phis = _pallas_features(Xs, state.spec, state.idx, state)
+    mu = Phis @ state.u
+    var = ops.diag_quad(Phis * state.sqrtlam[None, :], _binv(state))
+    return mu, var
+
+
+register_backend(FitBackend(
+    name="jnp", fit=_jnp_fit, features=_jnp_features, mean_var=_jnp_mean_var,
+    moments=_jnp_moments, rank_update=_chol.chol_update_plain,
+))
+register_backend(FitBackend(
+    name="pallas", fit=_pallas_fit, features=_pallas_features,
+    mean_var=_pallas_mean_var, moments=_pallas_moments,
+    rank_update=ops.chol_update, supports=_pallas_supports,
+))
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+
+def _check_p(spec: GPSpec, p: int) -> None:
+    if spec.p != p:
+        raise ValueError(
+            f"spec/input mismatch: {spec.describe()} was built for p={spec.p} "
+            f"input dimensions but the data has p={p}"
+        )
+
+
+def fit(X, y, spec: GPSpec) -> FAGPState:
+    """Fit the FAGP posterior on the spec's device; y is (N,) or (N, T)
+    for T tasks sharing one factorization."""
+    if not isinstance(spec, GPSpec):
+        raise TypeError("fit(X, y, spec) takes a GPSpec")
+    X, y = _f32(X, spec.device), _f32(y, spec.device)
+    _check_p(spec, X.shape[1])
+    backend = _check_backend_support(spec)
+    return backend.fit(X, y, _idx_tensor(spec, X.shape[1]), spec)
+
+
+def _update_arrays(chol, b, sqrtlam, noise, Phi_new, y_new, rank_update):
+    """Rank-K update core: (chol, b) -> (chol', b', u')."""
+    sig2 = noise**2
+    # B_new = B + sum_k v_k v_k^T,  v_k = D phi_k / sigma
+    W = Phi_new * sqrtlam[None, :] / noise
+    K, M = W.shape
+    if K * 8 <= M:
+        # small K: sequential rank-1 sweeps, O(K M^2)
+        chol = rank_update(chol, W)
+    else:
+        # K comparable to M: refactorize, O(M^3 / 3), still no pass over
+        # the original rows
+        chol = torch.linalg.cholesky(chol @ chol.T + W.T @ W)
+    b = b + Phi_new.T @ y_new
+    u = _solve_mean_weights(chol, sqrtlam, b, sig2)
+    return chol, b, u
+
+
+def fit_update(state: FAGPState, X_new, y_new) -> FAGPState:
+    """Absorb new observations without refitting: a rank-k Cholesky update
+    of B (O(k M^2)) and a fresh M x M solve for the mean weights."""
+    spec = state.spec
+    X_new, y_new = _f32(X_new, spec.device), _f32(y_new, spec.device)
+    if y_new.ndim != state.u.ndim or (
+        y_new.ndim == 2 and y_new.shape[1] != state.u.shape[1]
+    ):
+        raise ValueError(
+            f"fit_update task mismatch: state holds {state.n_tasks} task(s) "
+            f"but y_new has shape {tuple(y_new.shape)}"
+        )
+    backend = _check_backend_support(spec)
+    Phi_new = backend.features(X_new, spec, state.idx, state)
+    chol, b, u = _update_arrays(state.chol, state.b, state.sqrtlam,
+                                spec.noise, Phi_new, y_new, backend.rank_update)
+    return dataclasses.replace(state, chol=chol, b=b, u=u)
+
+
+def predict(state: FAGPState, Xs, mode: str = "fused"):
+    """Posterior mean and full covariance (N*, N*) at Xs, weight-space form
+    Sigma* = (Phi* D) B^{-1} (Phi* D)^T.  ``mode="paper"`` (the literal
+    Eqs. 11-12 chain) is not ported yet."""
+    if mode == "paper":
+        raise UnsupportedError(
+            "repro_torch does not support predict(mode='paper') yet: the "
+            "literal Eqs. 11-12 chain (with store_train) comes with the "
+            "checkpoint/paper-mode slice of the port",
+            layer="port", capability="predict_paper", spec=state.spec,
+        )
+    if mode != "fused":
+        raise ValueError(f"unknown mode {mode!r}")
+    Xs = _f32(Xs, state.spec.device)
+    Phis = build_features(Xs, state.spec, state.idx)
+    mu = Phis @ state.u
+    PhisD = Phis * state.sqrtlam[None, :]
+    V = torch.linalg.solve_triangular(state.chol, PhisD.T, upper=False)
+    return mu, V.T @ V
+
+
+def predict_mean_var(state: FAGPState, Xs):
+    """Posterior mean and marginal variance (N*,): the serving path, which
+    never forms the N* x N* covariance."""
+    Xs = _f32(Xs, state.spec.device)
+    backend = _check_backend_support(state.spec)
+    return backend.mean_var(state, Xs)
+
+
+def nlml(X, y, spec: GPSpec, *, mask=None) -> torch.Tensor:
+    """Negative log marginal likelihood (value only), O(N M^2 + M^3), with
+    the moments dispatched through the spec's backend; ``mask`` (N,) drops
+    rows.  For y (N, T) the result sums the per-task NLMLs."""
+    X, y = _f32(X, spec.device), _f32(y, spec.device)
+    _check_p(spec, X.shape[1])
+    backend = _check_backend_support(spec)
+    N = X.shape[0]
+    if mask is None:
+        mask = torch.ones((N,), dtype=torch.float32, device=spec.device)
+    else:
+        mask = _f32(mask, spec.device)
+        if tuple(mask.shape) != (N,):
+            raise ValueError(f"nlml mask must be (N,) = ({N},), got {tuple(mask.shape)}")
+    exp = get_expansion(spec.expansion)
+    idx = _idx_tensor(spec, X.shape[1])
+    T = 1 if y.ndim == 1 else y.shape[1]
+    sig2 = spec.noise**2
+    loglam = exp.log_eigenvalues(idx, spec)
+    block_rows = min(spec.block_rows, max(1, N))
+    G, b = backend.moments(X, y, spec, idx, block_rows, mask)
+    n_eff = torch.sum(mask)
+    B, sqrtlam = _assemble_scaled_system(G, loglam, sig2)
+    chol = torch.linalg.cholesky(B)
+    bs = _tscale(sqrtlam, b) / sig2
+    w = torch.cholesky_solve(bs[:, None] if bs.ndim == 1 else bs, chol)
+    w = w[:, 0] if bs.ndim == 1 else w
+    # y^T Kinv y = y^T y / sig2 - (D b / sig2)^T B^{-1} (D b / sig2)
+    quad = torch.sum(_row_weight(mask, y) * y) / sig2 - torch.sum(bs * w)
+    # logdet(K) = logdet(B) + N log sig2 (determinant lemma, scaled form)
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol))) + n_eff * torch.log(sig2)
+    return 0.5 * (quad + T * (logdet + n_eff * math.log(2.0 * math.pi)))
+
+
+# ---------------------------------------------------------------------------
+# The registered approximation family
+# ---------------------------------------------------------------------------
+
+
+class _FagpApproximation(Approximation):
+    """``spec.approximation == "fagp"``: the paper's decomposed-kernel family."""
+
+    name = "fagp"
+    capabilities = frozenset({"fit", "predict", "mean_var", "update", "nlml"})
+    state_type = FAGPState
+
+    def validate(self, spec: Any) -> None:
+        get_expansion(spec.expansion).validate(spec)
+
+    def fit(self, X, y, spec):
+        return fit(X, y, spec)
+
+    def predict(self, state, Xs, *, mode: str = "fused"):
+        return predict(state, Xs, mode=mode)
+
+    def mean_var(self, state, Xs):
+        return predict_mean_var(state, Xs)
+
+    def update(self, state, X_new, y_new):
+        return fit_update(state, X_new, y_new)
+
+    def nlml(self, X, y, spec, *, mask=None):
+        return nlml(X, y, spec, mask=mask)
+
+
+register_approximation(_FagpApproximation())

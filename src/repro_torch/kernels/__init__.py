@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels of the port, their plain PyTorch versions, and
+the wrappers that dispatch between them by device (``ops``)."""

@@ -1,0 +1,146 @@
+"""Public wrappers around the kernels.
+
+Counterpart of ``repro/kernels/ops.py``.  Each wrapper checks dtype,
+device, shapes and contiguity, then dispatches by device: on a CUDA tensor
+it launches the hand-written kernel (or raises: there is no fallback), on a
+CPU tensor it runs the kernel's plain PyTorch version.  No padding is
+needed: the kernels mask their own ragged edges.
+
+Launch counts: every kernel module keeps a ``COUNTER`` that its launch
+function bumps right after a launch; :func:`launch_counts` reads them all
+and :func:`reset_launch_counts` sets them to zero.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import chol_update as _chol
+from . import diag_quad as _dq
+from . import hermite_phi as _phi
+from . import phi_gram as _gram
+from .hermite_phi import TileArgs
+
+__all__ = [
+    "TileArgs", "expansion_phi", "fused_fit_moments", "diag_quad",
+    "chol_update", "launch_counts", "reset_launch_counts",
+]
+
+_COUNTERS = (_phi.COUNTER, _gram.COUNTER, _dq.COUNTER, _chol.COUNTER)
+
+
+def launch_counts() -> dict:
+    """{kernel: {variant: launches}} since the last reset."""
+    return {c.name: dict(c.counts) for c in _COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS:
+        c.reset()
+
+
+def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA inputs, False for CPU inputs; raises on anything else
+    (mixed devices, a dtype other than float32/int32, non-contiguous)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")
+    dev = devices.pop()
+    for t in tensors:
+        if t.dtype not in (torch.float32, torch.int32):
+            raise TypeError(f"{name}: expected float32 (or int32 indices), got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: input of shape {tuple(t.shape)} is not contiguous")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def _check_tile(name: str, tile: TileArgs, p: int) -> None:
+    if tile.kind == "hermite":
+        if tile.consts.shape != (p, 3) or tile.idx.shape != (tile.M, p) \
+                or tile.coef.shape[0] != 2 or tile.coef.shape[1] < tile.n_max:
+            raise ValueError(f"{name}: Hermite tile does not match p={p}")
+        if tile.idx.dtype != torch.int32:
+            raise TypeError(f"{name}: the index table must be int32")
+    elif tile.kind == "rff":
+        if tile.table.shape != (p + 1, tile.M):
+            raise ValueError(f"{name}: RFF table must be ({p + 1}, {tile.M}), "
+                             f"got {tuple(tile.table.shape)}")
+    else:
+        raise ValueError(f"{name}: unknown tile kind {tile.kind!r}")
+
+
+def expansion_phi(X: torch.Tensor, tile: TileArgs) -> torch.Tensor:
+    """Phi(X): (N, p) -> (N, M) features of the expansion ``tile``."""
+    X = X.contiguous()
+    _check_tile("expansion_phi", tile, X.shape[1])
+    if _on_cuda("expansion_phi", X, *tile.tensors()):
+        return _phi.phi_features_cuda(X, tile)
+    return _phi.phi_features_plain(X, tile)
+
+
+def fused_fit_moments(
+    X: torch.Tensor,
+    y: torch.Tensor,
+    tile: TileArgs,
+    sqrtlam: Optional[torch.Tensor],
+    sig2: float,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    scale: bool = True,
+):
+    """Streaming fit statistics, Phi never materialized on the card.
+
+    scale=True  -> (B, b), B = I + D Phi^T Phi D / sig2, D = diag(sqrtlam)
+    scale=False -> (G, b), G = Phi^T Phi (sqrtlam and sig2 unused)
+    b = Phi^T (mask * y) in both cases; rows with mask 0 contribute nothing.
+    """
+    X = X.contiguous()
+    N, p = X.shape
+    y = y.reshape(-1).contiguous()
+    if y.shape[0] != N:
+        raise ValueError(f"fused_fit_moments: y has {y.shape[0]} rows, X has {N}")
+    if mask is None:
+        mask = torch.ones((N,), dtype=torch.float32, device=X.device)
+    mask = mask.reshape(-1).to(torch.float32).contiguous()
+    if mask.shape[0] != N:
+        raise ValueError(f"fused_fit_moments: mask has {mask.shape[0]} rows, X has {N}")
+    if scale:
+        if sqrtlam is None or sqrtlam.shape != (tile.M,):
+            raise ValueError("fused_fit_moments: scale=True needs sqrtlam of shape (M,)")
+        d = sqrtlam.contiguous()
+    else:
+        d = torch.ones((tile.M,), dtype=torch.float32, device=X.device)
+    _check_tile("fused_fit_moments", tile, p)
+    sig2 = float(sig2)
+    if _on_cuda("fused_fit_moments", X, y, mask, d, *tile.tensors()):
+        return _gram.phi_gram_cuda(X, y, mask, tile, d, sig2, scale)
+    return _gram.phi_gram_plain(X, y, mask, tile, d, sig2, scale)
+
+
+def diag_quad(A: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """diag(A C A^T): (N,) without the N x N matrix."""
+    A = A.contiguous()
+    C = C.contiguous()
+    if A.ndim != 2 or C.shape != (A.shape[1], A.shape[1]):
+        raise ValueError(f"diag_quad: shapes {tuple(A.shape)} and {tuple(C.shape)}")
+    if _on_cuda("diag_quad", A, C):
+        return _dq.diag_quad_cuda(A, C)
+    return _dq.diag_quad_plain(A, C)
+
+
+def chol_update(L: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """chol(L L^T + W^T W) for lower-triangular L (M, M) and W (K, M), by K
+    sequential rank-1 sweeps (returns a new tensor)."""
+    L = L.contiguous()
+    W = W.contiguous()
+    if L.ndim != 2 or L.shape[0] != L.shape[1] or W.ndim != 2 \
+            or W.shape[1] != L.shape[0]:
+        raise ValueError(f"chol_update: shapes {tuple(L.shape)} and {tuple(W.shape)}")
+    if _on_cuda("chol_update", L, W):
+        return _chol.chol_update_cuda(L, W)
+    return _chol.chol_update_plain(L, W)

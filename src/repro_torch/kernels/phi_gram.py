@@ -1,0 +1,70 @@
+"""Streaming fused fit: G = Phi^T Phi and b = Phi^T y with Phi never
+written to device memory, and with ``scale`` the epilogue
+B = I + D G D / sigma^2.  The CUDA kernel replaces the TPU kernel
+``repro/kernels/phi_gram.py::phi_gram_kernel``.
+
+CUDA kernel: ``csrc/phi_gram.cu``.  Bound on the H100: float32 operations
+on the CUDA cores (N M (M + 1) flops for the symmetric Gram).  Each block
+owns one 64 x 64 tile of the upper triangle, loops over all N rows itself
+(no atomics, no carry between blocks), regenerates the feature tiles from
+X in shared memory, and mirrors its tile below the diagonal.  Its plain
+version, :func:`phi_gram_plain`, materializes one row block of Phi at a
+time; it is what a CPU tensor runs.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .hermite_phi import KINDS, TileArgs, plain_tile
+
+__all__ = ["phi_gram_plain", "phi_gram_cuda", "COUNTER"]
+
+COUNTER = _build.LaunchCounter("phi_gram")
+_PLAIN_BLOCK = 4096
+
+
+def phi_gram_plain(X, y, mask, tile: TileArgs, d, sig2, scale: bool):
+    """Plain version: (B or G (M, M), b (M,)) accumulated over row blocks
+    of the masked features, b = Phi^T (mask * y)."""
+    M = tile.M
+    G = torch.zeros((M, M), dtype=torch.float32, device=X.device)
+    b = torch.zeros((M,), dtype=torch.float32, device=X.device)
+    for lo in range(0, X.shape[0], _PLAIN_BLOCK):
+        m = mask[lo:lo + _PLAIN_BLOCK]
+        Phi = plain_tile(X[lo:lo + _PLAIN_BLOCK], tile) * m[:, None]
+        G += Phi.T @ Phi
+        b += Phi.T @ (y[lo:lo + _PLAIN_BLOCK] * m)
+    if scale:
+        G = G * (d[:, None] * d[None, :] / sig2) \
+            + torch.eye(M, dtype=torch.float32, device=X.device)
+    return G, b
+
+
+def phi_gram_cuda(X, y, mask, tile: TileArgs, d, sig2: float, scale: bool):
+    """Launch ``csrc/phi_gram.cu`` on X's stream -> (B or G, b)."""
+    N, p = X.shape
+    M = tile.M
+    out = torch.empty((M, M), dtype=torch.float32, device=X.device)
+    b = torch.empty((M,), dtype=torch.float32, device=X.device)
+    if M == 0:
+        return out, b
+    lib = _build.library("phi_gram")
+    fn = lib.repro_phi_gram
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    rc = fn(_build.ptr(X), _build.ptr(y), _build.ptr(mask), N, p, M, KINDS[tile.kind],
+            tile.n_max, _build.ptr(tile.consts), _build.ptr(tile.coef), _build.ptr(tile.idx),
+            _build.ptr(tile.table), _build.ptr(d), float(sig2), int(bool(scale)),
+            _build.ptr(out), _build.ptr(b), ctypes.c_void_p(stream))
+    _build.check_launch(rc, "phi_gram")
+    COUNTER.add("scale" if scale else "moments")
+    return out, b
