@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of the FAGP system in ``repro`` (the JAX package).
 
-The layout mirrors ``repro`` (``core/``, ``kernels/``, ``data/``,
-``launch/``) so every module has a counterpart there, and the JAX package
+The layout mirrors ``repro`` (``core/``, ``kernels/``, ``bank/``,
+``data/``, ``launch/``) so every module has a counterpart there, and the JAX package
 is the reference each module is tested against.  The package imports
 ``torch`` only: nothing of ``jax`` and nothing of ``repro``.
 

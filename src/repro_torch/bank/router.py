@@ -1,0 +1,218 @@
+"""BankRouter: per-tenant queues coalesced into fixed-shape fleet batches.
+
+Counterpart of ``repro/bank/router.py``, the synchronous path.  Callers
+enqueue work addressed to individual tenants; the router coalesces it into
+padded mixed-tenant batches for :class:`~repro_torch.bank.GPBank`:
+
+* **Queries**: :meth:`submit` enqueues a query row for a tenant and returns
+  a ticket; :meth:`flush` packs all pending rows (arrival order) into
+  (microbatch, p) blocks, pads the tail by repeating the last real row
+  (results discarded), answers each block with one ``GPBank.mean_var``
+  call and returns ``ticket -> (mu, var)``.
+* **Observations**: :meth:`observe` enqueues an (x, y) pair for a tenant;
+  :meth:`ingest` pads each tenant's pending rows to chunks of
+  ``ingest_chunk`` (row-masked) and absorbs them with batched
+  ``GPBank.update`` rounds of distinct tenants; a tenant with more than one
+  chunk pending is spread across rounds.
+
+The router owns the bank reference: :meth:`ingest` replaces it with the
+updated (immutable) bank, and later :meth:`flush` calls serve the new
+posterior.  Telemetry (``metrics``/``tracer``), sharded banks, staleness
+tracking and re-optimization are not ported yet and raise
+:class:`~repro_torch.core.approximation.UnsupportedError`.
+"""
+from __future__ import annotations
+
+from typing import Hashable
+
+import numpy as np
+import torch
+
+from ..core.gp import _not_ported
+from .bank import GPBank
+
+__all__ = ["BankRouter"]
+
+_OBS = "pipelined serving with obs (ROADMAP A6)"
+
+
+class BankRouter:
+    """See module docstring.  Not thread-safe; one router per serving loop.
+
+    ``ingest_rounds`` counts the distinct-tenant update rounds absorbed so
+    far (the JAX router's ``router_ingest_rounds_total`` counter)."""
+
+    def __init__(self, bank: GPBank, *, microbatch: int = 64,
+                 ingest_chunk: int = 16, donate_updates: bool = False,
+                 metrics=None, tracer=None):
+        if microbatch < 1 or ingest_chunk < 1:
+            raise ValueError("microbatch and ingest_chunk must be >= 1")
+        if metrics is not None or tracer is not None:
+            _not_ported("BankRouter(metrics=..., tracer=...)", _OBS, bank.spec)
+        if donate_updates:
+            _not_ported("BankRouter(donate_updates=True)", _OBS, bank.spec)
+        self.bank = bank
+        self.microbatch = int(microbatch)
+        self.ingest_chunk = int(ingest_chunk)
+        self.ingest_rounds = 0
+        self._pending: list = []
+        self._observations: dict = {}
+        self._next_ticket = 0
+
+    # -- not ported ----------------------------------------------------------
+
+    def rebalance(self, **kwargs) -> int:
+        _not_ported("BankRouter.rebalance", "multi-device (ROADMAP A5)", self.bank.spec)
+
+    def stale_tenants(self, min_rows: int, *, retain=()) -> list:
+        _not_ported("BankRouter.stale_tenants",
+                    "NLML-gradient / optimize (ROADMAP A2)", self.bank.spec)
+
+    def reoptimize(self, tenant_ids, Xb, yb, mask=None, **kw) -> None:
+        _not_ported("BankRouter.reoptimize",
+                    "NLML-gradient / optimize (ROADMAP A2)", self.bank.spec)
+
+    # -- query path ---------------------------------------------------------
+
+    def _row(self, tenant: Hashable, x, what: str) -> np.ndarray:
+        self.bank.slot_of(tenant)  # fail fast on unknown tenants
+        x = np.asarray(x, np.float32).reshape(-1)
+        if x.shape[0] != self.bank.spec.p:
+            raise ValueError(
+                f"{what} row has p={x.shape[0]}, bank serves p={self.bank.spec.p}"
+            )
+        return x
+
+    def submit(self, tenant: Hashable, x) -> int:
+        """Enqueue one query row for ``tenant``; returns a ticket redeemed
+        by the next :meth:`flush`."""
+        x = self._row(tenant, x, "query")
+        ticket = self._next_ticket
+        self._next_ticket += 1
+        self._pending.append((ticket, tenant, x))
+        return ticket
+
+    @property
+    def pending(self) -> int:
+        return len(self._pending)
+
+    def take(self, k: int) -> list:
+        """Pop up to ``k`` pending query entries in arrival order, as opaque
+        ``(ticket, tenant, x)`` triples for :meth:`requeue` /
+        ``_pack_block``."""
+        k = max(0, int(k))
+        taken, self._pending = self._pending[:k], self._pending[k:]
+        return taken
+
+    def requeue(self, entries) -> None:
+        """Push taken entries back to the FRONT of the queue: arrival order
+        is preserved and every ticket stays redeemable."""
+        self._pending = list(entries) + self._pending
+
+    def _pack_block(self, block, size: int):
+        """Pad a taken block to ``size`` rows by repeating the last real row
+        (fixed shapes; padded results are discarded).  Returns (tenant
+        list, (size, p) float32 array)."""
+        pad = size - len(block)
+        tenants = [t for _, t, _ in block] + [block[-1][1]] * pad
+        Xq = np.stack([x for _, _, x in block] + [block[-1][2]] * pad)
+        return tenants, Xq
+
+    def flush(self) -> dict:
+        """Serve every pending query; returns ``ticket -> (mu, var)``
+        (floats), in fixed (microbatch, p) blocks.
+
+        If a block fails mid-flush, the WHOLE backlog (served blocks
+        included: queries are idempotent reads whose results would die
+        with the exception) is restored to the queue before the error
+        propagates, so every ticket stays redeemable once the caller
+        repairs the bank."""
+        if not self._pending:
+            return {}
+        todo, self._pending = self._pending, []
+        out: dict = {}
+        mb = self.microbatch
+        for lo in range(0, len(todo), mb):
+            block = todo[lo:lo + mb]
+            tenants, Xq = self._pack_block(block, mb)
+            try:
+                mu, var = self.bank.mean_var(tenants, torch.from_numpy(Xq))
+            except Exception:
+                self._pending = todo + self._pending
+                raise
+            mu = mu.cpu().numpy()
+            var = var.cpu().numpy()
+            for i, (ticket, _, _) in enumerate(block):
+                out[ticket] = (float(mu[i]), float(var[i]))
+        return out
+
+    # -- ingest path --------------------------------------------------------
+
+    def observe(self, tenant: Hashable, x, y) -> None:
+        """Enqueue one observation (x, y) for ``tenant``; absorbed by the
+        next :meth:`ingest`."""
+        x = self._row(tenant, x, "observation")
+        self._observations.setdefault(tenant, []).append((x, float(y)))
+
+    def ingest(self) -> int:
+        """Absorb every pending observation through batched
+        ``GPBank.update`` rounds; returns the number of rows absorbed.
+        Each round is a distinct-tenant batch of ``ingest_chunk``-row
+        groups (row-masked).  The group axis is padded to a power-of-two
+        bucket with fully-masked identity groups aimed at distinct unused
+        slots, so the batch shapes stay within log2(capacity) sizes.
+
+        If a round fails, its rows and everything still queued are restored
+        to the observation queue before the error propagates; earlier
+        rounds stay absorbed."""
+        if not self._observations:
+            return 0
+        queues = {t: list(rows) for t, rows in self._observations.items()}
+        self._observations = {}
+        k = self.ingest_chunk
+        absorbed = 0
+        p = self.bank.spec.p
+        while queues:
+            slots, Xg, yg, mg = [], [], [], []
+            taken: dict = {}
+            try:
+                for t in list(queues):
+                    rows, rest = queues[t][:k], queues[t][k:]
+                    if rest:
+                        queues[t] = rest
+                    else:
+                        del queues[t]
+                    taken[t] = rows
+                    X = np.zeros((k, p), np.float32)
+                    y = np.zeros((k,), np.float32)
+                    m = np.zeros((k,), np.float32)
+                    for i, (x, yv) in enumerate(rows):
+                        X[i], y[i], m[i] = x, yv, 1.0
+                    slots.append(self.bank.slot_of(t))
+                    Xg.append(X)
+                    yg.append(y)
+                    mg.append(m)
+                G = len(slots)
+                bucket = min(self.bank.capacity, 1 << (G - 1).bit_length())
+                if bucket > G:
+                    used = set(slots)
+                    free = (s for s in range(self.bank.capacity) if s not in used)
+                    for _ in range(bucket - G):
+                        slots.append(next(free))
+                        Xg.append(np.zeros((k, p), np.float32))
+                        yg.append(np.zeros((k,), np.float32))
+                        mg.append(np.zeros((k,), np.float32))
+                self.bank = self.bank._update_at_slots(
+                    torch.tensor(slots, dtype=torch.long),
+                    torch.from_numpy(np.stack(Xg)), torch.from_numpy(np.stack(yg)),
+                    torch.from_numpy(np.stack(mg)),
+                )
+            except Exception:
+                for t, rows in taken.items():
+                    queues[t] = rows + queues.get(t, [])
+                for t, rows in queues.items():
+                    self._observations[t] = rows + self._observations.get(t, [])
+                raise
+            absorbed += sum(len(rows) for rows in taken.values())
+            self.ingest_rounds += 1
+        return absorbed

@@ -1,9 +1,11 @@
-"""Carry a spec and a fitted state across from the JAX package.
+"""Carry a spec, a fitted state or a whole bank across from the JAX package.
 
-The caller hands over the JAX ``GPSpec`` / ``FAGPState`` leaves as numpy
-arrays (``np.asarray(jax_state.chol)``, ...) plus the static fields; this
-module never imports JAX.  A state carried across serves exactly as it
-did in the JAX package: ``GP.from_state(state_from_numpy(...)).mean_var``.
+The caller hands over the JAX ``GPSpec`` / ``FAGPState`` / ``GPBank``
+leaves as numpy arrays (``np.asarray(jax_state.chol)``, ...) plus the
+static fields; this module never imports JAX.  What is carried across
+serves exactly as it did in the JAX package:
+``GP.from_state(state_from_numpy(...)).mean_var`` and
+``bank_from_numpy(...).mean_var``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 from ..device import resolve_device
 from .fagp import FAGPState, GPSpec, _check_backend_support
 
-__all__ = ["spec_from_numpy", "state_from_numpy"]
+__all__ = ["spec_from_numpy", "state_from_numpy", "bank_from_numpy"]
 
 
 def _t(x, dev, dtype=torch.float32):
@@ -81,3 +83,45 @@ def state_from_numpy(
         sqrtlam=_t(sqrtlam, dev), chol=_t(chol, dev), u=_t(u, dev),
         b=_t(b, dev), spec=spec,
     )
+
+
+def bank_from_numpy(
+    *,
+    idx,
+    lam,
+    sqrtlam,
+    chol,
+    u,
+    b,
+    slots,
+    active,
+    spec: Optional[GPSpec] = None,
+    hypers=None,
+    device=None,
+    **spec_fields,
+):
+    """A port ``GPBank`` from a JAX bank: its stacked leaves (numpy, leading
+    capacity axis on lam/sqrtlam/chol/u/b), ``slots`` (tenant -> slot),
+    ``active`` (capacity,) and the spec (the port ``spec``, or the fields
+    :func:`spec_from_numpy` takes).  A heterogeneous bank (``hypers``) is
+    not ported yet and raises ``UnsupportedError``."""
+    from ..bank import GPBank
+
+    stack = state_from_numpy(idx=idx, lam=lam, sqrtlam=sqrtlam, chol=chol, u=u,
+                             b=b, spec=spec, device=device, **spec_fields)
+    C, M = stack.u.shape[0], stack.n_features
+    shapes = {"lam": (C, M), "sqrtlam": (C, M), "chol": (C, M, M), "u": (C, M),
+              "b": (C, M)}
+    for f, want in shapes.items():
+        if tuple(getattr(stack, f).shape) != want:
+            raise ValueError(f"bank_from_numpy: {f} must be {want}, got "
+                             f"{tuple(getattr(stack, f).shape)}")
+    active = np.asarray(active, bool)
+    slots = {t: int(s) for t, s in dict(slots).items()}
+    taken = sorted(slots.values())
+    if active.shape != (C,) or taken != sorted(np.flatnonzero(active).tolist()):
+        raise ValueError(
+            f"bank_from_numpy: slots {slots!r} must name each active slot of "
+            f"the (capacity={C},) active mask exactly once"
+        )
+    return GPBank(stack=stack, active=active, slots=slots, hypers=hypers)

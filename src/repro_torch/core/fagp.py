@@ -257,21 +257,8 @@ class FAGPState:
                     f"{f}={getattr(spec, f)!r}; structural choices are "
                     f"frozen into the factorization — refit instead"
                 )
-        want = spec.indices()
-        have = self.idx.detach().cpu().numpy()
-        if want.shape != have.shape or not np.array_equal(want, have):
-            raise ValueError(
-                f"spec/state mismatch: {spec.describe()} generates a "
-                f"different index table than this state was fitted with — "
-                f"refit instead"
-            )
-        for f in _HYPER_FIELDS:
-            if not _leaf_equal(getattr(spec, f), getattr(self.spec, f)):
-                raise ValueError(
-                    f"with_spec: spec/state mismatch: {f} differs from the "
-                    f"value this state was fitted with; hyperparameters are "
-                    f"frozen into the factorization — refit instead"
-                )
+        _check_spec_regenerates_idx(self, spec)
+        _check_hypers_match(self, spec, "with_spec")
         if spec.device != self.spec.device:
             raise ValueError(
                 f"with_spec: the state lives on {self.spec.device}, the spec "
@@ -279,6 +266,35 @@ class FAGPState:
             )
         _check_backend_support(spec)
         return dataclasses.replace(self, spec=spec)
+
+
+def _check_hypers_match(state: FAGPState, spec: GPSpec, who: str) -> None:
+    """Raise unless ``spec`` carries exactly the hyperparameter leaves
+    (eps/rho/noise, plus any RFF spectral draws) the state was factorized
+    with: the data half of every spec/state compatibility check (shared by
+    ``FAGPState.with_spec`` and the bank's admission checks)."""
+    for f in _HYPER_FIELDS:
+        if not _leaf_equal(getattr(spec, f), getattr(state.spec, f)):
+            raise ValueError(
+                f"{who}: spec/state mismatch: {f} differs from the value "
+                f"this state was fitted with; hyperparameters are frozen "
+                f"into the factorization — refit (or fit_update) instead"
+            )
+
+
+def _check_spec_regenerates_idx(state: FAGPState, spec: GPSpec) -> None:
+    """Raise unless ``spec`` regenerates exactly the index table baked into
+    the state: the structural half of every spec/state compatibility
+    check."""
+    have = state.idx.detach().cpu().numpy()
+    want = spec.indices()
+    if want.shape != have.shape or not np.array_equal(want, have):
+        raise ValueError(
+            f"spec/state mismatch: this state was fitted with "
+            f"{state.spec.describe()}, but {spec.describe()} generates a "
+            f"different index table; the expansion structure is frozen "
+            f"into the factorization — refit instead"
+        )
 
 
 def build_features(X: torch.Tensor, spec: GPSpec,
@@ -305,9 +321,10 @@ def _row_weight(mi: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def _assemble_scaled_system(G: torch.Tensor, loglam: torch.Tensor, sig2):
     """The one home of the f32 log-space scaled system:
-    B = I + D G D / sigma^2, D = diag(exp(0.5 log lambda)).
+    B = I + D G D / sigma^2, D = diag(exp(0.5 log lambda)), for one G
+    (M, M) or a stack (C, M, M) sharing the eigenvalues.
     Returns (B, sqrtlam)."""
-    M = G.shape[0]
+    M = G.shape[-1]
     sqrtlam = torch.exp(0.5 * loglam)
     B = torch.eye(M, dtype=G.dtype, device=G.device) \
         + (sqrtlam[:, None] * G * sqrtlam[None, :]) / sig2
@@ -371,8 +388,16 @@ class FitBackend:
     mean_var:    (state, Xs) -> (mu, var), the serving path.
     moments:     (X, y, spec, idx, block_rows, mask) -> raw (G, b).
     rank_update: (chol, W) -> chol(chol chol^T + W^T W), the K*8 <= M
-                 branch of ``fit_update``.
+                 branch of ``fit_update``; also takes a batch
+                 chol (G, M, M), W (G, K, M) (``GPBank.update``).
+    bank_moments: (Xb (B, N, p), yb (B, N), spec, idx, block_rows,
+                 maskb (B, N)) -> raw (G (B, M, M), b (B, M)) for B
+                 independent datasets (``GPBank.fit``); per-slot row masks
+                 express ragged per-tenant N.
     supports:    spec -> None, or the reason the backend refuses it.
+
+    The bank's serving path needs no hook of its own: it is the gathered
+    posterior over the backend's ``features`` (``_gathered_bank_mean_var``).
     """
 
     name: str
@@ -381,6 +406,7 @@ class FitBackend:
     mean_var: Callable[..., tuple]
     moments: Callable[..., tuple]
     rank_update: Callable[..., torch.Tensor]
+    bank_moments: Callable[..., tuple]
     supports: Callable[["GPSpec"], Optional[str]] = _supports_everything
 
 
@@ -456,6 +482,58 @@ def _jnp_mean_var(state, Xs):
     return mu, torch.sum(V * V, dim=0)
 
 
+# --- bank (multi-tenant) hooks ----------------------------------------------
+# One stacked FAGPState holds C independent fitted sessions (leading bank
+# axis on chol/u/b/lam/sqrtlam; idx and spec shared).  ``bank_moments``
+# computes B fits' sufficient statistics at once; ``_gathered_bank_mean_var``
+# answers one mixed-tenant query batch by gathering each row's slot state.
+
+
+def _bank_binv(chol_s: torch.Tensor) -> torch.Tensor:
+    """Per-slot B^{-1} (C, M, M) from the stacked Cholesky factors: the
+    bank's serving cache, computed once per bank version (``GPBank``
+    carries it across mutations, refreshing only the slots they touch)."""
+    return torch.cholesky_inverse(chol_s)
+
+
+def _bank_gathered_posterior(binv_s, u_s, sqrtlam_s, slots, Phis):
+    """Mixed-tenant posterior from a stacked state: query row q reads slot
+    ``slots[q]``.  binv_s (C, M, M), u_s and sqrtlam_s (C, M), slots (Q,),
+    Phis (Q, M) -> (mu (Q,), var (Q,))."""
+    mu = torch.sum(Phis * u_s[slots], dim=1)
+    PhisD = Phis * sqrtlam_s[slots]
+    var = torch.einsum("qm,qmn,qn->q", PhisD, binv_s[slots], PhisD)
+    return mu, var
+
+
+def _looped_bank_moments(moments):
+    """A ``bank_moments`` from a backend's single-model ``moments``: slot by
+    slot (the JAX package's vmap, written out), so each slot's sums are
+    exactly those of a single fit: the ``jnp`` backend's hook."""
+    def f(Xb, yb, spec, idx, block_rows, maskb=None):
+        B, N, _ = Xb.shape
+        if maskb is None:
+            maskb = torch.ones((B, N), dtype=torch.float32, device=Xb.device)
+        # banks hold SMALL tenants: never let a block pad a slot's few rows
+        # up to the default serving block
+        block_rows = min(block_rows, max(1, N))
+        out = [moments(Xb[s], yb[s], spec, idx, block_rows, maskb[s]) for s in range(B)]
+        return torch.stack([G for G, _ in out]), torch.stack([b for _, b in out])
+    return f
+
+
+def _gathered_bank_mean_var(features):
+    """The bank's serving function over a backend's feature map:
+    (stack, binv (C, M, M), slots (Q,), Xq (Q, p)) -> (mu, var) for a
+    mixed-tenant query batch against a stacked FAGPState, ``binv`` the
+    per-slot B^{-1} cache (``_bank_binv``).  The gathered path is
+    backend-independent; only the features differ."""
+    def f(stack, binv, slots, Xq):
+        Phis = features(Xq, stack.spec, stack.idx, stack)
+        return _bank_gathered_posterior(binv, stack.u, stack.sqrtlam, slots, Phis)
+    return f
+
+
 # --- pallas backend: the kernels --------------------------------------------
 
 
@@ -526,14 +604,23 @@ def _pallas_mean_var(state, Xs):
     return mu, var
 
 
+def _pallas_bank_moments(Xb, yb, spec, idx, block_rows, maskb=None):
+    """One launch of the bank kernel for the whole bank, whichever
+    expansion the bank's shared spec names (``block_rows`` unused: the
+    kernel streams its own rows)."""
+    return ops.bank_fused_fit_moments(Xb, yb, _tile(spec, idx), maskb)
+
+
 register_backend(FitBackend(
     name="jnp", fit=_jnp_fit, features=_jnp_features, mean_var=_jnp_mean_var,
     moments=_jnp_moments, rank_update=_chol.chol_update_plain,
+    bank_moments=_looped_bank_moments(_jnp_moments),
 ))
 register_backend(FitBackend(
     name="pallas", fit=_pallas_fit, features=_pallas_features,
     mean_var=_pallas_mean_var, moments=_pallas_moments,
     rank_update=ops.chol_update, supports=_pallas_supports,
+    bank_moments=_pallas_bank_moments,
 ))
 
 
@@ -561,19 +648,24 @@ def fit(X, y, spec: GPSpec) -> FAGPState:
     return backend.fit(X, y, _idx_tensor(spec, X.shape[1]), spec)
 
 
+def _rank_k_chol(chol, W, rank_update):
+    """chol(chol chol^T + W^T W) for one system (M, M) / (K, M) or a batch
+    (G, M, M) / (G, K, M): the one home of the K * 8 <= M switch."""
+    K, M = W.shape[-2:]
+    if K * 8 <= M:
+        # small K: sequential rank-1 sweeps, O(K M^2)
+        return rank_update(chol, W)
+    # K comparable to M: refactorize, O(M^3 / 3), still no pass over the
+    # original rows
+    return torch.linalg.cholesky(chol @ chol.mT + W.mT @ W)
+
+
 def _update_arrays(chol, b, sqrtlam, noise, Phi_new, y_new, rank_update):
     """Rank-K update core: (chol, b) -> (chol', b', u')."""
     sig2 = noise**2
     # B_new = B + sum_k v_k v_k^T,  v_k = D phi_k / sigma
     W = Phi_new * sqrtlam[None, :] / noise
-    K, M = W.shape
-    if K * 8 <= M:
-        # small K: sequential rank-1 sweeps, O(K M^2)
-        chol = rank_update(chol, W)
-    else:
-        # K comparable to M: refactorize, O(M^3 / 3), still no pass over
-        # the original rows
-        chol = torch.linalg.cholesky(chol @ chol.T + W.T @ W)
+    chol = _rank_k_chol(chol, W, rank_update)
     b = b + Phi_new.T @ y_new
     u = _solve_mean_weights(chol, sqrtlam, b, sig2)
     return chol, b, u
@@ -670,7 +762,8 @@ class _FagpApproximation(Approximation):
     """``spec.approximation == "fagp"``: the paper's decomposed-kernel family."""
 
     name = "fagp"
-    capabilities = frozenset({"fit", "predict", "mean_var", "update", "nlml"})
+    capabilities = frozenset({"fit", "predict", "mean_var", "update", "nlml",
+                              "bank"})
     state_type = FAGPState
 
     def validate(self, spec: Any) -> None:

@@ -2,9 +2,15 @@
 // written to device memory.  scale != 0 applies the epilogue
 // B = I + D G D / sigma^2 in the same kernel.
 //
-// Replaces the TPU kernel repro/kernels/phi_gram.py::phi_gram_kernel
-// (body _phi_gram_body, with the tile builders hermite_phi.py::phi_tile and
-// rff_phi.py::rff_tile inlined).
+// Replaces two TPU kernels with one source:
+//  * repro/kernels/phi_gram.py::phi_gram_kernel (one model; body
+//    _phi_gram_body) -- entry repro_phi_gram, a bank of one slot;
+//  * repro/kernels/phi_gram.py::bank_phi_gram_kernel (a bank of B
+//    independent models; body _bank_phi_gram_body) -- entry
+//    repro_bank_phi_gram: unscaled G_s = Phi_s^T Phi_s and
+//    b_s = Phi_s^T (mask_s * y_s) for every slot s in one launch;
+// with the tile builders hermite_phi.py::phi_tile and rff_phi.py::rff_tile
+// inlined.
 //
 // Bound on the H100: float32 operations on the CUDA cores.  The Gram is
 // N*M*(M+1) flops for its upper triangle (4.3e12 flops for the full square
@@ -12,7 +18,19 @@
 // y once, write B once), so the card's 67 TFLOP/s float32 rate is the
 // limit; TF32 tensor cores would be faster but break the 1e-3 parity gates.
 //
+// For a bank (B slots of N rows, M = 625 at the fleet's shape) the work is
+// B*N*M*(M+1) flops (2.0e12 at B = 512, N = 10^4), again far above its
+// bytes, so the same float32 rate bounds it.
+//
 // Design:
+//  * The slot is the grid's y axis: block (lin, s) of the bank kernel
+//    offsets X, y, mask, the output and b by slot s and computes tile lin
+//    of that slot's Gram.  Both kernels share one body (phi_gram_body);
+//    the one-model kernel has no offsets.  The offset pointers would cost
+//    the body 13 registers (61 instead of 48), cutting occupancy from 5 to
+//    4 blocks per SM, so the bank kernel asks for 5 blocks per SM in its
+//    launch bounds; that hint makes the one-model kernel slower, so it
+//    keeps the plain bound.
 //  * One block owns one 64 x 64 output tile and loops over all N rows
 //    inside the block, so no sum is carried between blocks: no atomics, no
 //    second pass.  This loop takes the place of the TPU's sequential grid
@@ -36,14 +54,23 @@ constexpr int kT = 64;     // output tile edge
 constexpr int kK = 32;     // rows per step
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
-phi_gram_kernel(const float* __restrict__ X, const float* __restrict__ y,
-                const float* __restrict__ mask, int N, int p, int M, int kind,
-                int n, const float* __restrict__ consts,
-                const float* __restrict__ coef, const int* __restrict__ idx,
-                const float* __restrict__ table, const float* __restrict__ d,
-                float sig2, int scale, float* __restrict__ out,
-                float* __restrict__ b) {
+template <bool kBank>
+__device__ __forceinline__ void
+phi_gram_body(const float* __restrict__ X, const float* __restrict__ y,
+              const float* __restrict__ mask, int N, int p, int M, int kind,
+              int n, const float* __restrict__ consts,
+              const float* __restrict__ coef, const int* __restrict__ idx,
+              const float* __restrict__ table, const float* __restrict__ d,
+              float sig2, int scale, float* __restrict__ out,
+              float* __restrict__ b) {
+  if (kBank) {
+    const size_t slot = blockIdx.y;
+    X += slot * N * p;
+    y += slot * N;
+    mask += slot * N;
+    out += slot * M * M;
+    b += slot * M;
+  }
   // linear block -> (bi, bj) with bi <= bj
   const long long lin = blockIdx.x;
   int bj = (int)((sqrt(8.0 * (double)lin + 1.0) - 1.0) * 0.5);
@@ -154,26 +181,73 @@ phi_gram_kernel(const float* __restrict__ X, const float* __restrict__ y,
   if (diag && tid < kT && bi * kT + tid < M) b[bi * kT + tid] = bacc;
 }
 
+// The two kernels: one body, two launch bounds (see the design notes).
+#define PHI_GRAM_PARAMS                                                     \
+  const float* __restrict__ X, const float* __restrict__ y,                 \
+      const float* __restrict__ mask, int N, int p, int M, int kind, int n, \
+      const float* __restrict__ consts, const float* __restrict__ coef,     \
+      const int* __restrict__ idx, const float* __restrict__ table,         \
+      const float* __restrict__ d, float sig2, int scale,                   \
+      float* __restrict__ out, float* __restrict__ b
+#define PHI_GRAM_ARGS \
+  X, y, mask, N, p, M, kind, n, consts, coef, idx, table, d, sig2, scale, out, b
+
+__global__ void __launch_bounds__(kThreads) phi_gram_kernel(PHI_GRAM_PARAMS) {
+  phi_gram_body<false>(PHI_GRAM_ARGS);
+}
+
+__global__ void __launch_bounds__(kThreads, 5)
+bank_phi_gram_kernel(PHI_GRAM_PARAMS) {
+  phi_gram_body<true>(PHI_GRAM_ARGS);
+}
+
+#undef PHI_GRAM_ARGS
+#undef PHI_GRAM_PARAMS
+
+int launch(const float* X, const float* y, const float* mask, int nbank, int N,
+           int p, int M, int kind, int n, const float* consts, const float* coef,
+           const int* idx, const float* table, const float* d, float sig2,
+           int scale, float* out, float* b, void* stream) {
+  const int col_words = (kind == repro::kHermite) ? p : p + 1;
+  const int row_words = (kind == repro::kHermite) ? p * n : p;
+  const size_t bytes = sizeof(float) * ((size_t)2 * kK * kT + 2 * kK +
+                                        (size_t)2 * col_words * kT +
+                                        (size_t)kK * row_words);
+  const int tiles = (M + kT - 1) / kT;
+  const long long blocks = (long long)tiles * (tiles + 1) / 2;
+  if (blocks > 2147483647LL || nbank < 1 || nbank > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks, (unsigned)nbank);
+  auto kernel = (nbank > 1) ? bank_phi_gram_kernel : phi_gram_kernel;
+  cudaError_t err = repro::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      X, y, mask, N, p, M, kind, n, consts, coef, idx, table, d, sig2, scale,
+      out, b);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// One model: B (scale != 0) or G, and b; X (N, p), y and mask (N,).
 extern "C" int repro_phi_gram(const float* X, const float* y, const float* mask,
                               int N, int p, int M, int kind, int n,
                               const float* consts, const float* coef,
                               const int* idx, const float* table, const float* d,
                               float sig2, int scale, float* out, float* b,
                               void* stream) {
-  const int col_words = (kind == repro::kHermite) ? p : p + 1;
-  const int row_words = (kind == repro::kHermite) ? p * n : p;
-  const size_t bytes = sizeof(float) * ((size_t)2 * kK * kT + 2 * kK +
-                                        (size_t)2 * col_words * kT +
-                                        (size_t)kK * row_words);
-  cudaError_t err = repro::allow_smem(phi_gram_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (M + kT - 1) / kT;
-  const long long blocks = (long long)tiles * (tiles + 1) / 2;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  phi_gram_kernel<<<(unsigned)blocks, kThreads, bytes, (cudaStream_t)stream>>>(
-      X, y, mask, N, p, M, kind, n, consts, coef, idx, table, d, sig2, scale,
-      out, b);
-  return (int)cudaGetLastError();
+  return launch(X, y, mask, 1, N, p, M, kind, n, consts, coef, idx, table, d,
+                sig2, scale, out, b, stream);
+}
+
+// A bank of nbank models: unscaled G (nbank, M, M) and b (nbank, M);
+// X (nbank, N, p), y and mask (nbank, N).
+extern "C" int repro_bank_phi_gram(const float* X, const float* y,
+                                   const float* mask, int nbank, int N, int p,
+                                   int M, int kind, int n, const float* consts,
+                                   const float* coef, const int* idx,
+                                   const float* table, float* G, float* b,
+                                   void* stream) {
+  return launch(X, y, mask, nbank, N, p, M, kind, n, consts, coef, idx, table,
+                nullptr, 1.f, 0, G, b, stream);
 }

@@ -23,8 +23,9 @@ from . import phi_gram as _gram
 from .hermite_phi import TileArgs
 
 __all__ = [
-    "TileArgs", "expansion_phi", "fused_fit_moments", "diag_quad",
-    "chol_update", "launch_counts", "reset_launch_counts",
+    "TileArgs", "expansion_phi", "fused_fit_moments",
+    "bank_fused_fit_moments", "diag_quad", "chol_update", "launch_counts",
+    "reset_launch_counts",
 ]
 
 _COUNTERS = (_phi.COUNTER, _gram.COUNTER, _dq.COUNTER, _chol.COUNTER)
@@ -122,6 +123,35 @@ def fused_fit_moments(
     return _gram.phi_gram_plain(X, y, mask, tile, d, sig2, scale)
 
 
+def bank_fused_fit_moments(
+    Xb: torch.Tensor,
+    yb: torch.Tensor,
+    tile: TileArgs,
+    mask: Optional[torch.Tensor] = None,
+):
+    """Raw fit moments of a bank of B independent models in one launch:
+    G (B, M, M) with G_s = Phi_s^T Phi_s and b (B, M) with
+    b_s = Phi_s^T (mask_s * y_s), Phi never materialized on the card.
+    Xb (B, N, p), yb (B, N), mask (B, N): rows with mask 0 contribute
+    nothing (ragged per-slot N on a fixed stack)."""
+    Xb = Xb.contiguous()
+    if Xb.ndim != 3:
+        raise ValueError(f"bank_fused_fit_moments: Xb must be (B, N, p), got {tuple(Xb.shape)}")
+    B, N, p = Xb.shape
+    yb = yb.contiguous()
+    if tuple(yb.shape) != (B, N):
+        raise ValueError(f"bank_fused_fit_moments: yb must be {(B, N)}, got {tuple(yb.shape)}")
+    if mask is None:
+        mask = torch.ones((B, N), dtype=torch.float32, device=Xb.device)
+    mask = mask.to(torch.float32).contiguous()
+    if tuple(mask.shape) != (B, N):
+        raise ValueError(f"bank_fused_fit_moments: mask must be {(B, N)}, got {tuple(mask.shape)}")
+    _check_tile("bank_fused_fit_moments", tile, p)
+    if _on_cuda("bank_fused_fit_moments", Xb, yb, mask, *tile.tensors()):
+        return _gram.bank_phi_gram_cuda(Xb, yb, mask, tile)
+    return _gram.bank_phi_gram_plain(Xb, yb, mask, tile)
+
+
 def diag_quad(A: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """diag(A C A^T): (N,) without the N x N matrix."""
     A = A.contiguous()
@@ -135,11 +165,13 @@ def diag_quad(A: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 
 def chol_update(L: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """chol(L L^T + W^T W) for lower-triangular L (M, M) and W (K, M), by K
-    sequential rank-1 sweeps (returns a new tensor)."""
+    sequential rank-1 sweeps, or for a batch of G independent systems,
+    L (G, M, M) and W (G, K, M), in one launch.  Returns a new tensor: the
+    inputs are never written."""
     L = L.contiguous()
     W = W.contiguous()
-    if L.ndim != 2 or L.shape[0] != L.shape[1] or W.ndim != 2 \
-            or W.shape[1] != L.shape[0]:
+    if L.ndim not in (2, 3) or W.ndim != L.ndim or L.shape[-1] != L.shape[-2] \
+            or W.shape[-1] != L.shape[-1] or L.shape[:-2] != W.shape[:-2]:
         raise ValueError(f"chol_update: shapes {tuple(L.shape)} and {tuple(W.shape)}")
     if _on_cuda("chol_update", L, W):
         return _chol.chol_update_cuda(L, W)

@@ -1,7 +1,9 @@
 """Streaming fused fit: G = Phi^T Phi and b = Phi^T y with Phi never
 written to device memory, and with ``scale`` the epilogue
-B = I + D G D / sigma^2.  The CUDA kernel replaces the TPU kernel
-``repro/kernels/phi_gram.py::phi_gram_kernel``.
+B = I + D G D / sigma^2.  The CUDA kernel replaces the TPU kernels
+``repro/kernels/phi_gram.py::phi_gram_kernel`` (one model) and
+``repro/kernels/phi_gram.py::bank_phi_gram_kernel`` (a bank of B models:
+unscaled G_s and b_s for every slot s in one launch, the slot a grid axis).
 
 CUDA kernel: ``csrc/phi_gram.cu``.  Bound on the H100: float32 operations
 on the CUDA cores (N M (M + 1) flops for the symmetric Gram).  Each block
@@ -9,7 +11,9 @@ owns one 64 x 64 tile of the upper triangle, loops over all N rows itself
 (no atomics, no carry between blocks), regenerates the feature tiles from
 X in shared memory, and mirrors its tile below the diagonal.  Its plain
 version, :func:`phi_gram_plain`, materializes one row block of Phi at a
-time; it is what a CPU tensor runs.
+time; it is what a CPU tensor runs.  The bank's plain version,
+:func:`bank_phi_gram_plain`, runs it slot by slot, so it never forms a
+(B, N, M) Phi either.
 """
 from __future__ import annotations
 
@@ -20,10 +24,12 @@ import torch
 from . import _build
 from .hermite_phi import KINDS, TileArgs, plain_tile
 
-__all__ = ["phi_gram_plain", "phi_gram_cuda", "COUNTER"]
+__all__ = ["phi_gram_plain", "phi_gram_cuda", "bank_phi_gram_plain",
+           "bank_phi_gram_cuda", "COUNTER"]
 
 COUNTER = _build.LaunchCounter("phi_gram")
 _PLAIN_BLOCK = 4096
+MAX_BANK = 65535  # slots are the grid's y axis
 
 
 def phi_gram_plain(X, y, mask, tile: TileArgs, d, sig2, scale: bool):
@@ -68,3 +74,43 @@ def phi_gram_cuda(X, y, mask, tile: TileArgs, d, sig2: float, scale: bool):
     _build.check_launch(rc, "phi_gram")
     COUNTER.add("scale" if scale else "moments")
     return out, b
+
+
+def bank_phi_gram_plain(Xb, yb, maskb, tile: TileArgs):
+    """Plain version of the bank kernel: unscaled (G (B, M, M), b (B, M)),
+    slot by slot in row blocks."""
+    B = Xb.shape[0]
+    G = torch.empty((B, tile.M, tile.M), dtype=torch.float32, device=Xb.device)
+    b = torch.empty((B, tile.M), dtype=torch.float32, device=Xb.device)
+    for s in range(B):
+        G[s], b[s] = phi_gram_plain(Xb[s], yb[s], maskb[s], tile, None, 1.0, False)
+    return G, b
+
+
+def bank_phi_gram_cuda(Xb, yb, maskb, tile: TileArgs):
+    """Launch ``csrc/phi_gram.cu``'s bank entry on Xb's stream: one launch
+    for all B slots -> unscaled (G (B, M, M), b (B, M))."""
+    B, N, p = Xb.shape
+    M = tile.M
+    G = torch.empty((B, M, M), dtype=torch.float32, device=Xb.device)
+    b = torch.empty((B, M), dtype=torch.float32, device=Xb.device)
+    if B == 0 or M == 0:
+        return G, b
+    if B > MAX_BANK:
+        raise ValueError(f"the bank kernel takes at most {MAX_BANK} slots, got {B}")
+    lib = _build.library("phi_gram")
+    fn = lib.repro_bank_phi_gram
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(Xb.device).cuda_stream
+    rc = fn(_build.ptr(Xb), _build.ptr(yb), _build.ptr(maskb), B, N, p, M,
+            KINDS[tile.kind], tile.n_max, _build.ptr(tile.consts),
+            _build.ptr(tile.coef), _build.ptr(tile.idx), _build.ptr(tile.table),
+            _build.ptr(G), _build.ptr(b), ctypes.c_void_p(stream))
+    _build.check_launch(rc, "phi_gram (bank)")
+    COUNTER.add("bank")
+    return G, b

@@ -1,12 +1,22 @@
-"""Serve one GP session: fit, then rounds of rank-k ingest and microbatched
-``mean_var`` queries.
+"""GP serving loops: one session, or a whole fleet through the bank router.
 
-Counterpart of ``repro/launch/serve_gp.py::serve_gp`` (the single-session
-loop; the fleet, bank and telemetry paths come with later slices):
+Counterpart of ``repro/launch/serve_gp.py``:
+
+* ``serve_gp``    ONE fitted session serves microbatched ``mean_var``
+  queries while new observations stream in (rank-k ingest).
+* ``serve_fleet`` MANY independent sessions (one per tenant) live in a
+  :class:`~repro_torch.bank.GPBank` and traffic flows through a
+  :class:`~repro_torch.bank.BankRouter`: the synchronous loop
+  (``engine="sync"``).  The pipelined engine, the tiered, sharded and
+  re-optimized fleets and telemetry come with later slices (ROADMAP.md)
+  and raise ``UnsupportedError``.
 
   python -m repro_torch.launch.serve_gp --backend pallas --device cuda \\
       --n-train 10000 --p 4 --n 11 --rounds 4 --update-size 64 \\
       --queries 1024 --microbatch 128
+  python -m repro_torch.launch.serve_gp --backend pallas --device cuda \\
+      --fleet 512 --engine sync --n-train 10000 --p 4 --n 5 --rounds 4 \\
+      --update-size 2048 --queries 8192 --microbatch 256
 
 Times are host-clock seconds around work that ends in
 ``torch.cuda.synchronize()`` on a card.
@@ -20,12 +30,13 @@ import time
 import numpy as np
 import torch
 
+from ..bank import BankRouter, GPBank
 from ..core import fagp
-from ..core.gp import GP, GPSpec
+from ..core.gp import GP, GPSpec, _not_ported
 from ..data import make_gp_dataset
 from ..device import resolve_device
 
-__all__ = ["serve_gp", "microbatched_mean_var"]
+__all__ = ["serve_gp", "serve_fleet", "fleet_dataset", "microbatched_mean_var"]
 
 
 def _sync(device: torch.device) -> None:
@@ -113,10 +124,165 @@ def serve_gp(
             "device": str(dev), "gp": gp}
 
 
+def fleet_dataset(rng: np.random.Generator, *, tenants: int, n_train: int,
+                  p: int, rounds: int, observations_per_round: int,
+                  noise: float, seed: int):
+    """The fleet's data, drawn exactly as the JAX package's ``serve_fleet``
+    draws it: tenant t observes the Eq. 21 target shifted by its own offset
+    (one ``rng`` draw), from a pool made with seed ``seed + t``.  Returns
+    (offsets (tenants,), Xb (tenants, n_train, p), yb (tenants, n_train),
+    pools: per-tenant (X_all, y_all) numpy arrays)."""
+    offsets = rng.uniform(-1.0, 1.0, size=tenants).astype(np.float32)
+    total = n_train + rounds * max(
+        1, observations_per_round // max(1, tenants)) + observations_per_round
+    Xb = np.zeros((tenants, n_train, p), np.float32)
+    yb = np.zeros((tenants, n_train), np.float32)
+    pools = []
+    for t in range(tenants):
+        X_all, y_all, _, _ = make_gp_dataset(total, p, noise=noise, seed=seed + t,
+                                             device="cpu")
+        X_all, y_all = X_all.numpy(), y_all.numpy() + offsets[t]
+        Xb[t], yb[t] = X_all[:n_train], y_all[:n_train]
+        pools.append((X_all, y_all))
+    return offsets, Xb, yb, pools
+
+
+_OBS = "pipelined serving with obs (ROADMAP A6)"
+
+
+def serve_fleet(
+    *,
+    backend: str = "jnp",
+    tenants: int = 64,
+    n_train: int = 64,
+    p: int = 2,
+    n: int = 8,
+    rounds: int = 4,
+    queries_per_round: int = 512,
+    observations_per_round: int = 128,
+    microbatch: int = 64,
+    ingest_chunk: int = 16,
+    noise: float = 0.05,
+    seed: int = 0,
+    reopt_every: int = 0,
+    engine: str = "pipelined",
+    capacity=None,
+    cold_dir=None,
+    window: int = 0,
+    shards: int = 0,
+    metrics=None,
+    tracer=None,
+    watchdog=None,
+    device=None,
+) -> dict:
+    """Serve a fleet of ``tenants`` independent GPs concurrently.
+
+    Each tenant observes its own shifted copy of the synthetic target
+    (:func:`fleet_dataset`).  Every round, per-tenant observation streams
+    are absorbed with batched ``GPBank.update`` rounds, then mixed-tenant
+    query traffic (a uniformly random tenant per query) flows through the
+    router in padded microbatches.  Reported per round, as in the JAX
+    package: ingest time, query wall time, its mean per microbatch,
+    fleet-wide queries/s and the RMSE against each tenant's own
+    noise-free target; the port adds ``ingest_rounds`` (distinct-tenant
+    update rounds) and ``var_finite``.  The returned dict also carries the
+    final bank under ``"bank"``.
+
+    Only ``engine="sync"`` is ported (the JAX default, ``"pipelined"``,
+    raises ``UnsupportedError``), and so do ``cold_dir``, ``window``,
+    ``shards``, ``reopt_every``, ``metrics``, ``tracer`` and ``watchdog``.
+    The JAX signature's knobs that only those paths read (the pipelined
+    engine's ``max_in_flight``, ``queue_budget`` and ``slo_s``, the
+    ``reopt_*`` settings) and the record fields they fill (``timeouts``,
+    ``reopt_s``, ``reopt_tenants``, ``aged_rows``) come with their paths.
+    Times are host-clock seconds around work that ends in
+    ``torch.cuda.synchronize()`` on a card.
+    """
+    if engine not in ("pipelined", "sync"):
+        raise ValueError(f"engine must be 'pipelined' or 'sync', got {engine!r}")
+    if engine == "pipelined":
+        _not_ported("serve_fleet(engine='pipelined')", _OBS)
+    for name, given, item in (
+        ("cold_dir", cold_dir is not None, "checkpoints (ROADMAP A3) and " + _OBS),
+        ("window", bool(window), "bank downdate / refit_window (ROADMAP A1b)"),
+        ("shards", bool(shards), "multi-device (ROADMAP A5)"),
+        ("reopt_every", bool(reopt_every), "NLML-gradient / optimize (ROADMAP A2)"),
+        ("metrics", metrics is not None, _OBS),
+        ("tracer", tracer is not None, _OBS),
+        ("watchdog", watchdog is not None, _OBS),
+    ):
+        if given:
+            _not_ported(f"serve_fleet({name}=...)", item)
+    if capacity is not None:
+        raise ValueError("capacity/window need a cold tier; pass cold_dir")
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    spec = GPSpec.create(n, eps=np.full((p,), 0.8, np.float32), rho=2.0,
+                         noise=noise, backend=backend, device=dev)
+    offsets, Xb, yb, pools = fleet_dataset(
+        rng, tenants=tenants, n_train=n_train, p=p, rounds=rounds,
+        observations_per_round=observations_per_round, noise=noise, seed=seed)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    bank = GPBank.fit(torch.from_numpy(Xb), torch.from_numpy(yb), spec)
+    _sync(dev)
+    t_fit = time.perf_counter() - t0
+
+    router = BankRouter(bank, microbatch=microbatch, ingest_chunk=ingest_chunk)
+    consumed = [n_train] * tenants
+    history = []
+    for r in range(rounds):
+        # -- ingest: each tenant streams a few fresh observations ----------
+        for _ in range(observations_per_round):
+            t = int(rng.integers(0, tenants))
+            X_all, y_all = pools[t]
+            i = consumed[t] % X_all.shape[0]
+            consumed[t] += 1
+            router.observe(t, X_all[i], y_all[i])
+        rounds_before = router.ingest_rounds
+        t0 = time.perf_counter()
+        absorbed = router.ingest()
+        _sync(dev)
+        t_ingest = time.perf_counter() - t0
+
+        # -- queries: mixed-tenant traffic through the router --------------
+        q_tenants = rng.integers(0, tenants, queries_per_round)
+        Xq = rng.uniform(-1.0, 1.0, size=(queries_per_round, p)).astype(np.float32)
+        tickets = [router.submit(int(t), Xq[i]) for i, t in enumerate(q_tenants)]
+        t0 = time.perf_counter()
+        results = router.flush()
+        t_query = time.perf_counter() - t0
+        mu = np.array([results[tk][0] for tk in tickets])
+        var = np.array([results[tk][1] for tk in tickets])
+        # RMSE of each query against its own tenant's (noise-free) Eq. 21
+        # target sum_j cos(x_j) + offset_t
+        truth = np.sum(np.cos(Xq), axis=1) + offsets[q_tenants]
+        nb = max(1, (queries_per_round + microbatch - 1) // microbatch)
+        history.append({
+            "round": r,
+            "rows_absorbed": absorbed,
+            "ingest_s": t_ingest,
+            "query_s": t_query,
+            "query_mean_s": t_query / nb,
+            "queries_per_s": queries_per_round / t_query,
+            "rmse": float(np.sqrt(np.mean((mu - truth) ** 2))),
+            "ingest_rounds": router.ingest_rounds - rounds_before,
+            "var_finite": bool(np.all(np.isfinite(var))),
+        })
+    return {"fit_s": t_fit, "tenants": tenants, "rounds": history,
+            "M": bank.n_features, "engine": engine, "device": str(dev),
+            "bank": router.bank}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--backend", default="jnp", choices=fagp.available_backends())
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--fleet", type=int, default=0, metavar="B",
+                    help="serve a bank of B tenants instead of one session")
+    ap.add_argument("--engine", default="pipelined", choices=["pipelined", "sync"],
+                    help="fleet serving frontend (only 'sync' is ported)")
     ap.add_argument("--n-train", type=int, default=2048)
     ap.add_argument("--p", type=int, default=2)
     ap.add_argument("--n", type=int, default=8)
@@ -127,6 +293,25 @@ def main(argv=None) -> None:
     ap.add_argument("--noise", type=float, default=0.05)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.fleet:
+        out = serve_fleet(
+            backend=args.backend, tenants=args.fleet, n_train=args.n_train,
+            p=args.p, n=args.n, rounds=args.rounds,
+            queries_per_round=args.queries,
+            observations_per_round=args.update_size,
+            microbatch=args.microbatch, noise=args.noise, seed=args.seed,
+            engine=args.engine, device=args.device,
+        )
+        print(f"fleet of {out['tenants']} fitted in {out['fit_s'] * 1e3:.1f} ms "
+              f"(M={out['M']} each; {out['engine']} engine; device={out['device']})")
+        for h in out["rounds"]:
+            print(f"round {h['round']}: ingest {h['rows_absorbed']} rows "
+                  f"{h['ingest_s'] * 1e3:.1f} ms; query mean "
+                  f"{h['query_mean_s'] * 1e3:.2f} ms/microbatch; "
+                  f"{h['queries_per_s']:.0f} q/s; rmse {h['rmse']:.4f}")
+        out.pop("bank")
+        print(json.dumps(out))
+        return
     out = serve_gp(
         backend=args.backend, n_train=args.n_train, p=args.p, n=args.n,
         rounds=args.rounds, update_size=args.update_size,
