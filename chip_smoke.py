@@ -39,7 +39,20 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    the plain (``jnp``) path on the same states, an insert/evict round trip,
    and a small RFF fleet (rff_se, M = 512, 64 tenants of N = 2,000) through
    ``GPBank`` and ``BankRouter`` with its own launch counts.  Every plain
-   version is checked to launch nothing.
+   version is checked to launch nothing;
+6. the paper's materialized pipeline at ``MAIN``'s full width (N = 10^4,
+   M = 14,641): ``GP.fit`` with ``store_train=True`` (one fused-fit and one
+   features launch; u bitwise equal to a fit without stored features),
+   then the scaled-Gram kernel on the stored Phi (one launch), held against
+   its plain version and, bitwise, against the fused-fit kernel's B, the u
+   solved from it against the state's; kernel, plain and ``Phi^T Phi``
+   timed, and the two-pass materialized fit against the one-pass fused fit
+   (time and peak memory); the kernel at a ragged shape, at the fleet's
+   M = 625 and on a bfloat16 Phi; ``predict(mode="paper")`` on 1,024
+   queries (timed, finite, its gap to the fused mode printed), the same
+   chain in float64 against the float64 fused mode at full width, and, at
+   N = 50, float32 paper mode equal to the fused mode; ``GP.save`` /
+   ``GP.load`` of the full-width session, bitwise.
 
 Prints one JSON line with every kernel's numbers, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -53,6 +66,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -70,6 +84,7 @@ EXPECTED = {
     "phi_gram": {"scale": 1, "moments": 1},
     "diag_quad": {"": 32},
     "chol_update": {"": 4},
+    "scaled_gram": {},
 }
 # the small session on the card: 1 fit; per round (2) one update (a
 # feature launch and a sweep, K·8 = 48 <= M = 64) and 2 microbatches; then
@@ -81,6 +96,7 @@ SMALL_EXPECTED = {
     "phi_gram": {"scale": 1},
     "diag_quad": {"": 5},
     "chol_update": {"": 2},
+    "scaled_gram": {},
 }
 # phase 5, the fleet (serve_fleet(engine="sync")): 512 paper-scale tenants
 # (benchmarks/fig1_time_vs_n_p.py grid point N = 10^4, p = 4, n = 5, M = 625)
@@ -96,6 +112,16 @@ PATH_EXPECTED = {
     "phi_gram": {"scale": 1},
     "diag_quad": {"": 8},
     "chol_update": {},
+    "scaled_gram": {},
+}
+# phase 6, the stored-features fit: one fused fit (the Gram) and one
+# features launch (the stored Phi); then one scaled-Gram launch on it
+PAPER_FIT_EXPECTED = {
+    "phi_features": {"": 1},
+    "phi_gram": {"scale": 1},
+    "diag_quad": {},
+    "chol_update": {},
+    "scaled_gram": {},
 }
 
 
@@ -125,6 +151,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import chol_update as kchol
     from repro_torch.kernels import diag_quad as kdq
+    from repro_torch.kernels import gram as ksg
     from repro_torch.kernels import hermite_phi as kphi
     from repro_torch.kernels import phi_gram as kgram
     from repro_torch.bank import BankRouter, GPBank
@@ -490,6 +517,7 @@ def main() -> int:
         "phi_gram": {"bank": 1},
         "diag_quad": {},
         "chol_update": {"batched": ingest_rounds},
+        "scaled_gram": {},
     }
     print(f"[fleet] launches={json.dumps(fcounts)}")
     check(FM == 625, f"the fleet ran at M={FM}, expected 625")
@@ -713,6 +741,7 @@ def main() -> int:
         "phi_gram": {"bank": 1},
         "diag_quad": {},
         "chol_update": {"batched": router.ingest_rounds},
+        "scaled_gram": {},
     }
     print(f"[rff fleet] M={router.bank.n_features} rmse={r_rmse:.5f} "
           f"ingest_rounds={router.ingest_rounds} launches={json.dumps(rcounts)}")
@@ -726,6 +755,226 @@ def main() -> int:
               f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
               f"({r['bound'][1]}) max_abs_err={r['max_abs_err']:.3e}")
     print(f"[fleet] phase took {time.perf_counter() - fleet_t0:.1f} s")
+
+    # -- 6. the paper's materialized pipeline at full width -------------------
+    paper_t0 = time.perf_counter()
+    N, p, n = MAIN["n_train"], MAIN["p"], MAIN["n"]
+    sig2 = float(spec.noise**2)
+
+    def gram_cs(Phi, d, s2):
+        """Cauchy-Schwarz magnitudes |phi_i| |phi_j| d_i d_j / sig2 of the
+        scaled Gram's sums (gram_scales, from a materialized Phi)."""
+        cn = Phi.float().norm(dim=0) * d
+        return [cn[:, None] * cn[None, :] / s2]
+
+    # the path: GP.fit with store_train, then the scaled Gram of its Phi
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    pgp = GP.fit(X0, y0, spec.replace(store_train=True))
+    fit_counts = ops.launch_counts()
+    st = pgp.state
+    Phi, sq = st.Phi, st.sqrtlam
+    B_mat = ops.scaled_gram(Phi, sq, sig2)
+    pcounts = ops.launch_counts()
+    print(f"[paper] store_train fit launches={json.dumps(fit_counts)}; "
+          f"with scaled_gram {json.dumps(pcounts)}")
+    check(fit_counts == PAPER_FIT_EXPECTED,
+          f"store_train fit launch counts {fit_counts} != {PAPER_FIT_EXPECTED}")
+    check(pcounts == dict(PAPER_FIT_EXPECTED, scaled_gram={"": 1}),
+          f"scaled_gram on the stored Phi: launch counts {pcounts}")
+    check(tuple(Phi.shape) == (N, M) and Phi.dtype == torch.float32 and Phi.is_cuda,
+          f"stored Phi is {tuple(Phi.shape)} {Phi.dtype} on {Phi.device}")
+    check(torch.equal(st.y, y0), "the stored y is not the fitted y")
+    ref_state = GP.fit(X0, y0, spec).state
+    check(torch.equal(st.u, ref_state.u) and torch.equal(st.chol, ref_state.chol),
+          "store_train changed the fit (u or chol not bitwise equal)")
+    del ref_state
+
+    # the scaled-Gram kernel (TPU #5) against its plain version and against
+    # the fused-fit kernel's B of the same X: two independent kernels
+    sB = gram_cs(Phi, sq, sig2)
+    err = compare(f"scaled_gram vs plain ({N}x{M})", [B_mat],
+                  [plain(lambda: ksg.scaled_gram_plain(Phi, sq, sig2))], scales=sB, **tol_fit)
+    check(bool(torch.equal(B_mat, B_mat.T)), "scaled_gram's B is not exactly symmetric")
+    B_f, _ = ops.fused_fit_moments(X0, y0, tile, sq, sig2)
+    err = max(err, compare(f"scaled_gram vs the fused-fit kernel's B ({N}x{M})", [B_mat],
+                           [B_f], scales=sB, **tol_fit))
+    # both kernels sum the same float32 products in the same row order
+    check(bool(torch.equal(B_mat, B_f)),
+          "scaled_gram's B is not bitwise equal to the fused-fit kernel's B")
+    print("[check] scaled_gram's B is bitwise equal to the fused-fit kernel's B -> ok")
+    del B_f
+    u_mat = fagp._solve_mean_weights(torch.linalg.cholesky(B_mat), sq, Phi.T @ st.y, sig2)
+    compare("u from cholesky(B_mat) vs the state's u", [u_mat], [st.u], rtol=5e-3,
+            atol=1e-4, why="tests/test_streaming_fit.py:214 u gate")
+    del B_mat, u_mat
+    torch.cuda.empty_cache()
+    sg_flops = N * M * (M + 1) + 3 * M * M
+    sg_bytes = 4 * (N * M + M + M * M)
+    rows["scaled_gram"] = dict(
+        source="src/repro_torch/kernels/csrc/scaled_gram.cu",
+        replaces="src/repro/kernels/gram.py:64", max_abs_err=err,
+        launches=pcounts["scaled_gram"][""],
+        ms=cuda_ms(lambda: ops.scaled_gram(Phi, sq, sig2)),
+        plain_ms=cuda_ms(lambda: ksg.scaled_gram_plain(Phi, sq, sig2)),
+        library_ms=cuda_ms(lambda: torch.matmul(Phi.T, Phi)),
+        bound=bound(sg_flops, sg_bytes))
+
+    # the JAX benchmark's comparison (benchmarks/streaming_fit.py:40-51):
+    # the two-pass materialized fit against the one-pass fused fit
+    def materialized():
+        Ph = ops.expansion_phi(X0, tile)
+        return ops.scaled_gram(Ph, sq, sig2), Ph.T @ y0
+
+    fits = {}
+    for label, fn in (("materialized_2pass", materialized),
+                      ("fused_1pass", lambda: ops.fused_fit_moments(X0, y0, tile, sq, sig2))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        fits[label] = {"peak_bytes": torch.cuda.max_memory_allocated() - base}
+        del res
+        fits[label]["ms"] = cuda_ms(fn, reps=5, warmup=1)
+    print(f"[paper] fit statistics (N={N}, M={M}): {json.dumps(fits)}")
+
+    # other shapes: ragged (N = 300, M = 257), the fleet's M = 625 at
+    # N = 10^4, and a bfloat16 Phi at full width
+    Pr = torch.randn(300, 257, generator=gen).to(dev)
+    dr = torch.linspace(1.0, 1e-3, 257).to(dev)
+    compare("ragged scaled_gram (300x257)", [ops.scaled_gram(Pr, dr, 0.01)],
+            [plain(lambda: ksg.scaled_gram_plain(Pr, dr, 0.01))],
+            scales=gram_cs(Pr, dr, 0.01), **tol_fit)
+    f625, fsq625, fsig625 = tile_of(spec_for("hermite", p, 5))
+    P625 = plain(lambda: kphi.phi_features_plain(X0, f625))
+    compare(f"scaled_gram at the fleet's M ({N}x{f625.M})",
+            [ops.scaled_gram(P625, fsq625, fsig625)],
+            [plain(lambda: ksg.scaled_gram_plain(P625, fsq625, fsig625))],
+            scales=gram_cs(P625, fsq625, fsig625), **tol_fit)
+    del P625
+    # bfloat16: kernel and plain version widen the same values, so the
+    # float32 gate holds (far inside tests/test_kernels.py:104's 5e-2)
+    Pbf = Phi.to(torch.bfloat16)
+    Bbf = ops.scaled_gram(Pbf, sq, sig2)
+    check(Bbf.dtype == torch.float32, "scaled_gram of a bfloat16 Phi is not float32")
+    compare(f"scaled_gram bfloat16 Phi ({N}x{M})", [Bbf],
+            [plain(lambda: ksg.scaled_gram_plain(Pbf, sq, sig2))],
+            scales=gram_cs(Pbf, sq, sig2), **tol_fit)
+    print(f"[paper] scaled_gram bfloat16 Phi: ms="
+          f"{cuda_ms(lambda: ops.scaled_gram(Pbf, sq, sig2), reps=5, warmup=1):.4f}")
+    del Pbf, Bbf
+    torch.cuda.empty_cache()
+
+    # predict(mode="paper"): the literal Eqs. 11-12 chain on 1,024 queries
+    # (its float32 N x N inverse cancels at this N, ROADMAP.md section C:
+    # timed and held finite, its gap to the fused mode printed, no gate)
+    Xq_all = Xs[:MAIN["queries"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mu_p, cov_p = pgp.predict(Xq_all, mode="paper")
+    torch.cuda.synchronize()
+    paper_pred_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mu_f, cov_f = pgp.predict(Xq_all)
+    torch.cuda.synchronize()
+    fused_pred_s = time.perf_counter() - t0
+    Q = Xq_all.shape[0]
+    check(tuple(mu_p.shape) == (Q,) and tuple(cov_p.shape) == (Q, Q),
+          f"paper mode shapes {tuple(mu_p.shape)} {tuple(cov_p.shape)}")
+    check(bool(torch.isfinite(mu_p).all() and torch.isfinite(cov_p).all()),
+          "paper mode is not finite at full width")
+    print(f"[paper] predict(mode='paper') {Q} queries: {paper_pred_s:.4f} s "
+          f"(fused {fused_pred_s:.4f} s); gap to fused: mean "
+          f"{float((mu_p - mu_f).abs().max()):.3e}, covariance "
+          f"{float((cov_p - cov_f).abs().max()):.3e} (largest covariance entry "
+          f"{float(cov_f.abs().max()):.3e}); rmse paper "
+          f"{float(((mu_p - ys[:Q]) ** 2).mean().sqrt()):.5f}, fused "
+          f"{float(((mu_f - ys[:Q]) ** 2).mean().sqrt()):.5f}")
+    # a second witness at full width: the same chain (fagp._paper_chain) in
+    # float64, from the stored Phi and y cast up with B rebuilt and factored
+    # in float64, against the float64 fused mode of that factor
+    f64 = torch.float64
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Phi64, y64, D64 = Phi.to(f64), st.y.to(f64), sq.to(f64)
+    Phis64 = fagp.build_features(Xq_all, pgp.spec, st.idx).to(f64)
+    chol64 = torch.linalg.cholesky(torch.eye(M, dtype=f64, device=dev)
+                                   + D64[:, None] * (Phi64.T @ Phi64) * D64[None, :] / sig2)
+    mu_p64, cov_p64 = fagp._paper_chain(Phi64, y64, Phis64, D64 * D64, D64, chol64, sig2)
+    u64 = fagp._solve_mean_weights(chol64, D64, Phi64.T @ y64, sig2)
+    V64 = torch.linalg.solve_triangular(chol64, (Phis64 * D64[None, :]).T, upper=False)
+    mu_f64, cov_f64 = Phis64 @ u64, V64.T @ V64
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    del Phi64, chol64, V64
+    compare("float64 paper chain vs float64 fused mode at full width (mean)", [mu_p64],
+            [mu_f64], rtol=0.0, atol=5e-3, why="tests/test_fagp.py:57-59 gate")
+    cov_atol = 5e-3 * float(cov_f64.abs().max())
+    compare("float64 paper chain vs float64 fused mode at full width (covariance)",
+            [cov_p64], [cov_f64], rtol=0.0, atol=cov_atol,
+            why="5e-3 of the largest covariance entry")
+    print(f"[paper] float64 witness ({f64_s:.3f} s): paper vs fused mean "
+          f"{float((mu_p64 - mu_f64).abs().max()):.3e}, covariance "
+          f"{float((cov_p64 - cov_f64).abs().max()):.3e}; float64 paper vs float32 "
+          f"fused mean {float((mu_p64 - mu_f.to(f64)).abs().max()):.3e}, covariance "
+          f"{float((cov_p64 - cov_f.to(f64)).abs().max()):.3e}; rmse float64 paper "
+          f"{float(((mu_p64 - ys[:Q].to(f64)) ** 2).mean().sqrt()):.5f}")
+    del mu_p, cov_p, mu_f, cov_f, mu_p64, cov_p64, mu_f64, cov_f64, y64, D64, Phis64, u64
+    # on the JAX test's data (tests/test_fagp.py:12-16, 49-60: N = 50, p = 2,
+    # n = 8, queries from seed 3) paper mode equals the fused mode
+    def fagp_test_data(N, seed):
+        rng = np.random.default_rng(seed)
+        X = rng.uniform(-1, 1, size=(N, 2)).astype(np.float32)
+        y = (np.sum(np.cos(X), axis=1) + 0.05 * rng.standard_normal(N)).astype(np.float32)
+        return torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+
+    X50, y50 = fagp_test_data(50, 0)
+    X17, _ = fagp_test_data(17, 3)
+    g50 = GP.fit(X50, y50, spec_for("hermite", 2, 8).replace(store_train=True))
+    for got, want, what in zip(g50.predict(X17, mode="paper"), g50.predict(X17),
+                               ("mean", "covariance")):
+        compare(f"paper mode vs fused mode at N = 50 ({what})", [got], [want], rtol=0.0,
+                atol=5e-3, why="tests/test_fagp.py:57-59 gate")
+
+    # checkpoints: GP.save / GP.load of the full-width stored-features session
+    with tempfile.TemporaryDirectory() as ckdir:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v0 = pgp.save(ckdir)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(ckdir).rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        lgp = GP.load(ckdir)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(v0 == 0, f"the first save wrote version {v0}")
+        for f in ("idx", "lam", "sqrtlam", "chol", "u", "b", "Phi", "y"):
+            check(torch.equal(getattr(lgp.state, f), getattr(st, f)),
+                  f"GP.load: leaf {f} is not bitwise equal")
+        for f in ("eps", "rho", "noise"):
+            check(torch.equal(getattr(lgp.spec, f), getattr(pgp.spec, f)),
+                  f"GP.load: spec leaf {f} is not bitwise equal")
+        check(lgp.spec.omega is None and lgp.spec.store_train
+              and lgp.spec.backend == "pallas" and lgp.spec.n == n,
+              f"GP.load rebuilt {lgp.spec.describe()}")
+        check(lgp.state.chol.is_cuda and lgp.state.Phi.is_cuda and lgp.spec.device.type == "cuda",
+              "GP.load did not place the session on the card")
+        Xq128 = Xs[:128]
+        for a, b_, what in zip(lgp.mean_var(Xq128), pgp.mean_var(Xq128), ("mean", "variance")):
+            check(torch.equal(a, b_), f"the loaded session's {what} is not bitwise equal")
+        v1 = pgp.save(ckdir)
+        check(v1 == 1, f"the second save wrote version {v1}")
+    print(f"[paper] checkpoint of the full-width session: {nbytes} bytes, "
+          f"save {save_s:.3f} s, load {load_s:.3f} s; round trip bitwise")
+    del pgp, lgp, st, Phi
+    torch.cuda.empty_cache()
+    r = rows["scaled_gram"]
+    print(f"[kernel] scaled_gram: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+          f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+          f"({r['bound'][1]}) max_abs_err={r['max_abs_err']:.3e}")
+    print(f"[paper] phase took {time.perf_counter() - paper_t0:.1f} s")
 
     # -- results --------------------------------------------------------------
     kernels = []

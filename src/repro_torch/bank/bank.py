@@ -127,6 +127,14 @@ def _prior_leaves(loglam: torch.Tensor, count: int) -> dict:
     }
 
 
+def _bank_spec(spec: GPSpec) -> GPSpec:
+    """Normalize a spec for bank use: a bank is a serving structure and
+    never stores per-tenant training features, so ``store_train`` is turned
+    off (else every unstacked ``state(t)`` would claim stored features while
+    holding ``Phi=None``)."""
+    return spec.replace(store_train=False) if spec.store_train else spec
+
+
 def _check_bankable(state: FAGPState, spec: GPSpec, who: str) -> None:
     """A state can join a homogeneous bank iff it was factorized under the
     bank's shared spec (structure AND hyperparameters, including any RFF
@@ -189,6 +197,7 @@ class GPBank:
         """An empty bank: every slot holds the prior state."""
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
+        spec = _bank_spec(spec)
         fagp._check_backend_support(spec)
         idx = fagp._idx_tensor(spec)
         loglam = get_expansion(spec.expansion).log_eigenvalues(idx, spec)
@@ -214,6 +223,7 @@ class GPBank:
         ``range(B)``; ``capacity`` (>= B) reserves extra prior slots for
         later :meth:`insert`.
         """
+        spec = _bank_spec(spec)
         dev = spec.device
         Xb, yb = _f32(Xb, dev), _f32(yb, dev)
         if Xb.ndim != 3 or yb.ndim != 2 or tuple(yb.shape) != tuple(Xb.shape[:2]):
@@ -259,7 +269,7 @@ class GPBank:
         if not states:
             raise ValueError("from_states needs at least one state")
         items = [(t, s.state if isinstance(s, GP) else s) for t, s in states.items()]
-        spec = items[0][1].spec
+        spec = _bank_spec(items[0][1].spec)
         for t, st in items:
             _check_bankable(st, spec, f"from_states(tenant {t!r})")
         B = len(items)

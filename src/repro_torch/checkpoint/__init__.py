@@ -1,0 +1,16 @@
+"""Atomic, versioned checkpoints of fitted GP sessions.
+
+Counterpart of ``repro/checkpoint``, on the same on-disk format, so the
+two packages load each other's checkpoints:
+
+* :mod:`.store`: nested dicts of tensors written as path-keyed npz
+  (bfloat16 as a uint16 view, with a dtype manifest) into
+  ``<dir>/tmp.<step>.<pid>``, then ``os.replace``-d to ``step_<n>``;
+* :mod:`.gpstate`: ``GP.save``/``GP.load`` on top, with the spec's
+  structure and an omega hash in the manifest.
+"""
+from .gpstate import latest_version, load_state, save_state
+from .store import latest_step, restore, save
+
+__all__ = ["save", "restore", "latest_step", "save_state", "load_state",
+           "latest_version"]

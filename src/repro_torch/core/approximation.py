@@ -1,13 +1,14 @@
 """Approximation registry behind ``GP`` (the ``fagp`` family only).
 
 Counterpart of ``repro/core/approximation.py``, cut to what the FAGP
-family needs: the structured refusal :class:`UnsupportedError` and the
-name -> family registry that ``core/gp.py`` dispatches through.  The
+family needs: the structured refusal :class:`UnsupportedError`, the
+name -> family registry that ``core/gp.py`` dispatches through, and the
+checkpoint hooks that ``checkpoint/gpstate.py`` serializes through.  The
 Vecchia family registers here in a later slice of the port.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 __all__ = [
     "Approximation",
@@ -48,6 +49,16 @@ class Approximation:
 
     Subclasses set ``name`` and ``capabilities`` and implement the
     operations they declare; ``GP`` checks the flags before calling.
+
+    Checkpoint hooks (``checkpoint/gpstate.py`` serializes any family
+    through these; the manifest records ``spec.approximation``):
+
+    ckpt_leaf_names: the ordered array-leaf names of the state.
+    ckpt_leaves:     state -> {name: tensor} for exactly those names.
+    ckpt_meta:       state -> extra manifest metadata (informational).
+    ckpt_rebuild:    (spec, leaves, train) -> state; ``train`` is the
+                     optional stored-training-data dict (FAGP's
+                     ``store_train`` path) or None.
     """
 
     name: str = "abstract"
@@ -70,6 +81,18 @@ class Approximation:
 
     def nlml(self, X, y, spec, *, mask=None):
         self.refuse("nlml", spec)
+
+    def ckpt_leaf_names(self) -> tuple:
+        raise NotImplementedError
+
+    def ckpt_leaves(self, state) -> dict:
+        raise NotImplementedError
+
+    def ckpt_meta(self, state) -> dict:
+        return {}
+
+    def ckpt_rebuild(self, spec, leaves: dict, train: Optional[dict]):
+        raise NotImplementedError
 
     def refuse(self, capability: str, spec: Any) -> None:
         raise UnsupportedError(

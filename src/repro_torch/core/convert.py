@@ -36,6 +36,7 @@ def spec_from_numpy(
     backend: str = "jnp",
     omega=None,
     block_rows: int = 4096,
+    store_train: bool = False,
     device=None,
 ) -> GPSpec:
     """A port ``GPSpec`` from the JAX spec's leaves (numpy) and static
@@ -44,7 +45,8 @@ def spec_from_numpy(
     spec = GPSpec(
         eps=_t(np.atleast_1d(eps), dev), rho=_t(np.atleast_1d(rho), dev),
         noise=_t(noise, dev), n=int(n), index_set=index_set, degree=degree,
-        block_rows=int(block_rows), backend=backend, expansion=expansion,
+        block_rows=int(block_rows), store_train=bool(store_train),
+        backend=backend, expansion=expansion,
         omega=None if omega is None else _t(omega, dev),
     )
     _check_backend_support(spec)
@@ -59,13 +61,16 @@ def state_from_numpy(
     chol,
     u,
     b,
+    Phi=None,
+    y=None,
     spec: Optional[GPSpec] = None,
     device=None,
     **spec_fields,
 ) -> FAGPState:
     """A port ``FAGPState`` from the JAX state's leaves (numpy).  Pass the
     port ``spec``, or the fields :func:`spec_from_numpy` takes.  The index
-    table must be the one the spec generates."""
+    table must be the one the spec generates.  ``Phi`` and ``y`` are the
+    stored training data of a ``store_train`` state (both or neither)."""
     if spec is None:
         spec = spec_from_numpy(device=device, **spec_fields)
     elif spec_fields:
@@ -77,11 +82,15 @@ def state_from_numpy(
             f"state_from_numpy: the index table {idx.shape} is not the one "
             f"{spec.describe()} generates {want.shape}"
         )
+    if (Phi is None) != (y is None):
+        raise ValueError("state_from_numpy: pass both Phi and y, or neither")
     dev = spec.device
     return FAGPState(
         idx=_t(idx, dev, torch.int32), lam=_t(lam, dev),
         sqrtlam=_t(sqrtlam, dev), chol=_t(chol, dev), u=_t(u, dev),
         b=_t(b, dev), spec=spec,
+        Phi=None if Phi is None else _t(Phi, dev),
+        y=None if y is None else _t(y, dev),
     )
 
 

@@ -81,6 +81,8 @@ class GPSpec:
     omega: (R, p) eps-free spectral base draws for the RFF expansions.
     n / index_set / degree: Hermite truncation (``mercer.make_index_set``).
     block_rows: row-block size of the plain moment accumulation.
+    store_train: keep (Phi, y) in the fitted state (needed for
+        ``predict(mode="paper")``; costs an N x M buffer).
     backend: 'jnp' (plain) or 'pallas' (kernels).
     expansion: 'hermite' | 'rff_se' | 'rff_matern52'.
     approximation: registered family ('fagp' is the only one ported).
@@ -96,6 +98,7 @@ class GPSpec:
     index_set: str = "full"
     degree: Optional[int] = None
     block_rows: int = 4096
+    store_train: bool = False
     backend: str = "jnp"
     expansion: str = "hermite"
     omega: Optional[torch.Tensor] = None
@@ -111,6 +114,7 @@ class GPSpec:
         index_set: str = "full",
         degree: Optional[int] = None,
         block_rows: int = 4096,
+        store_train: bool = False,
         backend: str = "jnp",
         expansion: str = "hermite",
         num_features: Optional[int] = None,
@@ -152,7 +156,7 @@ class GPSpec:
         spec = GPSpec(
             eps=eps, rho=rho, noise=_f32(noise, dev), n=int(n),
             index_set=index_set, degree=degree, block_rows=block_rows,
-            backend=backend, expansion=expansion,
+            store_train=store_train, backend=backend, expansion=expansion,
             omega=None if omega is None else _f32(omega, dev),
             approximation=approximation,
         )
@@ -162,11 +166,12 @@ class GPSpec:
     @staticmethod
     def create_rff(eps, noise=1e-2, *, kernel: str = "se",
                    num_features: int = 256, seed: int = 0, rho=2.0,
-                   block_rows: int = 4096, backend: str = "jnp",
-                   device=None) -> "GPSpec":
+                   block_rows: int = 4096, store_train: bool = False,
+                   backend: str = "jnp", device=None) -> "GPSpec":
         """Sugar for the RFF families: M = 2 * num_features."""
         return GPSpec.create(
-            1, eps, rho, noise, block_rows=block_rows, backend=backend,
+            1, eps, rho, noise, block_rows=block_rows,
+            store_train=store_train, backend=backend,
             expansion=f"rff_{kernel}", num_features=num_features, seed=seed,
             device=device,
         )
@@ -197,7 +202,8 @@ class GPSpec:
         )
         return (
             f"GPSpec(expansion={self.expansion!r}, {extra}, p={self.p}, "
-            f"backend={self.backend!r}, device={str(self.device)!r})"
+            f"backend={self.backend!r}, store_train={self.store_train}, "
+            f"device={str(self.device)!r})"
         )
 
 
@@ -218,6 +224,8 @@ def _leaf_equal(a, b) -> bool:
 class FAGPState:
     """Fitted FAGP statistics in the scaled-system form, spec baked in.
 
+    ``Phi`` (N, M) and ``y`` (N,) or (N, T), the training features and
+    targets, are kept only under ``spec.store_train`` (None otherwise).
     ``serving`` is a per-state cache of what the serving path derives from
     the fit (B^{-1} for the diag-quad kernel, the kernels' feature tables);
     every new state (``fit_update``, ``with_spec``) starts with it empty.
@@ -230,6 +238,8 @@ class FAGPState:
     u: torch.Tensor            # (M,) or (M, T) mean weights
     b: torch.Tensor            # (M,) or (M, T) raw moment Phi^T y
     spec: GPSpec
+    Phi: Optional[torch.Tensor] = None   # (N, M) train features (store_train only)
+    y: Optional[torch.Tensor] = None     # (N,) or (N, T) train targets (store_train only)
     serving: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
 
@@ -259,6 +269,12 @@ class FAGPState:
                 )
         _check_spec_regenerates_idx(self, spec)
         _check_hypers_match(self, spec, "with_spec")
+        if spec.store_train and self.Phi is None:
+            raise ValueError(
+                "with_spec cannot enable store_train on an already-fitted state "
+                "(the training features were never stored); refit with "
+                "store_train=True"
+            )
         if spec.device != self.spec.device:
             raise ValueError(
                 f"with_spec: the state lives on {self.spec.device}, the spec "
@@ -362,12 +378,14 @@ def _block_scan_moments(X, y, feats_fn, M: int, block_rows: int,
     return G, b
 
 
-def _finish_fit(B, b, loglam, sqrtlam, sig2, idx, spec):
-    """Shared fit epilogue: M x M Cholesky and the mean weights."""
+def _finish_fit(B, b, loglam, sqrtlam, sig2, idx, spec, Phi=None, y=None):
+    """Shared fit epilogue: M x M Cholesky and the mean weights; ``Phi``
+    and ``y`` are the stored training data (``store_train``) or None."""
     chol = torch.linalg.cholesky(B)
     u = _solve_mean_weights(chol, sqrtlam, b, sig2)
     return FAGPState(idx=idx, lam=torch.exp(loglam), sqrtlam=sqrtlam,
-                     chol=chol, u=u, b=b, spec=spec)
+                     chol=chol, u=u, b=b, spec=spec, Phi=Phi,
+                     y=None if Phi is None else y.clone())
 
 
 # ---------------------------------------------------------------------------
@@ -471,7 +489,8 @@ def _jnp_fit(X, y, idx, spec):
     loglam = exp.log_eigenvalues(idx, spec)
     G, b = _jnp_moments(X, y, spec, idx, spec.block_rows)
     B, sqrtlam = _assemble_scaled_system(G, loglam, sig2)
-    return _finish_fit(B, b, loglam, sqrtlam, sig2, idx, spec)
+    Phi = _jnp_features(X, spec, idx) if spec.store_train else None
+    return _finish_fit(B, b, loglam, sqrtlam, sig2, idx, spec, Phi, y)
 
 
 def _jnp_mean_var(state, Xs):
@@ -578,7 +597,9 @@ def _pallas_moments(X, y, spec, idx, block_rows, mask=None):
 def _pallas_fit(X, y, idx, spec):
     """The streaming fused kernel builds B = I + D G D / sig2 and b from X
     directly; multi-output b takes a second pass through the features
-    kernel."""
+    kernel.  ``store_train`` adds one features launch that writes Phi out
+    (the N x M buffer the fused kernel avoids, by request); the Gram still
+    comes from the fused kernel."""
     exp = get_expansion(spec.expansion)
     sig2 = spec.noise**2
     loglam = exp.log_eigenvalues(idx, spec)
@@ -587,7 +608,8 @@ def _pallas_fit(X, y, idx, spec):
     B, b = ops.fused_fit_moments(X, y0, _tile(spec, idx), sqrtlam, float(sig2))
     if y.ndim == 2:
         b = _pallas_streamed_bt(X, y, spec, idx)
-    return _finish_fit(B, b, loglam, sqrtlam, sig2, idx, spec)
+    Phi = ops.expansion_phi(X, _tile(spec, idx)) if spec.store_train else None
+    return _finish_fit(B, b, loglam, sqrtlam, sig2, idx, spec, Phi, y)
 
 
 def _binv(state: FAGPState) -> torch.Tensor:
@@ -687,28 +709,68 @@ def fit_update(state: FAGPState, X_new, y_new) -> FAGPState:
     Phi_new = backend.features(X_new, spec, state.idx, state)
     chol, b, u = _update_arrays(state.chol, state.b, state.sqrtlam,
                                 spec.noise, Phi_new, y_new, backend.rank_update)
-    return dataclasses.replace(state, chol=chol, b=b, u=u)
+    Phi = y = None
+    if state.Phi is not None:
+        Phi = torch.cat([state.Phi, Phi_new], dim=0)
+        y = torch.cat([state.y, y_new], dim=0)
+    return dataclasses.replace(state, chol=chol, b=b, u=u, Phi=Phi, y=y)
 
 
-def predict(state: FAGPState, Xs, mode: str = "fused"):
-    """Posterior mean and full covariance (N*, N*) at Xs, weight-space form
-    Sigma* = (Phi* D) B^{-1} (Phi* D)^T.  ``mode="paper"`` (the literal
-    Eqs. 11-12 chain) is not ported yet."""
-    if mode == "paper":
-        raise UnsupportedError(
-            "repro_torch does not support predict(mode='paper') yet: the "
-            "literal Eqs. 11-12 chain (with store_train) comes with the "
-            "checkpoint/paper-mode slice of the port",
-            layer="port", capability="predict_paper", spec=state.spec,
-        )
-    if mode != "fused":
-        raise ValueError(f"unknown mode {mode!r}")
-    Xs = _f32(Xs, state.spec.device)
+def _predict_fused(state: FAGPState, Xs):
+    """Weight-space path, no N-sized intermediates:
+    Sigma* = (Phi* D) B^{-1} (Phi* D)^T by one triangular solve."""
     Phis = build_features(Xs, state.spec, state.idx)
     mu = Phis @ state.u
     PhisD = Phis * state.sqrtlam[None, :]
     V = torch.linalg.solve_triangular(state.chol, PhisD.T, upper=False)
     return mu, V.T @ V
+
+
+def _predict_paper(state: FAGPState, Xs):
+    """The literal Eqs. 11-12 chain in the paper's operation order, from
+    the stored (Phi, y): the N x N approximate inverse
+    Sigma_n^{-1} - Sigma_n^{-1} Phi Lbar^{-1} Phi^T Sigma_n^{-1}, then
+    W (N*, N), then mu* and Sigma*.  In float32 the N x N inverse cancels
+    badly as N grows (see ROADMAP.md section C), as in the JAX package."""
+    Phis = build_features(Xs, state.spec, state.idx)            # (N*, M)
+    return _paper_chain(state.Phi, state.y, Phis, state.lam, state.sqrtlam,
+                        state.chol, state.spec.noise**2)
+
+
+def _paper_chain(Phi, y, Phis, Lam, D, chol, sig2):
+    """Eqs. 11-12 from the train features Phi (N, M), targets y, query
+    features Phis (N*, M), eigenvalues Lam = D^2 and the Cholesky factor
+    of B, in whatever dtype they are given."""
+    N = Phi.shape[0]
+    # Lbar^{-1} Phi^T = D B^{-1} D Phi^T, (M, N)
+    LbarinvPhiT = D[:, None] * torch.cholesky_solve(D[:, None] * Phi.T, chol)
+    Kinv = torch.eye(N, dtype=Phi.dtype, device=Phi.device) / sig2 \
+        - (Phi @ LbarinvPhiT) / (sig2 * sig2)
+    PhisLam = Phis * Lam[None, :]                               # Phi* Lambda
+    W = (PhisLam @ Phi.T) @ Kinv                                # (N*, N), Eq. 11's W
+    mu = W @ y
+    cov = PhisLam @ Phis.T - (W @ Phi) @ (Lam[:, None] * Phis.T)  # Eq. 12
+    return mu, cov
+
+
+def predict(state: FAGPState, Xs, mode: str = "fused"):
+    """Posterior mean and full covariance (N*, N*) at Xs.  ``mode="fused"``
+    is the weight-space form Sigma* = (Phi* D) B^{-1} (Phi* D)^T;
+    ``mode="paper"`` the literal Eqs. 11-12 chain, which needs a state
+    fitted with ``store_train=True``."""
+    spec = state.spec
+    if mode == "fused":
+        return _predict_fused(state, _f32(Xs, spec.device))
+    if mode == "paper":
+        if state.Phi is None:
+            raise ValueError(
+                f"mode='paper' needs the training features stored in the "
+                f"fitted state, but this state was fitted with "
+                f"{spec.replace(store_train=False).describe()} — refit with a "
+                f"spec that sets store_train=True"
+            )
+        return _predict_paper(state, _f32(Xs, spec.device))
+    raise ValueError(f"unknown mode {mode!r}")
 
 
 def predict_mean_var(state: FAGPState, Xs):
@@ -758,6 +820,9 @@ def nlml(X, y, spec: GPSpec, *, mask=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+_CKPT_LEAVES = ("lam", "sqrtlam", "chol", "u", "b")
+
+
 class _FagpApproximation(Approximation):
     """``spec.approximation == "fagp"``: the paper's decomposed-kernel family."""
 
@@ -783,6 +848,25 @@ class _FagpApproximation(Approximation):
 
     def nlml(self, X, y, spec, *, mask=None):
         return nlml(X, y, spec, mask=mask)
+
+    # -- checkpoint hooks (checkpoint/gpstate.py) ---------------------------
+
+    def ckpt_leaf_names(self) -> tuple:
+        return _CKPT_LEAVES
+
+    def ckpt_leaves(self, state: FAGPState) -> dict:
+        return {f: getattr(state, f) for f in _CKPT_LEAVES}
+
+    def ckpt_meta(self, state: FAGPState) -> dict:
+        return {"M": int(state.n_features), "n_tasks": int(state.n_tasks)}
+
+    def ckpt_rebuild(self, spec, leaves: dict, train) -> FAGPState:
+        train = train or {}
+        return FAGPState(
+            idx=_idx_tensor(spec), lam=leaves["lam"], sqrtlam=leaves["sqrtlam"],
+            chol=leaves["chol"], u=leaves["u"], b=leaves["b"], spec=spec,
+            Phi=train.get("Phi"), y=train.get("y"),
+        )
 
 
 register_approximation(_FagpApproximation())

@@ -10,16 +10,20 @@ Counterpart of ``repro/core/gp.py``:
     mu, cov = gp.predict(Xs)             # full covariance
     gp = gp.update(X_new, y_new)         # rank-k ingest, no refit
     loss = gp.nlml(X, y)                 # NLML under the session's spec
+    version = gp.save(ckpt_dir)          # versioned checkpoint
+    gp = GP.load(ckpt_dir)               # newest version, onto the card
 
 Every method dispatches through the session's registered approximation
-family.  ``optimize``, ``save``/``load`` and ``predict(mode="paper")`` are
-not ported yet and raise :class:`UnsupportedError` naming the slice of the
-port that brings them.
+family.  ``predict(mode="paper")`` (the literal Eqs. 11-12 chain) needs a
+spec with ``store_train=True``.  Checkpoints are the JAX package's format:
+``GP.save`` here loads with ``repro.core.gp.GP.load`` and back.
+``optimize`` is not ported yet and raises :class:`UnsupportedError` naming
+the slice of the port that brings it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 from . import fagp  # noqa: F401  (registers the fagp family)
 from .approximation import (
@@ -87,8 +91,6 @@ class GP:
         """Posterior mean and full covariance at Xs (paper Eqs. 11-12)."""
         ap = self.approximation
         require_capability(ap, "predict", self.spec)
-        if mode == "paper":
-            _not_ported("predict(mode='paper')", "checkpoint / paper-mode", self.spec)
         return ap.predict(self.state, Xs, mode=mode)
 
     def mean_var(self, Xs):
@@ -114,9 +116,29 @@ class GP:
         are rejected."""
         return GP(state=self.state.with_spec(spec, **overrides))
 
-    def save(self, ckpt_dir, *, step=None) -> int:
-        _not_ported("save", "checkpoint / paper-mode", self.spec)
+    def save(self, ckpt_dir, *, step: Optional[int] = None) -> int:
+        """Serialize this session under ``ckpt_dir`` (versioned: each save
+        lands as ``step_<version>``; ``step=None`` auto-increments).  The
+        manifest records the spec's structure, so :meth:`load` round-trips
+        bit-exactly (stored features included) and a restore into an
+        incompatible spec raises.  Returns the version written."""
+        from ..checkpoint import gpstate
+
+        return gpstate.save_state(ckpt_dir, self.state, step=step)
 
     @classmethod
-    def load(cls, ckpt_dir, *, step=None, spec=None) -> "GP":
-        _not_ported("load", "checkpoint / paper-mode", spec)
+    def load(cls, ckpt_dir, *, step: Optional[int] = None,
+             spec: Optional[GPSpec] = None, device=None) -> "GP":
+        """Restore a session saved by :meth:`save` (here or by the JAX
+        package; ``step=None`` loads the newest version).  The spec is
+        rebuilt from the checkpoint; passing ``spec`` validates the
+        checkpoint against it (structure and hyperparameters) and raises on
+        a mismatch.  ``device`` defaults to ``spec``'s device when a spec
+        is given, else to ``"cuda"`` (raising without a card)."""
+        from ..checkpoint import gpstate
+
+        if device is None and spec is not None:
+            device = spec.device
+        _, state = gpstate.load_state(ckpt_dir, step=step, like_spec=spec,
+                                      device=device)
+        return cls(state=state)

@@ -29,7 +29,7 @@ __all__ = [
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("phi_features", "phi_gram", "diag_quad", "chol_update")
+SOURCES = ("phi_features", "phi_gram", "diag_quad", "chol_update", "scaled_gram")
 HEADERS = ("expansion.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

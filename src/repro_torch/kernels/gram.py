@@ -1,0 +1,56 @@
+"""Scaled Gram matrix from a materialized feature matrix:
+B = I + D (Phi^T Phi) D / sigma^2, D = diag(d), accumulated in float32
+from a float32 or bfloat16 Phi.  The CUDA kernel replaces the TPU kernel
+``repro/kernels/gram.py::scaled_gram_kernel``, the paper's own
+formulation (Phi written out, its Gram from one product).
+
+CUDA kernel: ``csrc/scaled_gram.cu``.  Bound on the H100: float32
+operations on the CUDA cores (N M (M + 1) flops for the symmetric Gram).
+Each block owns one 64 x 64 tile of the upper triangle, loops over all N
+rows itself (no carry between blocks), stages 32-row slices of Phi in
+shared memory and mirrors its tile below the diagonal; ragged edges are
+masked, so Phi is never padded.  Its plain version,
+:func:`scaled_gram_plain`, is what a CPU tensor runs.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["scaled_gram_plain", "scaled_gram_cuda", "COUNTER"]
+
+COUNTER = _build.LaunchCounter("scaled_gram")
+
+
+def scaled_gram_plain(Phi: torch.Tensor, d: torch.Tensor, sig2) -> torch.Tensor:
+    """Plain version: I + D (Phi^T Phi) D / sig2 in float32, exactly
+    symmetric like the kernel's (the upper triangle of the product,
+    mirrored, scaled by d_i d_j / sig2)."""
+    Phi = Phi.to(torch.float32)
+    G = Phi.T @ Phi
+    G = torch.triu(G) + torch.triu(G, 1).T
+    return G * (d[:, None] * d[None, :] / float(sig2)) \
+        + torch.eye(G.shape[0], dtype=torch.float32, device=G.device)
+
+
+def scaled_gram_cuda(Phi: torch.Tensor, d: torch.Tensor, sig2: float) -> torch.Tensor:
+    """Launch ``csrc/scaled_gram.cu`` on Phi's stream -> B (M, M) float32."""
+    N, M = Phi.shape
+    out = torch.empty((M, M), dtype=torch.float32, device=Phi.device)
+    if M == 0:
+        return out
+    bf16 = Phi.dtype == torch.bfloat16
+    lib = _build.library("scaled_gram")
+    fn = lib.repro_scaled_gram_bf16 if bf16 else lib.repro_scaled_gram_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(Phi.device).cuda_stream
+    rc = fn(_build.ptr(Phi), N, M, _build.ptr(d), float(sig2), _build.ptr(out),
+            ctypes.c_void_p(stream))
+    _build.check_launch(rc, "scaled_gram")
+    COUNTER.add("bf16" if bf16 else "")
+    return out

@@ -18,17 +18,20 @@ import torch
 
 from . import chol_update as _chol
 from . import diag_quad as _dq
+from . import gram as _sgram
 from . import hermite_phi as _phi
 from . import phi_gram as _gram
 from .hermite_phi import TileArgs
 
 __all__ = [
     "TileArgs", "expansion_phi", "fused_fit_moments",
-    "bank_fused_fit_moments", "diag_quad", "chol_update", "launch_counts",
-    "reset_launch_counts",
+    "bank_fused_fit_moments", "scaled_gram", "diag_quad", "chol_update",
+    "launch_counts", "reset_launch_counts",
 ]
 
-_COUNTERS = (_phi.COUNTER, _gram.COUNTER, _dq.COUNTER, _chol.COUNTER)
+_COUNTERS = (_phi.COUNTER, _gram.COUNTER, _dq.COUNTER, _chol.COUNTER,
+             _sgram.COUNTER)
+_F32_I32 = (torch.float32, torch.int32)
 
 
 def launch_counts() -> dict:
@@ -41,16 +44,18 @@ def reset_launch_counts() -> None:
         c.reset()
 
 
-def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+def _on_cuda(name: str, *tensors: torch.Tensor, dtypes: tuple = _F32_I32) -> bool:
     """True for CUDA inputs, False for CPU inputs; raises on anything else
-    (mixed devices, a dtype other than float32/int32, non-contiguous)."""
+    (mixed devices, a dtype outside ``dtypes`` -- float32 and int32 unless a
+    wrapper widens it -- or a non-contiguous input)."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")
     dev = devices.pop()
     for t in tensors:
-        if t.dtype not in (torch.float32, torch.int32):
-            raise TypeError(f"{name}: expected float32 (or int32 indices), got {t.dtype}")
+        if t.dtype not in dtypes:
+            want = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise TypeError(f"{name}: expected {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: input of shape {tuple(t.shape)} is not contiguous")
     if dev.type == "cuda":
@@ -150,6 +155,23 @@ def bank_fused_fit_moments(
     if _on_cuda("bank_fused_fit_moments", Xb, yb, mask, *tile.tensors()):
         return _gram.bank_phi_gram_cuda(Xb, yb, mask, tile)
     return _gram.bank_phi_gram_plain(Xb, yb, mask, tile)
+
+
+def scaled_gram(Phi: torch.Tensor, sqrtlam: torch.Tensor, sig2) -> torch.Tensor:
+    """B = I + D Phi^T Phi D / sig2, D = diag(sqrtlam), from a materialized
+    Phi (N, M) in float32 or bfloat16; accumulated and returned in
+    float32 (M, M)."""
+    Phi = Phi.contiguous()
+    if Phi.ndim != 2:
+        raise ValueError(f"scaled_gram: Phi must be (N, M), got {tuple(Phi.shape)}")
+    d = sqrtlam.reshape(-1).to(torch.float32).contiguous()
+    if d.shape[0] != Phi.shape[1]:
+        raise ValueError(f"scaled_gram: sqrtlam has {d.shape[0]} entries, "
+                         f"Phi {Phi.shape[1]} columns")
+    sig2 = float(sig2)
+    if _on_cuda("scaled_gram", Phi, d, dtypes=(torch.float32, torch.bfloat16)):
+        return _sgram.scaled_gram_cuda(Phi, d, sig2)
+    return _sgram.scaled_gram_plain(Phi, d, sig2)
 
 
 def diag_quad(A: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
