@@ -6,12 +6,20 @@
 Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and holds
-   each one against its plain PyTorch version on the card, at the main
-   path's shapes and at one ragged shape, with the tolerance stated; times
-   kernel, plain version and (where one exists) a single PyTorch library
-   call computing the same function (CUDA events, 2 warm-up runs, median of
-   20 runs; the plain rank-K sweep is timed once, it takes over a minute);
+2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (printing
+   each kernel's registers and spills) and holds each one against its
+   plain PyTorch version on the card, at the main path's shapes and at one
+   ragged shape, with the tolerance stated; times kernel, plain version and
+   (where one exists) a single PyTorch library call computing the same
+   function (CUDA events, 2 warm-up runs, median of 20 runs; the plain
+   rank-K sweep is timed once, it takes over a minute).  Diag-quad also
+   runs at the RFF path's M = 8,192, on 1 and 200 queries and with a C that
+   is not symmetric (its plan, the split S of the k axis, printed); the
+   single-system sweep (its grid printed) is held bitwise against the
+   one-block kernel on a G = 2 batch of the same system, then at edge
+   shapes (M < 32, M not a multiple of 32, K = 1, W swept in chunks,
+   several row groups per block), and the latency of one anti-diagonal
+   step is measured for its pivot-chain bound;
 3. runs the main path at paper scale: ``serve_gp(backend="pallas",
    device="cuda")`` with N = 10^4, p = 4, n = 11, full grid (M = 14,641),
    4 rounds of 64-row updates, 1,024 queries in microbatches of 128, then
@@ -63,6 +71,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -130,6 +139,22 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def ptxas_functions(log: str):
+    """(kernel, registers, spills) for each kernel ``-Xptxas -v`` reported,
+    the kernel by its mangled name (its identifier is in it)."""
+    out, fn, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn is not None:
+            out.append((fn, line.split(":", 1)[1].strip(), spill))
+            fn, spill = None, ""
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -177,9 +202,8 @@ def main() -> int:
     print(f"[build] {len(_build.SOURCES)} kernels built in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in _build.ptxas_report().items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}")
+        for fn, regs, spill in ptxas_functions(log):
+            print(f"[ptxas {name}: {fn}] {regs}; {spill}")
 
     def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         for _ in range(warmup):
@@ -219,6 +243,13 @@ def main() -> int:
               f"-> {'ok' if ok else 'FAIL'}")
         check(ok, f"{label} disagrees with its plain version")
         return err
+
+    def plain(fn):
+        """Run a plain version and check that it launched no kernel."""
+        before = ops.launch_counts()
+        out = fn()
+        check(ops.launch_counts() == before, "a plain version launched a kernel")
+        return out
 
     def gram_scales(X, y, mask, tile, d, sig2, scale):
         """Cauchy-Schwarz magnitudes of the fused fit's sums:
@@ -322,6 +353,7 @@ def main() -> int:
     compare(f"phi_features rff ({Xq.shape[0]}x{rtile.M})",
             [ops.expansion_phi(Xq, rtile)], [kphi.phi_features_plain(Xq, rtile)],
             rtol=1e-5, atol=2e-5, why="f32 cosf of the same sums")
+    C_rff = torch.cholesky_inverse(torch.linalg.cholesky(Br))
     del Br, br
 
     # diag-quad (TPU #3): A = Phi* D, C = B^-1 of the fitted system
@@ -340,7 +372,24 @@ def main() -> int:
         ms=cuda_ms(lambda: ops.diag_quad(A, C)),
         plain_ms=cuda_ms(lambda: kdq.diag_quad_plain(A, C)),
         library_ms=cuda_ms(lambda: ((A @ C) * A).sum(1)), bound=bound(q_flops, q_bytes))
-    del C
+    print(f"[diag_quad] plan at {A.shape[0]} x {M}: {json.dumps(kdq.diag_quad_plan(*A.shape))}")
+    # the other shapes the kernel meets: the RFF path's C (M = 8,192), one
+    # query, 200 queries (two row tiles), and a C that is not symmetric
+    Ar = (ops.expansion_phi(Xq, rtile) * rsq[None, :]).contiguous()
+    # (B^-1 from torch.cholesky_inverse is column-major: the wrapper reads
+    # it as its transpose; this C is row-major, read as it is)
+    Cn = (C + torch.randn(M, M, generator=torch.Generator(device=dev).manual_seed(2),
+                          device=dev) * (1e-3 / M ** 0.5)).contiguous()
+    check(not bool(torch.equal(Cn, Cn.T)), "the non-symmetric C is symmetric")
+    A200 = (ops.expansion_phi(Xs[:200].contiguous(), tile) * sqrtlam[None, :]).contiguous()
+    for what, Aq, Cq in (("rff", Ar, C_rff), ("", A[:1].contiguous(), C), ("", A200, C),
+                         ("C not symmetric", A, Cn)):
+        label = f"{what} {Aq.shape[0]}x{Aq.shape[1]}".strip()
+        print(f"[diag_quad] plan at {label}: {json.dumps(kdq.diag_quad_plan(*Aq.shape))}")
+        rows["diag_quad"]["max_abs_err"] = max(rows["diag_quad"]["max_abs_err"], compare(
+            f"diag_quad {label}", [ops.diag_quad(Aq, Cq)], [kdq.diag_quad_plain(Aq, Cq)],
+            rtol=2e-3, atol=1e-5, why="tests/test_kernels.py:168 variance gate"))
+    del C, Cn, C_rff, Ar, A200
 
     # rank-K sweep: L = chol(B), W = Phi_new D / sigma (K = 64)
     W = (ops.expansion_phi(Xn, tile) * sqrtlam[None, :] / spec.noise).contiguous()
@@ -367,8 +416,66 @@ def main() -> int:
         library_ms=cuda_ms(lambda: torch.linalg.cholesky(chol @ chol.T + W.T @ W),
                            reps=20, warmup=1),
         bound=bound(s_flops, s_bytes))
+    print(f"[chol_update] plan at M={M}, K={K}: {json.dumps(kchol.chol_update_plan(M, K))}")
+    # the cooperative sweep against the one-block kernel on a G = 2 batch of
+    # the same system: the same rotations, rounded alike, so equal bits
+    L1 = ops.chol_update(chol, W)
+    Lb = ops.chol_update(torch.stack([chol, chol]), torch.stack([W, W]))
+    diff = float((L1 - Lb[0]).abs().max())
+    print(f"[check] chol_update (cooperative) vs the one-block kernel (M={M}, K={K}): "
+          f"max_abs_diff={diff:.3e}")
+    check(bool(torch.equal(L1, Lb[0])) and bool(torch.equal(Lb[0], Lb[1])),
+          f"chol_update M={M}, K={K}: the cooperative sweep is not bitwise equal to "
+          f"the one-block kernel (max abs diff {diff:.3e})")
+    # a batch of one system, L (1, M, M), takes the cooperative sweep too
+    ops.reset_launch_counts()
+    L1b = ops.chol_update(chol[None], W[None])
+    check(ops.launch_counts()["chol_update"] == {"": 1},
+          f"chol_update on a batch of one launched {ops.launch_counts()['chol_update']}")
+    check(bool(torch.equal(L1b[0], L1)),
+          f"chol_update M={M}, K={K}: a batch of one differs from the 2-D call")
+    print(f"[check] chol_update bitwise equal to the one-block kernel and on a batch "
+          f"of one (M={M}, K={K}) -> ok")
+    del L1, Lb, L1b
     del chol, W
     torch.cuda.empty_cache()
+
+    # sweep edge shapes through the cooperative kernel: M < 32, M not a
+    # multiple of 32, K = 1, K large enough that W is swept in chunks
+    # (against the plain version), and the same chunking at M = 4,096,
+    # K = 512 and a grid with several row groups per block (against the
+    # one-block kernel and the refactor: the plain version would take
+    # minutes there)
+    for Me, Ke, vs_plain in ((20, 4, True), (1000, 16, True), (300, 1, True),
+                             (96, 400, True), (4096, 512, False), (8192, 200, False)):
+        Re = torch.randn(Me, Me, generator=gen).to(dev)
+        Le = torch.linalg.cholesky(torch.eye(Me, device=dev) + Re @ Re.T / Me)
+        We = (torch.randn(Ke, Me, generator=gen) * 0.3).to(dev)
+        plan = kchol.chol_update_plan(Me, Ke)
+        got = ops.chol_update(Le, We)
+        one = ops.chol_update(torch.stack([Le, Le]), torch.stack([We, We]))[0]
+        want = (plain(lambda: kchol.chol_update_plain(Le, We)) if vs_plain
+                else torch.linalg.cholesky(Le @ Le.T + We.T @ We))
+        compare(f"chol_update M={Me}, K={Ke} (plan {json.dumps(plan)}) vs "
+                f"{'plain sweep' if vs_plain else 'chol(LL^T + W^TW)'}", [got], [want], **tol_chol)
+        check(bool(torch.equal(got, one)),
+              f"chol_update M={Me}, K={Ke}: not bitwise equal to the one-block kernel")
+        check(bool((torch.triu(got, 1) == 0).all()), f"chol_update M={Me}: upper triangle written")
+        del Re, Le, We, got, one, want
+    print("[check] chol_update edge shapes bitwise equal to the one-block kernel -> ok")
+    # the latency of one anti-diagonal step (a pivot, its exchange and the
+    # rotations): one 32-row panel alone, K = 2,048 updates in chunks
+    Ls = torch.linalg.cholesky(torch.eye(32, device=dev) * 4.0)
+    Ws = (torch.randn(2048, 32, generator=gen) * 0.01).to(dev)
+    ps = kchol.chol_update_plan(32, 2048)
+    nchunks = -(-2048 // ps["w_chunk"])
+    step_us = cuda_ms(lambda: ops.chol_update(Ls, Ws)) * 1e3 / (2048 + nchunks * 31)
+    panels = -(-M // 32)
+    print(f"[chol_update] one anti-diagonal step: {step_us:.4f} us (one panel, K=2048 in "
+          f"{nchunks} chunks); pivot-chain bounds at M={M}, K={K}: (K + M - 1) steps "
+          f"{(K + M - 1) * step_us / 1e3:.3f} ms; this design's {panels} panels x "
+          f"(K + 31) steps {panels * (K + 31) * step_us / 1e3:.3f} ms")
+    del Ls, Ws
 
     # one ragged shape: N not a tile multiple, M = 125 (p = 3, n = 5)
     gspec = spec_for("hermite", 3, 5)
@@ -527,13 +634,6 @@ def main() -> int:
           "fleet rmse >= 0.1 against the tenants' targets")
     check(all(h["var_finite"] for h in fout["rounds"]), "non-finite fleet variances")
 
-    def plain(fn):
-        """Run a plain version and check that it launched no kernel."""
-        before = ops.launch_counts()
-        out = fn()
-        check(ops.launch_counts() == before, "a plain version launched a kernel")
-        return out
-
     def bank_scales(Xb, yb, maskb, tile):
         """Cauchy-Schwarz magnitudes of every slot's sums (gram_scales, slot
         by slot)."""
@@ -645,7 +745,17 @@ def main() -> int:
     check(not torch.equal(ubank.stack.chol[0], fbank.stack.chol[0])
           and torch.equal(ubank.stack.chol[16], fbank.stack.chol[16]),
           "GPBank.update did not write exactly its slots")
-    del ubank
+    # one tenant: a batch of one system, swept by the cooperative kernel
+    ops.reset_launch_counts()
+    one_bank = fbank.update([0], Xk[:1], yk[:1])
+    ocounts = ops.launch_counts()
+    check(ocounts["chol_update"] == {"": 1},
+          f"GPBank.update of one tenant launches {ocounts['chol_update']} != one cooperative sweep")
+    check(torch.equal(one_bank.stack.chol[1], fbank.stack.chol[1]),
+          "GPBank.update of one tenant wrote another slot")
+    compare("GPBank.update of one tenant vs its slot in the 16-tenant update",
+            [one_bank.stack.chol[0]], [ubank.stack.chol[0]], **tol_chol)
+    del ubank, one_bank
 
     # bank serving against per-tenant single-session serving of the same
     # states, 16 tenants (tests/test_gp_bank.py:90 gate, 1e-5 abs)

@@ -50,8 +50,10 @@ from ..core.gp import GP, _not_ported
 __all__ = ["GPBank"]
 
 _LEAVES = ("lam", "sqrtlam", "chol", "u", "b")
-_DOWNDATE = "bank downdate / refit_window (ROADMAP A1b)"
-_HETERO = "NLML-gradient / optimize and per-slot hyperparameters (ROADMAP A2)"
+_DOWNDATE = "bank downdate / refit_window (ROADMAP A2)"
+_HETERO = ("heterogeneous bank: GPBank.optimize and per-slot hyperparameters "
+           "(ROADMAP A3, on A1's NLML gradient)")
+_OBS = "pipelined fleet serving with obs and the tiered bank (ROADMAP A4)"
 
 
 def _bank_mean_weights(chol, sqrtlam, b, sig2):
@@ -423,8 +425,7 @@ class GPBank:
         the group axis to a power-of-two bucket with masked groups aimed at
         distinct unused slots.  Slots must be distinct."""
         if donate:
-            _not_ported("GPBank update with donate=True",
-                        "pipelined serving with obs (ROADMAP A6)", self.spec)
+            _not_ported("GPBank update with donate=True", _OBS, self.spec)
         dev = self.spec.device
         Xk, yk = _f32(Xk, dev), _f32(yk, dev)
         G, k, p = Xk.shape

@@ -33,7 +33,8 @@ from .bank import GPBank
 
 __all__ = ["BankRouter"]
 
-_OBS = "pipelined serving with obs (ROADMAP A6)"
+_OBS = "pipelined fleet serving with obs (ROADMAP A4)"
+_REOPT = "re-optimizing fleets (ROADMAP A3, on A1's NLML gradient)"
 
 
 class BankRouter:
@@ -65,12 +66,10 @@ class BankRouter:
         _not_ported("BankRouter.rebalance", "multi-device (ROADMAP A5)", self.bank.spec)
 
     def stale_tenants(self, min_rows: int, *, retain=()) -> list:
-        _not_ported("BankRouter.stale_tenants",
-                    "NLML-gradient / optimize (ROADMAP A2)", self.bank.spec)
+        _not_ported("BankRouter.stale_tenants", _REOPT, self.bank.spec)
 
     def reoptimize(self, tenant_ids, Xb, yb, mask=None, **kw) -> None:
-        _not_ported("BankRouter.reoptimize",
-                    "NLML-gradient / optimize (ROADMAP A2)", self.bank.spec)
+        _not_ported("BankRouter.reoptimize", _REOPT, self.bank.spec)
 
     # -- query path ---------------------------------------------------------
 

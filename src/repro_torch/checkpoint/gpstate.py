@@ -174,7 +174,7 @@ def load_state(
     if name not in available_approximations():
         raise UnsupportedError(
             f"repro_torch does not support loading a {name!r} checkpoint "
-            f"yet: the Vecchia family comes with ROADMAP.md A4 "
+            f"yet: the Vecchia family comes with ROADMAP.md A6 "
             f"(registered: {available_approximations()})",
             layer="port", capability=name, spec=like_spec,
         )

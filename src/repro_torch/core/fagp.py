@@ -781,13 +781,30 @@ def predict_mean_var(state: FAGPState, Xs):
     return backend.mean_var(state, Xs)
 
 
-def nlml(X, y, spec: GPSpec, *, mask=None) -> torch.Tensor:
+def _removed(old: str, new: str) -> None:
+    raise TypeError(f"{old} was removed (deprecated two releases ago); {new}")
+
+
+def nlml(X, y, spec: GPSpec, idx=None, n_max: Optional[int] = None,
+         block_rows: Optional[int] = None, *, mask=None) -> torch.Tensor:
     """Negative log marginal likelihood (value only), O(N M^2 + M^3), with
     the moments dispatched through the spec's backend; ``mask`` (N,) drops
-    rows.  For y (N, T) the result sums the per-task NLMLs."""
+    rows.  For y (N, T) the result sums the per-task NLMLs.
+
+    The signature is the JAX package's: ``block_rows`` overrides the spec's
+    row-block size; ``idx`` and ``n_max`` belong to the removed
+    ``nlml(X, y, params, idx, n_max)`` API and raise ``TypeError``, as a
+    spec that is not a ``GPSpec`` does."""
+    if idx is not None or n_max is not None or not isinstance(spec, GPSpec):
+        _removed(
+            "nlml(X, y, params, idx, n_max)",
+            "build a GPSpec and call nlml(X, y, spec)",
+        )
     X, y = _f32(X, spec.device), _f32(y, spec.device)
     _check_p(spec, X.shape[1])
     backend = _check_backend_support(spec)
+    if block_rows is not None:
+        spec = spec.replace(block_rows=block_rows)
     N = X.shape[0]
     if mask is None:
         mask = torch.ones((N,), dtype=torch.float32, device=spec.device)

@@ -69,7 +69,7 @@ class GP:
     @classmethod
     def optimize(cls, X, y, spec: GPSpec, **kwargs) -> "GP":
         """Gradient NLML hyperparameter learning (not ported yet)."""
-        _not_ported("optimize", "NLML-gradient / optimize", spec)
+        _not_ported("optimize", "NLML gradient and GP.optimize (ROADMAP A1)", spec)
 
     @property
     def spec(self) -> GPSpec:

@@ -9,14 +9,18 @@ groups by ``repro/bank/bank.py::_bank_update_scatter_impl``.  Eagerly in
 PyTorch that sweep is K * M dependent steps, several launches each, so on
 the card it is a kernel of its own.
 
-CUDA kernel: ``csrc/chol_update.cu``.  Bound on the H100: ideally one pass
-over the M x M triangle; in practice the latency of the column chain.  One
-block walks the columns in panels of 8: warp 0 computes the panel's
-rotation parameters from the panel rows held in registers, then all 1024
-threads apply them to the rows below; a batch launches one such block per
-system.  Its plain version, :func:`chol_update_plain`, is the faithful
-column loop, vectorised over the batch (one launch per step covers every
-system, not one per system).
+CUDA kernels: ``csrc/chol_update.cu``.  Bound on the H100: ideally one pass
+over the M x M triangle; in practice the chain of dependent rotations and
+one grid-wide step per column panel.  One system runs a persistent
+cooperative kernel over every SM: rows in groups of 32 spread over the
+blocks with their columns of W in shared memory; each 32-column panel is
+factored in the block that owns its rows, by two warps walking the panel's
+anti-diagonals while the rows' own warp still applies the previous panel
+to them, and published to all blocks by one ``grid.sync()``.  A batch
+runs one block per system (panels of 8).  Both round every rotation alike,
+so the two give bitwise equal factors.  Its plain version,
+:func:`chol_update_plain`, is the faithful column loop, vectorised over the
+batch (one launch per step covers every system, not one per system).
 """
 from __future__ import annotations
 
@@ -27,10 +31,11 @@ import torch
 from . import _build
 
 __all__ = ["chol_rank1_update", "chol_update_plain", "chol_update_cuda",
-           "COUNTER", "MAX_K"]
+           "chol_update_plan", "COUNTER", "MAX_K"]
 
 COUNTER = _build.LaunchCounter("chol_update")
 MAX_K = 2048  # 3 * K * 8 floats of shared memory must fit in 227 KB
+_PLAN_KEYS = ("blocks", "threads", "w_chunk", "groups_per_block", "smem_bytes")
 
 
 def chol_rank1_update(L: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -64,28 +69,57 @@ def chol_update_plain(L: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     return L
 
 
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("chol_update")
+    lib.repro_chol_update.restype = ctypes.c_int
+    lib.repro_chol_update.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.c_void_p]
+    lib.repro_chol_update_scratch.restype = ctypes.c_longlong
+    lib.repro_chol_update_scratch.argtypes = [ctypes.c_int]
+    lib.repro_chol_update_plan.restype = ctypes.c_int
+    lib.repro_chol_update_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_longlong)]
+    return lib
+
+
+def chol_update_plan(M: int, K: int) -> dict:
+    """The single-system sweep's launch on the current card: its grid
+    (occupancy x SMs, capped by the 32-row groups), threads per block, the
+    chunk of W kept in shared memory, row groups per block and shared
+    bytes per block."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    _build.check_launch(_lib().repro_chol_update_plan(M, K, out), "chol_update (plan)")
+    return dict(zip(_PLAN_KEYS, out))
+
+
 def chol_update_cuda(L: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/chol_update.cu`` on L's stream, one block per system;
-    L and W are copied first (the kernel works in place), so the caller's
-    tensors are never written.  Counted as variant "batched" for a batch
-    L (G, M, M), "" for one system."""
-    batched = L.ndim == 3
-    G = L.shape[0] if batched else 1
+    """Launch ``csrc/chol_update.cu`` on L's stream: the cooperative sweep
+    for one system (L (M, M), or a batch of one), one block per system for
+    a batch of G > 1.  The kernels work in place on a row-major copy of L,
+    made in one pass whatever L's layout; a batch of G > 1 sweeps a copy of
+    W too, one system only reads it.  The caller's tensors are never
+    written.  A refused cooperative launch raises.  Counted as variant ""
+    for the cooperative sweep, "batched" for the one-block kernel."""
+    G = L.shape[0] if L.ndim == 3 else 1
     M = L.shape[-1]
     K = W.shape[-2]
-    out = L.clone()
+    out = L.clone(memory_format=torch.contiguous_format)
     if G == 0 or M == 0 or K == 0:
         return out
     if K > MAX_K:
         raise ValueError(f"chol_update takes at most {MAX_K} rows at once, got {K}")
-    work = W.clone()
-    lib = _build.library("chol_update")
-    fn = lib.repro_chol_update
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib = _lib()
+    if G == 1:
+        work = W   # only read by the cooperative sweep
+        scratch = torch.empty((lib.repro_chol_update_scratch(K),), dtype=torch.float32,
+                              device=L.device)
+    else:
+        work = W.clone()
+        scratch = None
     stream = torch.cuda.current_stream(L.device).cuda_stream
-    rc = fn(_build.ptr(out), _build.ptr(work), G, M, K, ctypes.c_void_p(stream))
+    rc = lib.repro_chol_update(_build.ptr(out), _build.ptr(work), G, M, K,
+                               _build.ptr(scratch), ctypes.c_void_p(stream))
     _build.check_launch(rc, "chol_update")
-    COUNTER.add("batched" if batched else "")
+    COUNTER.add("" if G == 1 else "batched")
     return out

@@ -175,8 +175,12 @@ def scaled_gram(Phi: torch.Tensor, sqrtlam: torch.Tensor, sig2) -> torch.Tensor:
 
 
 def diag_quad(A: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    """diag(A C A^T): (N,) without the N x N matrix."""
+    """diag(A C A^T): (N,) without the N x N matrix.  A column-major C (as
+    ``torch.cholesky_inverse`` returns B^-1) is read as its row-major
+    transpose, never copied: diag(A C^T A^T) is the same function."""
     A = A.contiguous()
+    if not C.is_contiguous() and C.mT.is_contiguous():
+        C = C.mT
     C = C.contiguous()
     if A.ndim != 2 or C.shape != (A.shape[1], A.shape[1]):
         raise ValueError(f"diag_quad: shapes {tuple(A.shape)} and {tuple(C.shape)}")
@@ -189,12 +193,14 @@ def chol_update(L: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """chol(L L^T + W^T W) for lower-triangular L (M, M) and W (K, M), by K
     sequential rank-1 sweeps, or for a batch of G independent systems,
     L (G, M, M) and W (G, K, M), in one launch.  Returns a new tensor: the
-    inputs are never written."""
-    L = L.contiguous()
+    inputs are never written.  L may have any layout (a column-major
+    factor from torch.linalg.cholesky too): both versions copy it first."""
     W = W.contiguous()
     if L.ndim not in (2, 3) or W.ndim != L.ndim or L.shape[-1] != L.shape[-2] \
             or W.shape[-1] != L.shape[-1] or L.shape[:-2] != W.shape[:-2]:
         raise ValueError(f"chol_update: shapes {tuple(L.shape)} and {tuple(W.shape)}")
-    if _on_cuda("chol_update", L, W):
+    if L.device != W.device or L.dtype != W.dtype:
+        raise ValueError(f"chol_update: L is {L.dtype} on {L.device}, W {W.dtype} on {W.device}")
+    if _on_cuda("chol_update", W):
         return _chol.chol_update_cuda(L, W)
     return _chol.chol_update_plain(L, W)

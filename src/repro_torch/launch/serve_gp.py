@@ -147,7 +147,7 @@ def fleet_dataset(rng: np.random.Generator, *, tenants: int, n_train: int,
     return offsets, Xb, yb, pools
 
 
-_OBS = "pipelined serving with obs (ROADMAP A6)"
+_OBS = "pipelined fleet serving with obs (ROADMAP A4)"
 
 
 def serve_fleet(
@@ -203,10 +203,11 @@ def serve_fleet(
     if engine == "pipelined":
         _not_ported("serve_fleet(engine='pipelined')", _OBS)
     for name, given, item in (
-        ("cold_dir", cold_dir is not None, "checkpoints (ROADMAP A3) and " + _OBS),
-        ("window", bool(window), "bank downdate / refit_window (ROADMAP A1b)"),
+        ("cold_dir", cold_dir is not None, "the tiered bank, TieredBank (ROADMAP A4)"),
+        ("window", bool(window), "bank downdate / refit_window (ROADMAP A2)"),
         ("shards", bool(shards), "multi-device (ROADMAP A5)"),
-        ("reopt_every", bool(reopt_every), "NLML-gradient / optimize (ROADMAP A2)"),
+        ("reopt_every", bool(reopt_every),
+         "re-optimizing fleets (ROADMAP A3, on A1's NLML gradient)"),
         ("metrics", metrics is not None, _OBS),
         ("tracer", tracer is not None, _OBS),
         ("watchdog", watchdog is not None, _OBS),

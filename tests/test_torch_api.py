@@ -1,0 +1,185 @@
+"""The port's public surface against the JAX package's: ``nlml``'s
+signature (``block_rows=`` and the removed ``idx`` / ``n_max`` arguments),
+and the refusals of what is not ported yet, each naming its current
+ROADMAP.md item."""
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from test_torch_common import gp_data, specs, tt  # noqa: E402
+
+from repro.core import fagp as jfagp  # noqa: E402
+from repro.core.gp import GP as JGP  # noqa: E402
+from repro.core.gp import GPSpec as JSpec  # noqa: E402
+from repro_torch.bank import BankRouter, GPBank  # noqa: E402
+from repro_torch.core import fagp as tfagp  # noqa: E402
+from repro_torch.core.approximation import UnsupportedError  # noqa: E402
+from repro_torch.core.gp import GP  # noqa: E402
+from repro_torch.launch import serve_gp as t_serve  # noqa: E402
+
+ROADMAP = Path(__file__).resolve().parents[1] / "ROADMAP.md"
+
+
+def _nlml_tol(want):
+    # tests/test_torch_fagp.py:119 (tests/test_expansions.py:187) gate
+    return 1e-2 * max(1.0, abs(want))
+
+
+# ---------------------------------------------------------------------------
+# nlml(X, y, spec, idx=None, n_max=None, block_rows=None, *, mask=None)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("expansion", ["hermite", "rff_se"])
+@pytest.mark.parametrize("block_rows", [16, 50])
+def test_nlml_block_rows_matches_jax(backend, expansion, block_rows):
+    X, y = gp_data(130, 2, 4)
+    js, ts = specs(expansion, 2, n=6, num_features=24, backend=backend)
+    want = float(jfagp.nlml(jnp.asarray(X), jnp.asarray(y), js, block_rows=block_rows))
+    got = float(tfagp.nlml(tt(X), tt(y), ts, block_rows=block_rows))
+    assert abs(got - want) < _nlml_tol(want)
+    # block_rows overrides the spec's block size, exactly
+    same = float(tfagp.nlml(tt(X), tt(y), ts.replace(block_rows=block_rows)))
+    assert got == same
+
+
+def test_nlml_block_rows_changes_the_block_scan():
+    """On the plain backend the row blocks are the moments' summation
+    order, so the override is live: the scan runs in the blocks asked for,
+    and the value stays within the nlml gate."""
+    X, y = gp_data(300, 2, 6)
+    _, ts = specs("hermite", 2, n=6)
+    calls = []
+    orig = tfagp._block_scan_moments
+
+    def spy(X, y, feats_fn, M, block_rows, *a, **kw):
+        calls.append(block_rows)
+        return orig(X, y, feats_fn, M, block_rows, *a, **kw)
+
+    try:
+        tfagp._block_scan_moments = spy
+        a = float(tfagp.nlml(tt(X), tt(y), ts, block_rows=32))
+        b = float(tfagp.nlml(tt(X), tt(y), ts))
+    finally:
+        tfagp._block_scan_moments = orig
+    assert calls == [32, 300]
+    assert abs(a - b) < _nlml_tol(b)
+
+
+@pytest.mark.parametrize("call", [
+    "positional_block_rows", "keyword_mask", "positional_none_shims",
+    "idx", "n_max", "params_not_a_spec",
+])
+def test_nlml_calls_accepted_or_refused_as_in_jax(call):
+    X, y = gp_data(60, 2, 2)
+    js, ts = specs("hermite", 2, n=5)
+    mask = (np.arange(60) % 4 != 1).astype(np.float32)
+    forms = {
+        "positional_block_rows": (lambda nl, X, y, s, m: nl(X, y, s, None, None, 16)),
+        "keyword_mask": (lambda nl, X, y, s, m: nl(X, y, s, block_rows=8, mask=m)),
+        "positional_none_shims": (lambda nl, X, y, s, m: nl(X, y, s, None, None)),
+        "idx": (lambda nl, X, y, s, m: nl(X, y, s, np.zeros((4, 2), np.int32))),
+        "n_max": (lambda nl, X, y, s, m: nl(X, y, s, None, 5)),
+        "params_not_a_spec": (lambda nl, X, y, s, m: nl(X, y, (0.8, 2.0, 0.05))),
+    }
+    fn = forms[call]
+    try:
+        want = float(fn(jfagp.nlml, jnp.asarray(X), jnp.asarray(y), js, jnp.asarray(mask)))
+    except TypeError as e:
+        with pytest.raises(TypeError, match="was removed") as got:
+            fn(tfagp.nlml, tt(X), tt(y), ts, tt(mask))
+        assert str(got.value) == str(e)
+        return
+    got = float(fn(tfagp.nlml, tt(X), tt(y), ts, tt(mask)))
+    assert abs(got - want) < _nlml_tol(want)
+
+
+def test_nlml_mask_stays_keyword_only():
+    X, y = gp_data(20, 2, 0)
+    _, ts = specs("hermite", 2, n=4)
+    with pytest.raises(TypeError):
+        tfagp.nlml(tt(X), tt(y), ts, None, None, None, torch.ones(20))
+
+
+# ---------------------------------------------------------------------------
+# Refusals name their ROADMAP.md item
+# ---------------------------------------------------------------------------
+
+
+def _bank():
+    Xb = np.zeros((2, 16, 2), np.float32)
+    yb = np.zeros((2, 16), np.float32)
+    for s in range(2):
+        Xb[s], yb[s] = gp_data(16, 2, s)
+    _, ts = specs("hermite", 2, n=4)
+    return GPBank.fit(tt(Xb), tt(yb), ts), ts
+
+
+def _vecchia_load(tmp_path):
+    X, y = gp_data(40, 2, 1)
+    JGP.fit(jnp.asarray(X), jnp.asarray(y),
+            JSpec.create_vecchia([0.8, 0.8], 0.05, neighbors=8)).save(tmp_path)
+    GP.load(tmp_path, device="cpu")
+
+
+def _fleet(**option):
+    t_serve.serve_fleet(**{"engine": "sync", "device": "cpu", "tenants": 2, "n_train": 16,
+                           "p": 2, "n": 4, "rounds": 1, "queries_per_round": 8,
+                           "observations_per_round": 4, **option})
+
+
+# (refusal, ROADMAP item, a word of that item's heading)
+REFUSALS = {
+    "GP.optimize": (lambda tp: GP.optimize(torch.zeros(4, 2), torch.zeros(4), _bank()[1]),
+                    "A1", "optimize"),
+    "GPBank.downdate": (lambda tp: _bank()[0].downdate([0], torch.zeros(1, 2, 2),
+                                                      torch.zeros(1, 2)), "A2", "downdate"),
+    "GPBank.refit_window": (lambda tp: _bank()[0].refit_window(
+        [0], torch.zeros(1, 2, 2), torch.zeros(1, 2)), "A2", "refit_window"),
+    "serve_fleet(window)": (lambda tp: _fleet(window=4), "A2", "downdate"),
+    "GPBank.optimize": (lambda tp: _bank()[0].optimize(torch.zeros(2, 4, 2),
+                                                      torch.zeros(2, 4)), "A3", "heterogeneous"),
+    "GPBank(hypers)": (lambda tp: GPBank(stack=_bank()[0].stack, active=np.ones(2, bool),
+                                         slots={0: 0, 1: 1}, hypers=object()),
+                       "A3", "heterogeneous"),
+    "BankRouter.stale_tenants": (lambda tp: BankRouter(_bank()[0]).stale_tenants(4),
+                                 "A3", "re-optimizing"),
+    "BankRouter.reoptimize": (lambda tp: BankRouter(_bank()[0]).reoptimize([0], None, None),
+                              "A3", "re-optimizing"),
+    "serve_fleet(reopt_every)": (lambda tp: _fleet(reopt_every=1), "A3", "re-optimizing"),
+    "serve_fleet(engine=pipelined)": (lambda tp: _fleet(engine="pipelined"), "A4", "pipelined"),
+    "serve_fleet(cold_dir)": (lambda tp: _fleet(cold_dir=str(tp)), "A4", "tiered bank"),
+    "serve_fleet(metrics)": (lambda tp: _fleet(metrics=object()), "A4", "obs"),
+    "serve_fleet(watchdog)": (lambda tp: _fleet(watchdog=object()), "A4", "obs"),
+    "BankRouter(tracer)": (lambda tp: BankRouter(_bank()[0], tracer=object()), "A4", "obs"),
+    "BankRouter(donate_updates)": (lambda tp: BankRouter(_bank()[0], donate_updates=True),
+                                   "A4", "pipelined"),
+    "GPBank update with donate": (lambda tp: _bank()[0]._update_at_slots(
+        torch.tensor([0]), torch.zeros(1, 2, 2), torch.zeros(1, 2), donate=True),
+        "A4", "pipelined"),
+    "BankRouter.rebalance": (lambda tp: BankRouter(_bank()[0]).rebalance(), "A5",
+                             "multi-device"),
+    "serve_fleet(shards)": (lambda tp: _fleet(shards=2), "A5", "multi-device"),
+    "GP.load(vecchia)": (_vecchia_load, "A6", "Vecchia"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSALS))
+def test_refusal_names_its_roadmap_item(name, tmp_path):
+    call, item, word = REFUSALS[name]
+    with pytest.raises(UnsupportedError) as e:
+        call(tmp_path)
+    msg = str(e.value)
+    assert e.value.layer == "port" and "does not support" in msg
+    assert re.search(rf"ROADMAP(\.md)? {item}\b", msg), msg
+    # no other item letter is named
+    assert set(re.findall(r"\bA\d\b", msg)) <= {item, "A1"}, msg
+    heading = re.search(rf"^\d+\. \*\*{item}: (.*)$", ROADMAP.read_text(), re.M)
+    assert heading and word.lower() in heading.group(1).lower(), (item, word)

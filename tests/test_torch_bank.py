@@ -306,6 +306,19 @@ def test_batched_update_matches_jax_and_loop(backend, branch, monkeypatch):
         assert torch.equal(getattr(up.stack, f)[0], getattr(tb.stack, f)[0])
 
 
+def test_update_of_one_tenant_matches_its_slot_in_a_larger_update():
+    """A one-tenant update (a batch of one system) gives the factor that the
+    same rows give that tenant in an update of several tenants."""
+    _, tb, *_ = _fleet(4, 16, 2, 8)
+    rng = np.random.default_rng(7)
+    Xk, yk = uniform(rng, (2, 3, 2)), rng.standard_normal((2, 3)).astype(np.float32)
+    one = tb.update([1], tt(Xk[:1]), tt(yk[:1]))
+    two = tb.update([1, 2], tt(Xk), tt(yk))
+    np.testing.assert_allclose(nn(one.stack.chol[1]), nn(two.stack.chol[1]), rtol=1e-6, atol=1e-6)
+    assert torch.equal(one.stack.chol[2], tb.stack.chol[2])
+    assert not torch.equal(one.stack.chol[1], tb.stack.chol[1])
+
+
 def test_fully_masked_group_leaves_its_slot_bit_identical():
     """A fully-masked group (the router's padding) writes nothing: its slot
     is bit-identical, while a real group in the same call moves."""
@@ -589,3 +602,24 @@ def test_cuda_bank_fit_and_update_launch_their_kernels(cuda_device):
     np.testing.assert_allclose(nn(bank.mean_var(ten, tt(Xq))[0]),
                                nn(cpu.mean_var(ten, tt(Xq))[0]), rtol=1e-3, atol=1e-4)
     assert up.capacity == 6
+
+
+@pytest.mark.cuda
+def test_cuda_bank_update_of_one_tenant_takes_the_cooperative_sweep(cuda_device):
+    """One tenant is a batch of one system: the cooperative sweep, once,
+    within the chol gate of the CPU bank's update."""
+    Xb, yb = _stack(6, 200, 2)
+    ts = tfagp.GPSpec.create(8, np.full(2, 0.8, np.float32), 2.0, 0.05, backend="pallas",
+                             device=cuda_device)
+    bank = GPBank.fit(tt(Xb), tt(yb), ts)
+    cpu = GPBank.fit(tt(Xb), tt(yb), dataclasses.replace(
+        ts, **{f: getattr(ts, f).cpu() for f in ("eps", "rho", "noise")}))
+    rng = np.random.default_rng(5)
+    Xk, yk = uniform(rng, (1, 4, 2)), rng.standard_normal((1, 4)).astype(np.float32)
+    ops.reset_launch_counts()
+    up = bank.update([3], tt(Xk), tt(yk))
+    assert ops.launch_counts()["chol_update"] == {"": 1}
+    # tests/test_streaming_fit.py:214 gate for chol: rtol 5e-3, atol 1e-3
+    np.testing.assert_allclose(nn(up.stack.chol[3]), nn(cpu.update([3], tt(Xk), tt(yk)).stack.chol[3]),
+                               rtol=5e-3, atol=1e-3)
+    assert torch.equal(up.stack.chol[0], bank.stack.chol[0])

@@ -281,6 +281,6 @@ def test_vecchia_checkpoint_is_refused(tmp_path):
     X, y = gp_data(40, 2, 1)
     JGP.fit(jnp.asarray(X), jnp.asarray(y),
             JSpec.create_vecchia([0.8, 0.8], 0.05, neighbors=8)).save(tmp_path)
-    with pytest.raises(UnsupportedError, match="A4") as e:
+    with pytest.raises(UnsupportedError, match="A6") as e:
         GP.load(tmp_path, device="cpu")
     assert e.value.layer == "port" and "does not support" in str(e.value)

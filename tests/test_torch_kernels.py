@@ -158,11 +158,38 @@ def test_chol_update_matches_jax_sweep(M, K):
     assert np.all(np.triu(nn(got), 1) == 0.0)
 
 
+def test_diag_quad_reads_a_column_major_c_as_its_transpose():
+    """diag(A C A^T) = diag(A C^T A^T): a column-major C (B^-1 from
+    torch.cholesky_inverse) is read through its transpose, not copied."""
+    rng = np.random.default_rng(5)
+    A, C = tt(rng.standard_normal((9, 20))), tt(rng.standard_normal((20, 20)))
+    Ccm = C.T.contiguous().T
+    assert not Ccm.is_contiguous() and torch.equal(Ccm, C)
+    # tests/test_kernels.py:168 variance gate
+    np.testing.assert_allclose(nn(ops.diag_quad(A, Ccm)), nn(tdq.diag_quad_plain(A, C)),
+                               rtol=2e-3, atol=1e-5)
+
+
 def test_chol_update_leaves_inputs_untouched():
     L, W = tt(_spd_factor(12, 1)), torch.randn(2, 12)
     L0, W0 = L.clone(), W.clone()
     tchol.chol_update_plain(L, W)
     assert torch.equal(L, L0) and torch.equal(W, W0)
+
+
+def test_chol_update_takes_any_layout_of_l_and_a_batch_of_one():
+    """A column-major L (torch.linalg.cholesky's layout) gives the row-major
+    call's factor, and a batch of one system the 2-D call's; neither input
+    is written."""
+    L, W = tt(_spd_factor(24, 3)), torch.randn(2, 24, generator=torch.Generator().manual_seed(3))
+    Lcm = L.T.contiguous().T
+    assert not Lcm.is_contiguous() and torch.equal(Lcm, L)
+    want = ops.chol_update(L, W)
+    assert torch.equal(ops.chol_update(Lcm, W), want)
+    assert torch.equal(ops.chol_update(L[None], W[None])[0], want)
+    assert torch.equal(Lcm, L) and torch.equal(L, tt(_spd_factor(24, 3)))
+    with pytest.raises(ValueError, match="float64"):
+        ops.chol_update(L.double(), W)
 
 
 def test_cpu_path_launches_nothing():
@@ -263,3 +290,85 @@ def test_cuda_diag_quad_and_chol_update_match_plain(cuda_device):
     W = torch.randn(8, 125, device=cuda_device)
     np.testing.assert_allclose(nn(ops.chol_update(L, W)),
                                nn(tchol.chol_update_plain(L, W)), rtol=5e-3, atol=1e-3)
+
+
+def _spd_factor_on(M, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    R = torch.randn(M, M, generator=gen)
+    return torch.linalg.cholesky(torch.eye(M) + R @ R.T / M).to(device)
+
+
+# sweep edge shapes: M below one 32-row panel, M not a multiple of 32,
+# K = 1, and K large enough that W is swept in chunks
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(20, 4), (1000, 16), (300, 1), (96, 400)])
+def test_cuda_sweep_edge_shapes_match_plain_and_one_block(cuda_device, M, K):
+    L = _spd_factor_on(M, M + K, cuda_device)
+    W = (torch.randn(K, M, generator=torch.Generator().manual_seed(K)) * 0.3).to(cuda_device)
+    L0, W0 = L.clone(), W.clone()
+    got = ops.chol_update(L, W)
+    # tests/test_streaming_fit.py:214 gate for chol: rtol 5e-3, atol 1e-3
+    np.testing.assert_allclose(nn(got), nn(tchol.chol_update_plain(L, W)), rtol=5e-3, atol=1e-3)
+    # the one-block kernel (a G = 2 batch) rounds every rotation alike
+    assert torch.equal(got, ops.chol_update(torch.stack([L, L]), torch.stack([W, W]))[0])
+    assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+    assert torch.equal(L, L0) and torch.equal(W, W0)
+
+
+# a batch of one system, L (1, M, M), takes the cooperative sweep: the
+# 2-D call's bits, counted as one launch of it; L column-major or not
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(20, 4), (125, 8), (1000, 16)])
+def test_cuda_sweep_batch_of_one_matches_plain_and_2d_call(cuda_device, M, K):
+    L = _spd_factor_on(M, M + K, cuda_device)
+    W = (torch.randn(K, M, generator=torch.Generator().manual_seed(K)) * 0.3).to(cuda_device)
+    ops.reset_launch_counts()
+    got = ops.chol_update(L[None], W[None])
+    assert ops.launch_counts()["chol_update"] == {"": 1}
+    # tests/test_streaming_fit.py:214 gate for chol: rtol 5e-3, atol 1e-3
+    np.testing.assert_allclose(nn(got[0]), nn(tchol.chol_update_plain(L, W)),
+                               rtol=5e-3, atol=1e-3)
+    assert torch.equal(got[0], ops.chol_update(L, W))
+    assert torch.equal(got[0], ops.chol_update(L.T.contiguous().T, W))
+
+
+# the same sweep where the plain version would take minutes: W in chunks
+# at M = 4,096, and a grid with several row groups per block
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(4096, 512), (8192, 200)])
+def test_cuda_sweep_large_shapes_match_refactor_and_one_block(cuda_device, M, K):
+    L = _spd_factor_on(M, M + K, cuda_device)
+    W = (torch.randn(K, M, generator=torch.Generator().manual_seed(K)) * 0.3).to(cuda_device)
+    plan = tchol.chol_update_plan(M, K)
+    assert plan["blocks"] <= -(-M // 32) and plan["w_chunk"] <= K
+    got = ops.chol_update(L, W)
+    np.testing.assert_allclose(nn(got), nn(torch.linalg.cholesky(L @ L.T + W.T @ W)),
+                               rtol=5e-3, atol=1e-3)
+    assert torch.equal(got, ops.chol_update(torch.stack([L, L]), torch.stack([W, W]))[0])
+
+
+# diag-quad at the serving shape (C symmetric, as B^-1), the RFF path's M,
+# one query, two row tiles, and a C that is not symmetric, row-major or
+# column-major (read as its transpose)
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M,symmetric,column_major", [
+    (128, 14641, True, False), (128, 8192, False, False), (1, 14641, False, False),
+    (200, 3001, False, False), (77, 125, False, False), (128, 3001, False, True)])
+def test_cuda_diag_quad_shapes_match_plain(cuda_device, N, M, symmetric, column_major):
+    gen = torch.Generator(device=cuda_device).manual_seed(N + M)
+    A = torch.randn(N, M, generator=gen, device=cuda_device)
+    R = torch.randn(M, M, generator=gen, device=cuda_device)
+    C = R @ R.T / M + 1e-3 * torch.eye(M, device=cuda_device)
+    if not symmetric:
+        C = C + torch.randn(M, M, generator=gen, device=cuda_device) * (1e-3 / M ** 0.5)
+        assert not torch.equal(C, C.T)
+    if column_major:
+        C = C.T.contiguous().T
+        assert not C.is_contiguous()
+    A0, C0 = A.clone(), C.clone()
+    # tests/test_kernels.py:168 variance gate
+    np.testing.assert_allclose(nn(ops.diag_quad(A, C)), nn(tdq.diag_quad_plain(A, C)),
+                               rtol=2e-3, atol=1e-5)
+    assert torch.equal(A, A0) and torch.equal(C, C0)
+    plan = tdq.diag_quad_plan(N, M, cuda_device)
+    assert plan["strips"] == -(-M // 128) and plan["S"] >= 1
