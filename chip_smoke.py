@@ -7,14 +7,16 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (printing
-   each kernel's registers and spills) and holds each one against its
-   plain PyTorch version on the card, at the main path's shapes and at one
-   ragged shape, with the tolerance stated; times kernel, plain version and
-   (where one exists) a single PyTorch library call computing the same
-   function (CUDA events, 2 warm-up runs, median of 20 runs; the plain
-   rank-K sweep is timed once, it takes over a minute).  Diag-quad also
-   runs at the RFF path's M = 8,192, on 1 and 200 queries and with a C that
-   is not symmetric (its plan, the split S of the k axis, printed); the
+   each kernel's registers and spills, and the fused fit's launch plans at
+   the main path's, its RFF path's and the fleet's shapes) and holds each
+   one against its plain PyTorch version on the card, at the main path's
+   shapes and at one ragged shape, with the tolerance stated; times kernel,
+   plain version and (where one exists) a single PyTorch library call
+   computing the same function (CUDA events, 2 warm-up runs, median of 20
+   runs; the plain rank-K sweep is timed once, it takes over a minute);
+   the RFF fused fit (M = 8,192) is timed on a line of its own.  Diag-quad
+   also runs at the RFF path's M = 8,192, on 1 and 200 queries and with a
+   C that is not symmetric (its plan, the split S of the k axis, printed); the
    single-system sweep (its grid printed) is held bitwise against the
    one-block kernel on a G = 2 batch of the same system, then at edge
    shapes (M < 32, M not a multiple of 32, K = 1, W swept in chunks,
@@ -204,6 +206,17 @@ def main() -> int:
     for name, log in _build.ptxas_report().items():
         for fn, regs, spill in ptxas_functions(log):
             print(f"[ptxas {name}: {fn}] {regs}; {spill}")
+    # the fused fit's launches: the main path's, its RFF path's (R = 4,096)
+    # and the fleet's bank kernel
+    for label, args in (
+        ("phi_gram", (MAIN["n_train"], MAIN["n"] ** MAIN["p"], 1, "hermite", MAIN["p"],
+                      MAIN["n"])),
+        ("phi_gram rff", (MAIN["n_train"], 8192, 1, "rff", MAIN["p"], 1)),
+        ("phi_gram.bank", (FLEET["n_train"], FLEET["n"] ** FLEET["p"], FLEET["tenants"],
+                           "hermite", FLEET["p"], FLEET["n"])),
+    ):
+        print(f"[plan {label}] N={args[0]} M={args[1]} slots={args[2]}: "
+              f"{json.dumps(kgram.phi_gram_plan(*args))}")
 
     def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         for _ in range(warmup):
@@ -353,6 +366,19 @@ def main() -> int:
     compare(f"phi_features rff ({Xq.shape[0]}x{rtile.M})",
             [ops.expansion_phi(Xq, rtile)], [kphi.phi_features_plain(Xq, rtile)],
             rtol=1e-5, atol=2e-5, why="f32 cosf of the same sums")
+    # the RFF fused fit's own time (the same kernel, a cosine per feature)
+    RM = rtile.M
+    Phir = kphi.phi_features_plain(X0, rtile)
+    rff_fit = dict(
+        ms=cuda_ms(lambda: ops.fused_fit_moments(X0, y0, rtile, rsq, rsig2)),
+        plain_ms=cuda_ms(lambda: kgram.phi_gram_plain(X0, y0, ones, rtile, rsq, rsig2, True)),
+        library_ms=cuda_ms(lambda: Phir.T @ Phir),
+        bound=bound(N * RM * (RM + 1) + 2 * N * RM,
+                    4 * (X0.numel() + 2 * N + (p + 1) * RM + RM + RM * RM + RM)))
+    del Phir
+    print(f"[kernel] phi_gram rff ({N}x{RM}): ms={rff_fit['ms']:.4f} "
+          f"plain_ms={rff_fit['plain_ms']:.4f} library_ms={rff_fit['library_ms']:.4f} "
+          f"bound_ms={rff_fit['bound'][0]:.4f} ({rff_fit['bound'][1]})")
     C_rff = torch.cholesky_inverse(torch.linalg.cholesky(Br))
     del Br, br
 

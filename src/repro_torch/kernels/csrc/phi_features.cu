@@ -51,7 +51,7 @@ __global__ void phi_features_kernel(const float* __restrict__ X, int N, int p,
       const int r = t / p, j = t - r * p;
       const float x = X[(size_t)(r0 + r) * p + j];
       if (kind == repro::kHermite) {
-        repro::hermite_row(x, consts + 3 * j, coef, n, rows_tab + r * row_words + j * n);
+        repro::hermite_row(x, consts + 3 * j, coef, n, rows_tab + r * row_words + j * n, 1);
       } else {
         rows_tab[r * row_words + j] = x;
       }
@@ -62,7 +62,7 @@ __global__ void phi_features_kernel(const float* __restrict__ X, int N, int p,
         const float* tab = rows_tab + r * row_words;
         const float v = (kind == repro::kHermite)
             ? repro::hermite_feature(tab, sidx + threadIdx.x, kCols, p, n)
-            : repro::rff_feature(tab, sw + threadIdx.x, kCols, p);
+            : repro::rff_feature(tab, 1, sw + threadIdx.x, kCols, p);
         out[(size_t)(r0 + r) * M + m] = v;
       }
     }

@@ -13,46 +13,177 @@
 // inlined.
 //
 // Bound on the H100: float32 operations on the CUDA cores.  The Gram is
-// N*M*(M+1) flops for its upper triangle (4.3e12 flops for the full square
-// at N = 10^4, M = 14,641), against a few hundred MB of traffic (read X and
-// y once, write B once), so the card's 67 TFLOP/s float32 rate is the
-// limit; TF32 tensor cores would be faster but break the 1e-3 parity gates.
+// N*M*(M+1) flops for its upper triangle (2.1e12 at N = 10^4, M = 14,641:
+// 32 ms at 67 TFLOP/s) against a few hundred MB of traffic (read X and y
+// once, write B once).  For a bank (B slots of N rows, M = 625 at the
+// fleet's shape) it is B*N*M*(M+1) flops (2.0e12 at B = 512, N = 10^4), so
+// the same rate bounds it.  TF32 tensor cores would be faster but break
+// the fit's parity gates, and every entry is summed in row order by one
+// thread, one fmaf per row, so the Gram is bitwise that of the scaled-Gram
+// kernel on the stored features (scaled_gram.cu) and exactly symmetric.
 //
-// For a bank (B slots of N rows, M = 625 at the fleet's shape) the work is
-// B*N*M*(M+1) flops (2.0e12 at B = 512, N = 10^4), again far above its
-// bytes, so the same float32 rate bounds it.
+// Four costs of regenerating Phi per tile, and what this design does:
+//  * Feature work per FMA: a block owns a 128 x 128 tile of the upper
+//    triangle (bi <= bj; mirrored on store) and each of its 256 threads an
+//    8 x 8 register tile, so a feature built feeds 64 FMAs and four float4
+//    shared loads feed 64 FMAs; 6,670 blocks at M = 14,641, 15 a slot at
+//    M = 625.
+//  * Phases in sequence (row table, feature tiles, FMAs): a two-stage
+//    ring instead.  Step k + 1's feature tiles are built from the row
+//    table while step k's FMAs read the other stage, and the row table
+//    runs one step further ahead, so a step has one barrier and warps in
+//    different phases fill each other's gaps.  Every thread both builds
+//    (one column of one side) and multiplies.
+//  * Feature cost: each column's row-table offsets (j*n + idx[m, j]) are
+//    staged once per block, pre-scaled by the table's pitch, and the
+//    table is value-major with the 32 rows minor (pitch 33, no bank
+//    conflict), so with p unrolled (p <= 8) a Hermite feature is p shared
+//    loads at immediate offsets and p - 1 multiplies, then the mask.
+//  * The serial tail of diagonal blocks: b = Phi^T (mask * y) is summed
+//    by the threads that build the diagonal block's columns, each column
+//    once, in row order, while they build, not after the FMAs.
+// One block loops over all N rows (the TPU's sequential grid axis), so no
+// sum crosses blocks: no atomics, no second pass.  The slot is the grid's
+// y axis; both kernels share one body.  Rows past N are built from x = 0
+// and masked, columns past M are built and never stored.
 //
-// Design:
-//  * The slot is the grid's y axis: block (lin, s) of the bank kernel
-//    offsets X, y, mask, the output and b by slot s and computes tile lin
-//    of that slot's Gram.  Both kernels share one body (phi_gram_body);
-//    the one-model kernel has no offsets.  The offset pointers would cost
-//    the body 13 registers (61 instead of 48), cutting occupancy from 5 to
-//    4 blocks per SM, so the bank kernel asks for 5 blocks per SM in its
-//    launch bounds; that hint makes the one-model kernel slower, so it
-//    keeps the plain bound.
-//  * One block owns one 64 x 64 output tile and loops over all N rows
-//    inside the block, so no sum is carried between blocks: no atomics, no
-//    second pass.  This loop takes the place of the TPU's sequential grid
-//    axis over N.
-//  * G is symmetric, so only tiles (bi <= bj) are launched and the block
-//    writes its tile and, off the diagonal, the mirrored tile: half the
-//    arithmetic, and B comes out exactly symmetric for the Cholesky.
-//  * Per 32-row step the block evaluates each row's p*n Hermite values once
-//    into shared memory, builds the two (32, 64) feature tiles from them
-//    through the index table, masks rows >= N and rows with mask 0, and
-//    accumulates a 4 x 4 register tile per thread (plain FP32 FMA).
-//  * b = Phi^T (mask * y) is accumulated by the diagonal blocks, each for
-//    its own 64 columns, so every column of b is written exactly once.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 59.4-59.5
+// ms at N = 10^4, M = 14,641 (bound 32.0 ms; Phi^T Phi on a stored Phi,
+// 81 ms); the bank 67.2 ms at 512 slots x 10^4 rows, M = 625 (bound 30.0
+// ms; bmm 78 ms).  Alone, the FMA core reaches 70% of the FP32 rate and
+// the feature build adds ~12 ms (benchmarks/torch_phi_gram_ablation.py).
 #include <math.h>
 
 #include "expansion.cuh"
 
 namespace {
 
-constexpr int kT = 64;     // output tile edge
-constexpr int kK = 32;     // rows per step
+constexpr int kT = 128;          // output tile edge
+constexpr int kK = 32;           // rows per step
 constexpr int kThreads = 256;
+constexpr int kStages = 2;       // feature-tile and row-table ring
+constexpr int kPitch = kK + 1;   // row table: value v of row r at v * kPitch + r
+constexpr int kMaxP = 8;         // widest input with an unrolled producer
+constexpr int kSide = kK * kT;   // floats of one (32, 128) feature tile
+constexpr int kMinBlocks = 2;    // resident blocks per SM the kernel is built for
+
+// Shared memory in floats: the feature ring [stage][side][kK][kT], mask*y
+// and mask [stage][2][kK], the column info [side][col_words][kT] (pitch-
+// scaled table offsets for Hermite, [W; phase] for RFF), the row tables
+// [stage][row_words][kPitch].
+struct Layout {
+  int row_words, col_words, feat, ym, col, tab, floats;
+};
+
+__host__ __device__ inline Layout layout(int kind, int p, int n) {
+  Layout L;
+  L.row_words = (kind == repro::kHermite) ? p * n : p;
+  L.col_words = (kind == repro::kHermite) ? p : p + 1;
+  L.feat = 0;
+  L.ym = kStages * 2 * kSide;
+  L.col = L.ym + kStages * 2 * kK;
+  L.tab = L.col + 2 * L.col_words * kT;
+  L.floats = L.tab + kStages * L.row_words * kPitch;
+  return L;
+}
+
+// Row table and mask of the 32-row step at k0 (rows past N: x = 0, mask 0).
+__device__ __forceinline__ void build_rows(const float* __restrict__ X,
+                                           const float* __restrict__ y,
+                                           const float* __restrict__ mask,
+                                           int N, int p, int kind, int n,
+                                           const float* __restrict__ consts,
+                                           const float* __restrict__ coef,
+                                           int k0, float* tab, float* ym) {
+  const int tid = threadIdx.x;
+  const int rows = min(kK, N - k0);
+  for (int t = tid; t < kK * p; t += kThreads) {
+    const int j = t / kK, r = t % kK;
+    const float x = (r < rows) ? X[(size_t)(k0 + r) * p + j] : 0.f;
+    if (kind == repro::kHermite)
+      repro::hermite_row(x, consts + 3 * j, coef, n, tab + j * n * kPitch + r, kPitch);
+    else
+      tab[j * kPitch + r] = x;
+  }
+  if (tid >= kThreads - kK) {
+    const int r = tid - (kThreads - kK);
+    const float mk = (r < rows) ? mask[k0 + r] : 0.f;
+    ym[r] = (r < rows) ? y[k0 + r] * mk : 0.f;
+    ym[kK + r] = mk;
+  }
+}
+
+// One column of one side for the 32 rows of a step, Hermite, p unrolled:
+// the left fold of p table values (at the column's pitch-scaled offsets
+// `ci`, strided by kT), times the row's mask.
+template <int kP>
+__device__ __forceinline__ void hermite_column(const float* __restrict__ tab,
+                                               const int* __restrict__ ci,
+                                               const float* __restrict__ ms,
+                                               float* __restrict__ dst) {
+  int off[kP];
+#pragma unroll
+  for (int j = 0; j < kP; ++j) off[j] = ci[j * kT];
+#pragma unroll
+  for (int r0 = 0; r0 < kK; r0 += 4) {
+    const float4 m = *reinterpret_cast<const float4*>(ms + r0);
+    const float mv[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float v = tab[off[0] + r0 + q];
+#pragma unroll
+      for (int j = 1; j < kP; ++j) v *= tab[off[j] + r0 + q];
+      dst[(r0 + q) * kT] = v * mv[q];
+    }
+  }
+}
+
+// The same for any p (p > kMaxP).
+__device__ __forceinline__ void hermite_column_any(const float* __restrict__ tab,
+                                                   const int* __restrict__ ci, int p,
+                                                   const float* __restrict__ ms,
+                                                   float* __restrict__ dst) {
+#pragma unroll 1
+  for (int r = 0; r < kK; ++r) {
+    float v = tab[ci[0] + r];
+    for (int j = 1; j < p; ++j) v *= tab[ci[j * kT] + r];
+    dst[r * kT] = v * ms[r];
+  }
+}
+
+// One RFF column for the 32 rows of a step (rff_feature of expansion.cuh
+// on the row table's inputs, strided by kPitch).
+__device__ __forceinline__ void rff_column(const float* __restrict__ tab,
+                                           const float* __restrict__ cw, int p,
+                                           const float* __restrict__ ms,
+                                           float* __restrict__ dst) {
+#pragma unroll 1
+  for (int r = 0; r < kK; ++r)
+    dst[r * kT] = repro::rff_feature(tab + r, kPitch, cw, kT, p) * ms[r];
+}
+
+__device__ __forceinline__ void build_column(int kind, int p,
+                                             const float* __restrict__ tab,
+                                             const float* __restrict__ ci,
+                                             const float* __restrict__ ms,
+                                             float* __restrict__ dst) {
+  if (kind != repro::kHermite) {
+    rff_column(tab, ci, p, ms, dst);
+    return;
+  }
+  const int* off = reinterpret_cast<const int*>(ci);
+  switch (p) {
+    case 1: hermite_column<1>(tab, off, ms, dst); break;
+    case 2: hermite_column<2>(tab, off, ms, dst); break;
+    case 3: hermite_column<3>(tab, off, ms, dst); break;
+    case 4: hermite_column<4>(tab, off, ms, dst); break;
+    case 5: hermite_column<5>(tab, off, ms, dst); break;
+    case 6: hermite_column<6>(tab, off, ms, dst); break;
+    case 7: hermite_column<7>(tab, off, ms, dst); break;
+    case 8: hermite_column<kMaxP>(tab, off, ms, dst); break;
+    default: hermite_column_any(tab, off, p, ms, dst);
+  }
+}
 
 template <bool kBank>
 __device__ __forceinline__ void
@@ -80,108 +211,104 @@ phi_gram_body(const float* __restrict__ X, const float* __restrict__ y,
   const bool diag = (bi == bj);
 
   extern __shared__ __align__(16) float sh[];
-  float* phi_i = sh;                       // [kK][kT]
-  float* phi_j = sh + kK * kT;             // [kK][kT]
-  float* ys = phi_j + kK * kT;             // [kK]   mask * y
-  float* ms = ys + kK;                     // [kK]   mask (0 past N)
-  const int col_words = (kind == repro::kHermite) ? p : p + 1;
-  float* colinfo = ms + kK;                // [2][col_words][kT]
-  float* rows_tab = colinfo + 2 * col_words * kT;
-  const int row_words = (kind == repro::kHermite) ? p * n : p;
-
+  const Layout L = layout(kind, p, n);
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  // FMA role: a warp owns a 32 x 64 part of the tile, its lanes 4 x 8
+  // threads; a thread rows r0 + u and r0 + 16 + u, columns q0 + v and
+  // q0 + 32 + v (u, v < 4), so each float4 shared load of a row meets 4
+  // or 8 distinct addresses, one wavefront
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = (warp / 2) * 32 + (lane / 8) * 4;
+  const int q0 = (warp % 2) * 64 + (lane % 8) * 4;
+  // build role: column c of side `side` (a diagonal block has one side,
+  // built by threads 0-127, which also sum b)
+  const int side = tid / kT, c = tid % kT;
+  const bool builds = !diag || side == 0;
+  const int col = (side == 0 ? bi : bj) * kT + c;
+  float* const colinfo = sh + L.col + side * L.col_words * kT + c;
 
-  // column info of the two column ranges, staged once
-  for (int e = tid; e < 2 * kT; e += kThreads) {
-    const int side = e / kT, c = e % kT;
-    const int col = (side == 0 ? bi : bj) * kT + c;
-    float* dst = colinfo + side * col_words * kT + c;
-    if (kind == repro::kHermite) {
-      int* di = reinterpret_cast<int*>(dst);
-      for (int j = 0; j < p; ++j) di[j * kT] = (col < M) ? idx[(size_t)col * p + j] : 0;
-    } else {
-      for (int j = 0; j <= p; ++j) dst[j * kT] = (col < M) ? table[(size_t)j * M + col] : 0.f;
-    }
+  if (kind == repro::kHermite) {
+    int* ci = reinterpret_cast<int*>(colinfo);
+    for (int j = 0; j < p; ++j)
+      ci[j * kT] = (j * n + (col < M ? idx[(size_t)col * p + j] : 0)) * kPitch;
+  } else {
+    for (int j = 0; j <= p; ++j) colinfo[j * kT] = (col < M) ? table[(size_t)j * M + col] : 0.f;
   }
 
-  float acc[4][4];
+  float acc[8][8];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int u = 0; u < 8; ++u)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+    for (int v = 0; v < 8; ++v) acc[u][v] = 0.f;
   float bacc = 0.f;
 
-  for (int k0 = 0; k0 < N; k0 += kK) {
-    const int rows = min(kK, N - k0);
-    __syncthreads();  // previous step fully consumed (and colinfo staged)
-    for (int t = tid; t < rows * p; t += kThreads) {
-      const int r = t / p, j = t - r * p;
-      const float x = X[(size_t)(k0 + r) * p + j];
-      if (kind == repro::kHermite) {
-        repro::hermite_row(x, consts + 3 * j, coef, n, rows_tab + r * row_words + j * n);
-      } else {
-        rows_tab[r * row_words + j] = x;
-      }
-    }
-    if (tid < kK) {
-      const float mk = (tid < rows) ? mask[k0 + tid] : 0.f;
-      ms[tid] = mk;
-      ys[tid] = (tid < rows) ? y[k0 + tid] * mk : 0.f;
-    }
-    __syncthreads();
-    const int sides = diag ? 1 : 2;
-    for (int e = tid; e < sides * kK * kT; e += kThreads) {
-      const int side = e / (kK * kT), rem = e % (kK * kT);
-      const int r = rem / kT, c = rem % kT;
-      const int col = (side == 0 ? bi : bj) * kT + c;
-      float v = 0.f;
-      if (r < rows && col < M) {
-        const float* tab = rows_tab + r * row_words;
-        const float* ci = colinfo + side * col_words * kT + c;
-        v = (kind == repro::kHermite)
-                ? repro::hermite_feature(tab, reinterpret_cast<const int*>(ci), kT, p, n)
-                : repro::rff_feature(tab, ci, kT, p);
-        v *= ms[r];
-      }
-      (side == 0 ? phi_i : phi_j)[r * kT + c] = v;
-    }
-    __syncthreads();
-    const float* pj = diag ? phi_i : phi_j;
+  const int steps = (N + kK - 1) / kK;
+  auto tab_of = [&](int s) { return sh + L.tab + s * L.row_words * kPitch; };
+  auto ym_of = [&](int s) { return sh + L.ym + s * 2 * kK; };
+  auto feat_of = [&](int s) { return sh + L.feat + s * 2 * kSide; };
+  // step s's feature column from its row table, and on a diagonal block
+  // its part of b, row by row
+  auto build = [&](int s) {
+    if (!builds) return;
+    const int st = s % kStages;
+    const float* ym = ym_of(st);
+    float* dst = feat_of(st) + side * kSide + c;
+    build_column(kind, p, tab_of(st), colinfo, ym + kK, dst);
+    if (diag) {
 #pragma unroll 8
-    for (int r = 0; r < kK; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(phi_i + r * kT + ty * 4);
-      const float4 c = *reinterpret_cast<const float4*>(pj + r * kT + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(av[u], cv[v], acc[u][v]);
+      for (int r = 0; r < kK; ++r) bacc = fmaf(ym[r], dst[r * kT], bacc);
     }
-    if (diag && tid < kT) {
-      for (int r = 0; r < rows; ++r) bacc = fmaf(ys[r], phi_i[r * kT + tid], bacc);
+  };
+
+  // step k's FMAs read one stage while step k + 1's features are built
+  // into the other from their row table, and step k + 2's rows go into
+  // the table stage step k's rows held (consumed before the last barrier);
+  // k = -1 only builds ahead
+  if (steps > 0) build_rows(X, y, mask, N, p, kind, n, consts, coef, 0, tab_of(0), ym_of(0));
+  __syncthreads();
+  for (int k = -1; k < steps; ++k) {
+    if (k + 1 < steps) build(k + 1);
+    if (k + 2 < steps)
+      build_rows(X, y, mask, N, p, kind, n, consts, coef, (k + 2) * kK,
+                 tab_of((k + 2) % kStages), ym_of((k + 2) % kStages));
+    if (k >= 0) {
+      const float* fi = feat_of(k % kStages);
+      const float* fj = diag ? fi : fi + kSide;
+#pragma unroll
+      for (int r = 0; r < kK; ++r) {
+        const float4 a0 = *reinterpret_cast<const float4*>(fi + r * kT + r0);
+        const float4 a1 = *reinterpret_cast<const float4*>(fi + r * kT + 16 + r0);
+        const float4 c0 = *reinterpret_cast<const float4*>(fj + r * kT + q0);
+        const float4 c1 = *reinterpret_cast<const float4*>(fj + r * kT + 32 + q0);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+#pragma unroll
+          for (int v = 0; v < 8; ++v) acc[u][v] = fmaf(av[u], cv[v], acc[u][v]);
+      }
     }
+    __syncthreads();  // step k consumed; step k + 1's features built
   }
 
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int gi = bi * kT + ty * 4 + u;
+  for (int u = 0; u < 8; ++u) {
+    const int gi = bi * kT + r0 + (u / 4) * 16 + u % 4;
     if (gi >= M) continue;
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int gj = bj * kT + tx * 4 + v;
+    for (int v = 0; v < 8; ++v) {
+      const int gj = bj * kT + q0 + (v / 4) * 32 + v % 4;
       if (gj >= M) continue;
       float val = acc[u][v];
-      if (scale) val = val * (d[gi] * d[gj] / sig2) + (gi == gj ? 1.f : 0.f);
+      if (scale) val = repro::scaled_entry(val, d[gi], d[gj], sig2, gi == gj);
       out[(size_t)gi * M + gj] = val;
       if (!diag) out[(size_t)gj * M + gi] = val;
     }
   }
-  if (diag && tid < kT && bi * kT + tid < M) b[bi * kT + tid] = bacc;
+  if (diag && side == 0 && col < M) b[col] = bacc;
 }
 
-// The two kernels: one body, two launch bounds (see the design notes).
+// The two kernels: one body, the bank's slot offsets compiled in or out.
 #define PHI_GRAM_PARAMS                                                     \
   const float* __restrict__ X, const float* __restrict__ y,                 \
       const float* __restrict__ mask, int N, int p, int M, int kind, int n, \
@@ -192,11 +319,12 @@ phi_gram_body(const float* __restrict__ X, const float* __restrict__ y,
 #define PHI_GRAM_ARGS \
   X, y, mask, N, p, M, kind, n, consts, coef, idx, table, d, sig2, scale, out, b
 
-__global__ void __launch_bounds__(kThreads) phi_gram_kernel(PHI_GRAM_PARAMS) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+phi_gram_kernel(PHI_GRAM_PARAMS) {
   phi_gram_body<false>(PHI_GRAM_ARGS);
 }
 
-__global__ void __launch_bounds__(kThreads, 5)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 bank_phi_gram_kernel(PHI_GRAM_PARAMS) {
   phi_gram_body<true>(PHI_GRAM_ARGS);
 }
@@ -204,30 +332,63 @@ bank_phi_gram_kernel(PHI_GRAM_PARAMS) {
 #undef PHI_GRAM_ARGS
 #undef PHI_GRAM_PARAMS
 
+struct GramPlan {
+  long long tiles, blocks_per_slot, blocks, smem;
+  int resident;  // blocks per SM at this shared-memory size
+};
+
+// The launch for (N, M, nbank, kind, p, n); errors where it cannot run.
+cudaError_t gram_plan(int N, int M, int nbank, int kind, int p, int n,
+                      GramPlan* plan) {
+  if (N < 0 || M < 1 || p < 1 || n < 1 || nbank < 1 || nbank > 65535 ||
+      (kind != repro::kHermite && kind != repro::kRff))
+    return cudaErrorInvalidValue;
+  GramPlan P;
+  P.tiles = (M + kT - 1) / kT;
+  P.blocks_per_slot = P.tiles * (P.tiles + 1) / 2;
+  if (P.blocks_per_slot > 2147483647LL) return cudaErrorInvalidConfiguration;
+  P.blocks = P.blocks_per_slot * nbank;
+  P.smem = (long long)sizeof(float) * layout(kind, p, n).floats;
+  auto kernel = (nbank > 1) ? bank_phi_gram_kernel : phi_gram_kernel;
+  cudaError_t err = repro::allow_smem(kernel, (size_t)P.smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&P.resident, kernel, kThreads,
+                                                        (size_t)P.smem);
+  if (err != cudaSuccess) return err;
+  if (P.resident < 1) return cudaErrorInvalidConfiguration;
+  *plan = P;
+  return cudaSuccess;
+}
+
 int launch(const float* X, const float* y, const float* mask, int nbank, int N,
            int p, int M, int kind, int n, const float* consts, const float* coef,
            const int* idx, const float* table, const float* d, float sig2,
            int scale, float* out, float* b, void* stream) {
-  const int col_words = (kind == repro::kHermite) ? p : p + 1;
-  const int row_words = (kind == repro::kHermite) ? p * n : p;
-  const size_t bytes = sizeof(float) * ((size_t)2 * kK * kT + 2 * kK +
-                                        (size_t)2 * col_words * kT +
-                                        (size_t)kK * row_words);
-  const int tiles = (M + kT - 1) / kT;
-  const long long blocks = (long long)tiles * (tiles + 1) / 2;
-  if (blocks > 2147483647LL || nbank < 1 || nbank > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks, (unsigned)nbank);
-  auto kernel = (nbank > 1) ? bank_phi_gram_kernel : phi_gram_kernel;
-  cudaError_t err = repro::allow_smem(kernel, bytes);
+  GramPlan P;
+  const cudaError_t err = gram_plan(N, M, nbank, kind, p, n, &P);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)P.blocks_per_slot, (unsigned)nbank);
+  auto kernel = (nbank > 1) ? bank_phi_gram_kernel : phi_gram_kernel;
+  kernel<<<grid, kThreads, (size_t)P.smem, (cudaStream_t)stream>>>(
       X, y, mask, N, p, M, kind, n, consts, coef, idx, table, d, sig2, scale,
       out, b);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// out = {tile edge, rows per step, stages, steps, tile rows, blocks per
+// slot, blocks, shared bytes per block, resident blocks per SM}.
+extern "C" int repro_phi_gram_plan(int N, int M, int nbank, int kind, int p, int n,
+                                   long long* out) {
+  GramPlan P;
+  const cudaError_t err = gram_plan(N, M, nbank, kind, p, n, &P);
+  if (err != cudaSuccess) return (int)err;
+  const long long vals[9] = {kT, kK, kStages, (N + kK - 1) / kK, P.tiles,
+                             P.blocks_per_slot, P.blocks, P.smem, P.resident};
+  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  return 0;
+}
 
 // One model: B (scale != 0) or G, and b; X (N, p), y and mask (N,).
 extern "C" int repro_phi_gram(const float* X, const float* y, const float* mask,

@@ -17,8 +17,7 @@
 // Cauchy-Schwarz magnitude, above the fit's gates, so this is plain FP32
 // FMA.
 //
-// Design (the fused fit's, csrc/phi_gram.cu, without the feature
-// generation):
+// Design:
 //  * One block owns one 64 x 64 tile of the upper triangle (bi <= bj) and
 //    loops over all N rows itself: no sum crosses blocks, no atomics, no
 //    second pass.  The loop takes the place of the TPU's sequential grid
@@ -28,12 +27,15 @@
 //    warp reads 32 consecutive columns of one row, so the loads coalesce.
 //  * Each thread accumulates a 4 x 4 register tile.
 //  * The epilogue multiplies by d_i d_j / sigma^2 and adds the unit
-//    diagonal, then stores the tile and, off the diagonal, its mirror: B
-//    comes out exactly symmetric for the Cholesky.
+//    diagonal (repro::scaled_entry, shared with the fused fit), then
+//    stores the tile and, off the diagonal, its mirror: B comes out
+//    exactly symmetric for the Cholesky.  Each entry is summed in row
+//    order, one fmaf per row, as in csrc/phi_gram.cu, so on the same
+//    features the two kernels write the same bits.
 //  * Ragged edges are masked (columns >= M, rows >= N), so no padded copy
 //    of Phi is made (the JAX wrapper pads; at the main shape that would be
 //    586 MB).
-#include <cuda_runtime.h>
+#include "expansion.cuh"
 
 namespace {
 
@@ -110,7 +112,7 @@ scaled_gram_kernel(const T* __restrict__ Phi, int N, int M,
     for (int v = 0; v < 4; ++v) {
       const int gj = bj * kT + tx * 4 + v;
       if (gj >= M) continue;
-      const float val = acc[u][v] * (d[gi] * d[gj] / sig2) + (gi == gj ? 1.f : 0.f);
+      const float val = repro::scaled_entry(acc[u][v], d[gi], d[gj], sig2, gi == gj);
       out[(size_t)gi * M + gj] = val;
       if (!diag) out[(size_t)gj * M + gi] = val;
     }

@@ -6,12 +6,22 @@ B = I + D G D / sigma^2.  The CUDA kernel replaces the TPU kernels
 unscaled G_s and b_s for every slot s in one launch, the slot a grid axis).
 
 CUDA kernel: ``csrc/phi_gram.cu``.  Bound on the H100: float32 operations
-on the CUDA cores (N M (M + 1) flops for the symmetric Gram).  Each block
-owns one 64 x 64 tile of the upper triangle, loops over all N rows itself
-(no atomics, no carry between blocks), regenerates the feature tiles from
-X in shared memory, and mirrors its tile below the diagonal.  Its plain
-version, :func:`phi_gram_plain`, materializes one row block of Phi at a
-time; it is what a CPU tensor runs.  The bank's plain version,
+on the CUDA cores (N M (M + 1) flops for the symmetric Gram; 32 ms at
+N = 10^4, M = 14,641).  Each block owns one 128 x 128 tile of the upper
+triangle and loops over all N rows itself (no atomics, no carry between
+blocks), 8 x 8 register tiles a thread, so a feature built feeds 64 FMAs.
+The feature tiles are rebuilt from X in shared memory through a two-stage
+ring: the next 32 rows' features are built while this step's FMAs run,
+one barrier a step, each Hermite feature p shared loads at offsets staged
+once per block.  Every entry is summed in row order, one fmaf per row, so
+B is exactly symmetric and bitwise the scaled Gram of the stored features
+(``csrc/scaled_gram.cu``).  On an NVIDIA H100 80GB HBM3 at 700 W it takes
+59.4-59.5 ms at N = 10^4, M = 14,641 (``Phi^T Phi`` on a stored Phi: 81
+ms), the bank 67.2 ms at 512 slots of 10^4 rows, M = 625 (``bmm``: 78 ms);
+the FMA core alone runs at 70% of the FP32 rate, the feature build adds
+~12 ms.  :func:`phi_gram_plan` reports the launch.  Its
+plain version, :func:`phi_gram_plain`, materializes one row block of Phi at
+a time; it is what a CPU tensor runs.  The bank's plain version,
 :func:`bank_phi_gram_plain`, runs it slot by slot, so it never forms a
 (B, N, M) Phi either.
 """
@@ -24,12 +34,14 @@ import torch
 from . import _build
 from .hermite_phi import KINDS, TileArgs, plain_tile
 
-__all__ = ["phi_gram_plain", "phi_gram_cuda", "bank_phi_gram_plain",
-           "bank_phi_gram_cuda", "COUNTER"]
+__all__ = ["phi_gram_plain", "phi_gram_cuda", "phi_gram_plan",
+           "bank_phi_gram_plain", "bank_phi_gram_cuda", "COUNTER"]
 
 COUNTER = _build.LaunchCounter("phi_gram")
 _PLAIN_BLOCK = 4096
 MAX_BANK = 65535  # slots are the grid's y axis
+_PLAN_KEYS = ("tile", "rows_per_step", "stages", "steps", "tile_rows",
+              "blocks_per_slot", "blocks", "smem_bytes", "resident_blocks_per_sm")
 
 
 def phi_gram_plain(X, y, mask, tile: TileArgs, d, sig2, scale: bool):
@@ -47,6 +59,24 @@ def phi_gram_plain(X, y, mask, tile: TileArgs, d, sig2, scale: bool):
         G = G * (d[:, None] * d[None, :] / sig2) \
             + torch.eye(M, dtype=torch.float32, device=X.device)
     return G, b
+
+
+def phi_gram_plan(N: int, M: int, nbank: int = 1, kind: str = "hermite",
+                  p: int = 1, n: int = 1, device=None) -> dict:
+    """The kernel's launch for N rows of a bank of ``nbank`` slots (1: the
+    one-model kernel) at M features of a ``kind`` tile with p inputs and
+    recurrence depth n: the tile edge, rows per step, ring stages, steps,
+    tile rows, blocks per slot and in all, shared bytes per block and the
+    resident blocks per SM the card gives it."""
+    dev = torch.device("cuda" if device is None else device)
+    lib = _build.library("phi_gram")
+    fn = lib.repro_phi_gram_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    with torch.cuda.device(dev):
+        _build.check_launch(fn(N, M, nbank, KINDS[kind], p, n, out), "phi_gram (plan)")
+    return dict(zip(_PLAN_KEYS, out))
 
 
 def phi_gram_cuda(X, y, mask, tile: TileArgs, d, sig2: float, scale: bool):

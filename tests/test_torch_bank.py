@@ -581,6 +581,28 @@ def test_cuda_bank_kernel_matches_plain(cuda_device, expansion):
             bp[s].abs(), cn * (yb[s] * mask[s]).norm()))
 
 
+# one body serves both kernels: each slot's unscaled G and b are the bits
+# of the one-model kernel on that slot's rows and mask (Hermite at the
+# fleet's n = 5 on both sides of the 128-column tile edge, and RFF)
+@pytest.mark.cuda
+@pytest.mark.parametrize("expansion,p", [("hermite", 3), ("hermite", 4), ("rff_se", 3)])
+def test_cuda_bank_slots_are_bitwise_the_one_model_kernel(cuda_device, expansion, p):
+    B, N = 5, 1037
+    gen = torch.Generator().manual_seed(p)
+    Xb = (torch.rand(B, N, p, generator=gen) * 2 - 1).to(cuda_device)
+    yb = torch.randn(B, N, generator=gen).to(cuda_device)
+    mask = (torch.rand(B, N, generator=gen) > 0.3).float().to(cuda_device)
+    _, ts = specs(expansion, p, n=5, num_features=100)
+    tile = texp.get_expansion(expansion).tile_args(ts, tfagp._idx_tensor(ts))
+    tile = dataclasses.replace(tile, **{f: getattr(tile, f).to(cuda_device)
+                                        for f in ("consts", "coef", "idx", "table")
+                                        if getattr(tile, f) is not None})
+    G, b = ops.bank_fused_fit_moments(Xb, yb, tile, mask)
+    for s in range(B):
+        Gs, bs = ops.fused_fit_moments(Xb[s], yb[s], tile, None, 1.0, mask[s], scale=False)
+        assert torch.equal(G[s], Gs) and torch.equal(b[s], bs)
+
+
 @pytest.mark.cuda
 def test_cuda_bank_fit_and_update_launch_their_kernels(cuda_device):
     Xb, yb = _stack(6, 200, 2)

@@ -2,6 +2,7 @@
 CPU tensor runs) against the JAX kernel in interpret mode and against the
 oracles; plus the build helper's refusal and the card-only checks (marked
 ``cuda``, skipped without a card)."""
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -90,6 +91,39 @@ def test_fused_fit_matches_jax_kernel(expansion, N, p, n, R, scale):
         tile_fn=fn)
     B, b = ops.fused_fit_moments(tt(X), tt(y), tile, tt(d), sig2,
                                  None if mask is None else tt(mask), scale=scale)
+    # tests/test_streaming_fit.py:55 gate: 1e-3 on B and b
+    np.testing.assert_allclose(nn(B), nn(jB), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(nn(b), nn(jb), rtol=1e-3, atol=1e-3)
+
+
+def _sliced_tiles(M):
+    """A Hermite tile cut to its first M columns (p = 4, n = 5: 625
+    columns), in both packages: (JAX consts, table, tile_fn, n_max) and the
+    port's TileArgs."""
+    js, ts, (c, _, fn, n_max), tile = _tiles("hermite", 4, 5, None)
+    idx_np = js.indices()[:M]
+    table = jfagp.get_expansion("hermite").pallas_prepare(idx_np, js)
+    return (c, table, fn, n_max), dataclasses.replace(tile, M=M, idx=tile.idx[:M].contiguous())
+
+
+# the CUDA kernel's 128-column tile edges, N not a multiple of its 32-row
+# step; the plain version the CPU runs against the JAX kernel
+@pytest.mark.parametrize("M", [127, 129, 257])
+@pytest.mark.parametrize("scale", [True, False])
+def test_fused_fit_matches_jax_kernel_at_tile_edges(M, scale):
+    (c, table, fn, n_max), tile = _sliced_tiles(M)
+    N = 301
+    X, y = _fit_inputs(N, 4, M + int(scale))
+    d = np.geomspace(1.0, 1e-3, M).astype(np.float32)
+    sig2 = 0.01 if scale else 1.0
+    mask = None if scale else (np.arange(N) % 7 != 3).astype(np.float32)
+    jB, jb = jops.fused_fit_moments(
+        jnp.asarray(X), jnp.asarray(y), c, table, jnp.asarray(d), jnp.float32(sig2),
+        None if mask is None else jnp.asarray(mask), n_max=n_max, scale=scale,
+        tile_fn=fn)
+    B, b = ops.fused_fit_moments(tt(X), tt(y), tile, tt(d), sig2,
+                                 None if mask is None else tt(mask), scale=scale)
+    assert B.shape == (M, M) and b.shape == (M,)
     # tests/test_streaming_fit.py:55 gate: 1e-3 on B and b
     np.testing.assert_allclose(nn(B), nn(jB), rtol=1e-3, atol=1e-3)
     np.testing.assert_allclose(nn(b), nn(jb), rtol=1e-3, atol=1e-3)
@@ -277,6 +311,62 @@ def test_cuda_features_and_fit_match_plain(cuda_device, expansion, N, p, n, R):
                                       0.01 if scale else 1.0, scale)
         np.testing.assert_allclose(nn(B), nn(Bp), rtol=1e-3, atol=1e-3)
         np.testing.assert_allclose(nn(b), nn(bp), rtol=1e-3, atol=1e-3)
+
+
+def _on(tile, device):
+    return thp.TileArgs(**{f: (v.to(device) if isinstance(v, torch.Tensor) else v)
+                           for f, v in vars(tile).items()})
+
+
+# the fused fit against the scaled Gram of the stored features, on both
+# sides of its 128-column tile edge, for p = 9 (past the producers unrolled
+# for p <= 8) and for an RFF tile: every entry is summed in row order by
+# one thread, one fmaf per row, from bitwise the features of the features
+# kernel, so B (scale=True) and the masked G (scale=False; the scaled Gram
+# with d = 1, sigma^2 = 1 is G + I) are equal
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [125, 128, 129, 257, "p9", "rff"])
+def test_cuda_fused_fit_is_bitwise_the_scaled_gram_of_its_features(cuda_device, M):
+    if M == "rff":
+        _, _, _, tile = _tiles("rff_se", 3, 1, 100)
+    elif M == "p9":
+        _, _, _, tile = _tiles("hermite", 9, 2, None)
+    else:
+        _, tile = _sliced_tiles(M)
+    tile = _on(tile, cuda_device)
+    N = 1037
+    X, y = _fit_inputs(N, {"rff": 3, "p9": 9}.get(M, 4), 11)
+    Xc, yc = tt(X).to(cuda_device), tt(y).to(cuda_device)
+    d = torch.linspace(1.0, 0.01, tile.M, device=cuda_device)
+    mask = (torch.arange(N, device=cuda_device) % 3 != 0).float()
+    Phi = ops.expansion_phi(Xc, tile)
+    B, _ = ops.fused_fit_moments(Xc, yc, tile, d, 0.01)
+    assert torch.equal(B, ops.scaled_gram(Phi, d, 0.01))
+    assert torch.equal(B, B.T)
+    G, _ = ops.fused_fit_moments(Xc, yc, tile, None, 1.0, mask, scale=False)
+    ones = torch.ones(tile.M, device=cuda_device)
+    assert torch.equal(G + torch.eye(tile.M, device=cuda_device),
+                       ops.scaled_gram((Phi * mask[:, None]).contiguous(), ones, 1.0))
+    assert torch.equal(G, G.T)
+
+
+@pytest.mark.cuda
+def test_cuda_phi_gram_plan(cuda_device):
+    one = tgram.phi_gram_plan(1037, 257, 1, "hermite", 3, 7, cuda_device)
+    # shared floats: feature ring 2 x 2 x 32 x 128, mask*y and mask
+    # 2 x 2 x 32, column offsets 2 x p x 128, row tables 2 x p*n x 33
+    assert one == {"tile": 128, "rows_per_step": 32, "stages": 2, "steps": 33,
+                   "tile_rows": 3, "blocks_per_slot": 6, "blocks": 6,
+                   "smem_bytes": 4 * (16384 + 128 + 2 * 3 * 128 + 2 * 21 * 33),
+                   "resident_blocks_per_sm": 2}
+    bank = tgram.phi_gram_plan(10_000, 625, 512, "hermite", 4, 5, cuda_device)
+    assert (bank["tile_rows"], bank["blocks_per_slot"], bank["blocks"], bank["steps"]) \
+        == (5, 15, 7680, 313)
+    rff = tgram.phi_gram_plan(10_000, 8192, 1, "rff", 4, 1, cuda_device)
+    assert rff["smem_bytes"] == 4 * (16384 + 128 + 2 * 5 * 128 + 2 * 4 * 33)
+    assert rff["blocks"] == 64 * 65 // 2
+    with pytest.raises(RuntimeError, match="phi_gram"):
+        tgram.phi_gram_plan(10, 0, 1, "hermite", 3, 7, cuda_device)
 
 
 @pytest.mark.cuda
