@@ -1,14 +1,16 @@
-"""Where the fused fit's time goes on the card.
+"""Where the two Gram kernels' time goes on the card.
 
     python3 benchmarks/torch_phi_gram_ablation.py    # from the repository root, one NVIDIA card
 
-Builds ``src/repro_torch/kernels/csrc/phi_gram.cu`` as it is and three
-variants of it, each the source with statements replaced (compiled by
-``nvcc`` with the port's own flags into ``build/phi_gram_ablation/``), and
-times them on the same inputs at the paper-scale shapes of ``chip_smoke.py``:
-the one-model kernel (N = 10^4, p = 4, n = 11, M = 14,641), its RFF
-path (R = 4,096, M = 8,192) and the fleet's bank kernel (512 slots, n = 5,
-M = 625).  The variants:
+Builds ``src/repro_torch/kernels/csrc/phi_gram.cu`` (the fused fit) and
+``scaled_gram.cu`` (the Gram of a stored Phi) as they are and variants of
+them, each the source with statements replaced (compiled by ``nvcc`` with
+the port's own flags into ``build/phi_gram_ablation/``), and times them on
+the same inputs at the paper-scale shapes of ``chip_smoke.py``: the
+one-model fused fit (N = 10^4, p = 4, n = 11, M = 14,641), its RFF path
+(R = 4,096, M = 8,192), the fleet's bank kernel (512 slots, n = 5,
+M = 625) and the scaled Gram of the stored Phi (10^4 x 14,641 float32).
+The variants:
 
 * ``fma_only``: features built for the first two steps only, then the FMAs
   alone on those tiles (the FMA core's time);
@@ -16,11 +18,16 @@ M = 625).  The variants:
   feature builds alone);
 * ``lanes_16x16``: a warp's lanes as 16 x 2 threads, each 8 x 8 tile
   split 64 apart (the thread layout of diag_quad.cu), against the kernel's
-  4 x 8 lanes.
+  4 x 8 lanes;
+* ``sg_l2_slice``: the scaled Gram with every step loading the first 32
+  rows of Phi, an L2-resident slice (the same loads and FMAs, no HBM
+  traffic after the first step);
+* ``sg_fma_only``: the scaled Gram loading the first two steps only, then
+  the FMAs alone (its FMA core with the ring's barriers).
 
 The cut variants compute wrong Grams: they exist to time the phases.
-``lanes_16x16`` computes the same bits, which is checked.  Prints one JSON
-line per shape with the card's name and power limit.
+``lanes_16x16`` computes the same bits, which is checked.  Prints one
+JSON line per shape with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -34,12 +41,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
+# variant -> (source it builds, [(statement, replacement), ...])
 VARIANTS = {
-    "kernel": [],
-    "fma_only": [("    if (k + 1 < steps) build(k + 1);\n",
-                  "    if (k + 1 < steps && k < 1) build(k + 1);\n")],
-    "build_only": [("    if (k >= 0) {\n", "    if (k >= 0 && k < 2) {\n")],
-    "lanes_16x16": [
+    "kernel": ("phi_gram", []),
+    "fma_only": ("phi_gram", [("    if (k + 1 < steps) build(k + 1);\n",
+                               "    if (k + 1 < steps && k < 1) build(k + 1);\n")]),
+    "build_only": ("phi_gram", [("    if (k >= 0) {\n", "    if (k >= 0 && k < 2) {\n")]),
+    "lanes_16x16": ("phi_gram", [
         ("  const int r0 = (warp / 2) * 32 + (lane / 8) * 4;\n"
          "  const int q0 = (warp % 2) * 64 + (lane % 8) * 4;\n",
          "  const int r0 = (tid / 16) * 4, q0 = (tid % 16) * 4;\n"),
@@ -47,7 +55,14 @@ VARIANTS = {
         ("fj + r * kT + 32 + q0)", "fj + r * kT + 64 + q0)"),
         ("r0 + (u / 4) * 16 + u % 4", "r0 + (u / 4) * 64 + u % 4"),
         ("q0 + (v / 4) * 32 + v % 4", "q0 + (v / 4) * 64 + v % 4"),
-    ],
+    ]),
+    "sg_kernel": ("scaled_gram", []),
+    "sg_l2_slice": ("scaled_gram", [("const int row0 = s * kK + q * kQuarter + r;",
+                                     "const int row0 = (s & 0) * kK + q * kQuarter + r;")]),
+    "sg_fma_only": ("scaled_gram", [("      if (s < steps) ld.fetch(s, q, N, held);\n",
+                                     "      if (s < 2) ld.fetch(s, q, N, held);\n"),
+                                    ("      if (s < steps) ld.deposit(q, dst, held);\n",
+                                     "      if (s < 2) ld.deposit(q, dst, held);\n")]),
 }
 
 
@@ -58,14 +73,13 @@ def build(out_dir: Path) -> dict:
     nvcc = _build.find_nvcc()
     if nvcc is None:
         raise SystemExit("nvcc not found")
-    src = (_build.CSRC / "phi_gram.cu").read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, edits in VARIANTS.items():
-        text = src
+    for name, (source, edits) in VARIANTS.items():
+        text = (_build.CSRC / f"{source}.cu").read_text()
         for old, new in edits:
             if old not in text:
-                raise SystemExit(f"{name}: phi_gram.cu no longer contains {old!r}")
+                raise SystemExit(f"{name}: {source}.cu no longer contains {old!r}")
             text = text.replace(old, new)
         cu = out_dir / f"{name}.cu"
         cu.write_text(text)
@@ -92,7 +106,7 @@ def main() -> int:
     from repro_torch.core import fagp
     from repro_torch.core.expansions import get_expansion
     from repro_torch.core.gp import GPSpec
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels.hermite_phi import KINDS
 
     dev = torch.device("cuda")
@@ -168,6 +182,18 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def scaled(lib, tile_sq_sig2):
+        tile, d, sig2 = tile_sq_sig2
+        out = torch.empty(tile.M, tile.M, device=dev)
+        fn = lib.repro_scaled_gram_f32
+        fn.restype = ctypes.c_int
+        fn.argtypes = [P, ctypes.c_int, ctypes.c_int, P, ctypes.c_float, P, P]
+        rc = fn(_build.ptr(Phi), N, tile.M, _build.ptr(d), sig2, _build.ptr(out), stream)
+        _build.check_launch(rc, "scaled_gram (ablation)")
+        return (out,)
+
+    fused = {n: lib for n, lib in libs.items() if VARIANTS[n][0] == "phi_gram"}
+    sgram = {n: lib for n, lib in libs.items() if VARIANTS[n][0] == "scaled_gram"}
     ok = True
     for shape, call, args in (("one model, N=10^4, M=14,641", one_model, main_t),
                               ("one model RFF, N=10^4, M=8,192", one_model, rff_t),
@@ -176,9 +202,14 @@ def main() -> int:
         same = all(torch.equal(a, c) for a, c in zip(ref, call(libs["lanes_16x16"], args)))
         ok &= same
         del ref
-        ms = {name: cuda_ms(lambda: call(lib, args)) for name, lib in libs.items()}
+        ms = {name: cuda_ms(lambda: call(lib, args)) for name, lib in fused.items()}
         print(json.dumps({"shape": shape, "card": card, "ms": ms,
                           "lanes_16x16_bitwise_equal": same}))
+    del Xb, yb, onesb
+    Phi = ops.expansion_phi(X, main_t[0])
+    ms = {name: cuda_ms(lambda: scaled(lib, main_t)) for name, lib in sgram.items()}
+    print(json.dumps({"shape": "scaled Gram, Phi 10^4 x 14,641 float32", "card": card,
+                      "ms": ms}))
     return 0 if ok else 1
 
 

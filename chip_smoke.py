@@ -7,8 +7,10 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (printing
-   each kernel's registers and spills, and the fused fit's launch plans at
-   the main path's, its RFF path's and the fleet's shapes) and holds each
+   each kernel's registers and spills, the fused fit's launch plans at
+   the main path's, its RFF path's and the fleet's shapes, and the plans of
+   the scaled Gram, float32 and bfloat16, at phase 6's shape and of the
+   batched sweep at the fleet's, with their registers) and holds each
    one against its plain PyTorch version on the card, at the main path's
    shapes and at one ragged shape, with the tolerance stated; times kernel,
    plain version and (where one exists) a single PyTorch library call
@@ -41,8 +43,10 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    sweep per ingest round, a feature launch per microbatch and per ingest
    round); then on the same data the bank kernel (plain and ragged masks),
    the features kernel (a 256-query microbatch and an ingest round's
-   8,192 rows) and the batched sweep against their plain versions and the
-   library refactor, a ragged bank fit against single fits,
+   8,192 rows, each timed beside its bound) and the batched sweep against
+   their plain versions and the library refactor (the sweep also bitwise
+   against the cooperative kernel system by system, its inputs untouched,
+   its pivot-chain bound printed), a ragged bank fit against single fits,
    ``GPBank.update``'s launches and immutability, bank serving against
    single-session serving of the same states (16 tenants, 1e-5 abs), a
    mixed-tenant microbatch of the fitted fleet on the kernel path against
@@ -52,8 +56,9 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    version is checked to launch nothing;
 6. the paper's materialized pipeline at ``MAIN``'s full width (N = 10^4,
    M = 14,641): ``GP.fit`` with ``store_train=True`` (one fused-fit and one
-   features launch; u bitwise equal to a fit without stored features),
-   then the scaled-Gram kernel on the stored Phi (one launch), held against
+   features launch; u bitwise equal to a fit without stored features; the
+   features kernel timed at that shape), then the scaled-Gram kernel on the
+   stored Phi (one launch), held against
    its plain version and, bitwise, against the fused-fit kernel's B, the u
    solved from it against the state's; kernel, plain and ``Phi^T Phi``
    timed, and the two-pass materialized fit against the one-pass fused fit
@@ -217,6 +222,24 @@ def main() -> int:
     ):
         print(f"[plan {label}] N={args[0]} M={args[1]} slots={args[2]}: "
               f"{json.dumps(kgram.phi_gram_plan(*args))}")
+    # the scaled Gram's launches (phase 6's stored Phi, float32 and
+    # bfloat16) and the batched sweep's (the fleet's ingest round), each
+    # with its kernel's registers and spills
+    kernel_regs = {fn: f"{regs}; {spill}" for log in _build.ptxas_report().values()
+                   for fn, regs, spill in ptxas_functions(log)}
+
+    def regs_of(ident):
+        return "; ".join(v for fn, v in kernel_regs.items() if ident in fn)
+
+    for label, bf16, ident in (("scaled_gram f32", False, "scaled_gram_kernelIf"),
+                               ("scaled_gram bf16", True, "scaled_gram_kernelIt")):
+        print(f"[plan {label}] N={MAIN['n_train']} M={MAIN['n'] ** MAIN['p']}: "
+              f"{json.dumps(ksg.scaled_gram_plan(MAIN['n_train'], MAIN['n'] ** MAIN['p'], bf16))}"
+              f"; {regs_of(ident)}")
+    print(f"[plan chol_update.batched] G={FLEET['tenants']} M={FLEET['n'] ** FLEET['p']} "
+          f"K={FLEET['ingest_chunk']}: "
+          f"{json.dumps(kchol.chol_update_batch_plan(FLEET['n'] ** FLEET['p'], FLEET['ingest_chunk']))}"
+          f"; {regs_of('chol_batch_kernel')}")
 
     def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         for _ in range(warmup):
@@ -278,6 +301,17 @@ def main() -> int:
         if scale:
             sG = sG * (d[:, None] * d[None, :] / sig2)
         return [sG, cn * float((y * mask).norm())]
+
+    def features_line(Xr, t, n_):
+        """The features kernel's time at Xr's shape, beside its bound and
+        its plain version's time."""
+        Nr, pr = Xr.shape
+        b = bound(Nr * t.M * (pr - 1) + Nr * pr * n_ * 6,
+                  4 * (Xr.numel() + Nr * t.M + t.M * pr + pr * 3))
+        print(f"[kernel] phi_features ({Nr}x{t.M}): "
+              f"ms={cuda_ms(lambda: ops.expansion_phi(Xr, t), reps=5, warmup=1):.4f} "
+              f"plain_ms={cuda_ms(lambda: kphi.phi_features_plain(Xr, t), reps=5, warmup=1):.4f} "
+              f"bound_ms={b[0]:.4f} ({b[1]})")
 
     def spec_for(expansion, p, n=1, R=None, noise=0.05):
         if expansion == "hermite":
@@ -729,12 +763,22 @@ def main() -> int:
     for r in (Xq16, Xk.reshape(-1, p)):
         compare(f"fleet phi_features ({r.shape[0]}x{FM})", [ops.expansion_phi(r, ftile)],
                 [plain(lambda: kphi.phi_features_plain(r, ftile))], **tol_fphi)
+        features_line(r, ftile, F["n"])
 
     # the batched sweep: every slot's factor, 16 fresh rows per tenant
     Lg = fbank.stack.chol.clone()
     Wg = (ops.expansion_phi(Xk.reshape(-1, p), ftile).reshape(B, K, FM)
           * fbank.stack.sqrtlam[:, None, :] / fspec.noise).contiguous()
+    Lg0, Wg0 = Lg.clone(), Wg.clone()
     Lk = ops.chol_update(Lg, Wg)
+    check(torch.equal(Lg, Lg0) and torch.equal(Wg, Wg0), "the batched sweep wrote its inputs")
+    del Lg0, Wg0
+    # system by system, the bits of the cooperative kernel
+    diff = max(float((Lk[s] - ops.chol_update(Lg[s], Wg[s])).abs().max()) for s in range(B))
+    print(f"[check] batched chol_update vs the cooperative kernel, system by system "
+          f"(G={B}, M={FM}, K={K}): max_abs_diff={diff:.3e} -> {'ok' if diff == 0 else 'FAIL'}")
+    check(diff == 0.0 and bool(torch.all(torch.triu(Lk, 1) == 0)),
+          "the batched sweep is not bitwise the cooperative kernel system by system")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     Lp = plain(lambda: kchol.chol_update_plain(Lg, Wg))
@@ -890,6 +934,13 @@ def main() -> int:
         print(f"[kernel] {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
               f"({r['bound'][1]}) max_abs_err={r['max_abs_err']:.3e}")
+    # the batched sweep's pivot chain at one anti-diagonal step's latency
+    # (phase 2): K + M - 1 steps at best, this design's panels x (K + 31)
+    fpanels = -(-FM // 32)
+    print(f"[kernel] chol_update.batched chain bound (G={B}, M={FM}, K={K}, one step "
+          f"{step_us:.4f} us): (K + M - 1) steps {(K + FM - 1) * step_us / 1e3:.4f} ms; "
+          f"{fpanels} panels x (K + 31) steps {fpanels * (K + 31) * step_us / 1e3:.4f} ms; "
+          f"bytes {rows['chol_update.batched']['bound'][0]:.4f} ms")
     print(f"[fleet] phase took {time.perf_counter() - fleet_t0:.1f} s")
 
     # -- 6. the paper's materialized pipeline at full width -------------------
@@ -926,6 +977,9 @@ def main() -> int:
           "store_train changed the fit (u or chol not bitwise equal)")
     del ref_state
 
+    # the features kernel at the stored Phi's shape (its one launch here)
+    features_line(X0, tile, n)
+    torch.cuda.empty_cache()
     # the scaled-Gram kernel (TPU #5) against its plain version and against
     # the fused-fit kernel's B of the same X: two independent kernels
     sB = gram_cs(Phi, sq, sig2)

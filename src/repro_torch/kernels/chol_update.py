@@ -9,18 +9,22 @@ groups by ``repro/bank/bank.py::_bank_update_scatter_impl``.  Eagerly in
 PyTorch that sweep is K * M dependent steps, several launches each, so on
 the card it is a kernel of its own.
 
-CUDA kernels: ``csrc/chol_update.cu``.  Bound on the H100: ideally one pass
-over the M x M triangle; in practice the chain of dependent rotations and
-one grid-wide step per column panel.  One system runs a persistent
-cooperative kernel over every SM: rows in groups of 32 spread over the
-blocks with their columns of W in shared memory; each 32-column panel is
-factored in the block that owns its rows, by two warps walking the panel's
-anti-diagonals while the rows' own warp still applies the previous panel
-to them, and published to all blocks by one ``grid.sync()``.  A batch
-runs one block per system (panels of 8).  Both round every rotation alike,
-so the two give bitwise equal factors.  Its plain version,
-:func:`chol_update_plain`, is the faithful column loop, vectorised over the
-batch (one launch per step covers every system, not one per system).
+CUDA kernels: ``csrc/chol_update.cu``, one sweep run two ways.  Bound on
+the H100: ideally one pass over the M x M triangle; in practice the chain
+of dependent rotations, (M / 32) (K + 31) pivot steps.  Rows come in groups
+of 32 with their columns of W in shared memory; each 32-column panel is
+factored by two warps walking its anti-diagonals while the warp that owns
+the next panel's rows still applies the previous panel to them.  One
+system runs a persistent cooperative kernel over every SM (the row groups
+spread over the blocks, one ``grid.sync()`` per panel); a batch runs the
+same sweep in one block of 3 warps per system, each factor column-major,
+sized by :func:`chol_update_batch_plan` (at the fleet's 512 systems of
+M = 625, K = 16: 4 blocks per SM, one wave; 1.25 ms on an NVIDIA H100
+80GB HBM3 at 700 W, against 15.0 ms for the batched library refactor).
+Both round every rotation alike, so the two give bitwise equal factors.
+Its plain version, :func:`chol_update_plain`, is the faithful column loop,
+vectorised over the batch (one launch per step covers every system, not
+one per system).
 """
 from __future__ import annotations
 
@@ -31,11 +35,12 @@ import torch
 from . import _build
 
 __all__ = ["chol_rank1_update", "chol_update_plain", "chol_update_cuda",
-           "chol_update_plan", "COUNTER", "MAX_K"]
+           "chol_update_plan", "chol_update_batch_plan", "COUNTER"]
 
 COUNTER = _build.LaunchCounter("chol_update")
-MAX_K = 2048  # 3 * K * 8 floats of shared memory must fit in 227 KB
 _PLAN_KEYS = ("blocks", "threads", "w_chunk", "groups_per_block", "smem_bytes")
+_BATCH_PLAN_KEYS = ("threads", "w_chunk", "w_in_shared", "smem_bytes",
+                    "resident_blocks_per_sm", "scratch_floats")
 
 
 def chol_rank1_update(L: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -77,9 +82,12 @@ def _lib() -> ctypes.CDLL:
                                       ctypes.c_void_p]
     lib.repro_chol_update_scratch.restype = ctypes.c_longlong
     lib.repro_chol_update_scratch.argtypes = [ctypes.c_int]
-    lib.repro_chol_update_plan.restype = ctypes.c_int
-    lib.repro_chol_update_plan.argtypes = [ctypes.c_int, ctypes.c_int,
-                                           ctypes.POINTER(ctypes.c_longlong)]
+    lib.repro_chol_update_batch.restype = ctypes.c_int
+    lib.repro_chol_update_batch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_void_p]
+    for fn in (lib.repro_chol_update_plan, lib.repro_chol_update_batch_plan):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
     return lib
 
 
@@ -93,33 +101,51 @@ def chol_update_plan(M: int, K: int) -> dict:
     return dict(zip(_PLAN_KEYS, out))
 
 
+def chol_update_batch_plan(M: int, K: int) -> dict:
+    """A batch's launch on the current card (one block per system): threads
+    per block, the chunk of W swept at once, whether W is kept in shared
+    memory (else in global scratch), shared bytes per block, resident
+    blocks per SM and scratch floats per system."""
+    out = (ctypes.c_longlong * len(_BATCH_PLAN_KEYS))()
+    _build.check_launch(_lib().repro_chol_update_batch_plan(M, K, out),
+                        "chol_update (batch plan)")
+    return dict(zip(_BATCH_PLAN_KEYS, out))
+
+
 def chol_update_cuda(L: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/chol_update.cu`` on L's stream: the cooperative sweep
-    for one system (L (M, M), or a batch of one), one block per system for
-    a batch of G > 1.  The kernels work in place on a row-major copy of L,
-    made in one pass whatever L's layout; a batch of G > 1 sweeps a copy of
-    W too, one system only reads it.  The caller's tensors are never
-    written.  A refused cooperative launch raises.  Counted as variant ""
-    for the cooperative sweep, "batched" for the one-block kernel."""
+    for one system (L (M, M), or a batch of one) in place on a row-major
+    copy of L, made in one pass whatever L's layout; for a batch of G > 1
+    one block per system, each factor column-major, read from L (no copy
+    where L is already column-major, as the factors of
+    ``torch.linalg.cholesky`` are) into a new column-major tensor.  W is
+    only read.  The caller's tensors are never written.  A refused launch
+    raises.  Counted as variant "" for the cooperative sweep, "batched" for
+    the one-block kernel."""
     G = L.shape[0] if L.ndim == 3 else 1
     M = L.shape[-1]
     K = W.shape[-2]
+    lib = _lib()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(L.device).cuda_stream)
+    if G > 1:
+        src = L.mT.contiguous()   # each factor column-major: L^T row-major
+        out = torch.empty_like(src)
+        if M == 0 or K == 0:
+            return src.clone().mT
+        scratch = torch.empty((G * chol_update_batch_plan(M, K)["scratch_floats"],),
+                              dtype=torch.float32, device=L.device)
+        rc = lib.repro_chol_update_batch(_build.ptr(src), _build.ptr(out), _build.ptr(W),
+                                         G, M, K, _build.ptr(scratch), stream)
+        _build.check_launch(rc, "chol_update (batch)")
+        COUNTER.add("batched")
+        return out.mT
     out = L.clone(memory_format=torch.contiguous_format)
     if G == 0 or M == 0 or K == 0:
         return out
-    if K > MAX_K:
-        raise ValueError(f"chol_update takes at most {MAX_K} rows at once, got {K}")
-    lib = _lib()
-    if G == 1:
-        work = W   # only read by the cooperative sweep
-        scratch = torch.empty((lib.repro_chol_update_scratch(K),), dtype=torch.float32,
-                              device=L.device)
-    else:
-        work = W.clone()
-        scratch = None
-    stream = torch.cuda.current_stream(L.device).cuda_stream
-    rc = lib.repro_chol_update(_build.ptr(out), _build.ptr(work), G, M, K,
-                               _build.ptr(scratch), ctypes.c_void_p(stream))
+    scratch = torch.empty((lib.repro_chol_update_scratch(K),), dtype=torch.float32,
+                          device=L.device)
+    rc = lib.repro_chol_update(_build.ptr(out), _build.ptr(W), G, M, K,
+                               _build.ptr(scratch), stream)
     _build.check_launch(rc, "chol_update")
-    COUNTER.add("" if G == 1 else "batched")
+    COUNTER.add("")
     return out

@@ -645,3 +645,77 @@ def test_cuda_bank_update_of_one_tenant_takes_the_cooperative_sweep(cuda_device)
     np.testing.assert_allclose(nn(up.stack.chol[3]), nn(cpu.update([3], tt(Xk), tt(yk)).stack.chol[3]),
                                rtol=5e-3, atol=1e-3)
     assert torch.equal(up.stack.chol[0], bank.stack.chol[0])
+
+
+def _card_factors(G, M, K, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    R = torch.randn(G, M, M, generator=gen, device=device)
+    L = torch.linalg.cholesky(torch.eye(M, device=device) + R @ R.mT / M)
+    return L, torch.randn(G, K, M, generator=gen, device=device) * 0.3
+
+
+def _assert_batched_sweep(L, W):
+    """One launch of the batched sweep: bitwise the cooperative kernel
+    system by system (the same rotations, rounded alike), lower-triangular,
+    within the chol gate of the plain sweep; its inputs untouched."""
+    L0, W0 = L.clone(), W.clone()
+    ops.reset_launch_counts()
+    got = ops.chol_update(L, W)
+    assert ops.launch_counts()["chol_update"] == {"batched": 1}
+    assert torch.equal(L, L0) and torch.equal(W, W0)
+    for g in range(L.shape[0]):
+        assert torch.equal(got[g], ops.chol_update(L[g], W[g]))
+    assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+    # tests/test_streaming_fit.py:214 gate for chol: rtol 5e-3, atol 1e-3
+    np.testing.assert_allclose(nn(got), nn(tchol.chol_update_plain(L, W)), rtol=5e-3, atol=1e-3)
+
+
+# the batched sweep at its edges: one row group or several, M on both
+# sides of a 32-column panel (and the fleet's 625), K = 1, K on both sides
+# of the apply's 8-update chunks, K = 64; G = 512 fills the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 16, 17, 64])
+@pytest.mark.parametrize("M", [1, 31, 32, 33, 625, 640])
+@pytest.mark.parametrize("G", [2, 3, 512])
+def test_cuda_batched_sweep_is_bitwise_the_cooperative_sweep(cuda_device, G, M, K):
+    _assert_batched_sweep(*_card_factors(G, M, K, G + M + K, cuda_device))
+
+
+# where W does not fit in shared memory at once: in chunks of K (and the
+# chunk itself in global scratch), each element still updated in order
+@pytest.mark.cuda
+def test_cuda_batched_sweep_in_chunks_of_w(cuda_device):
+    plan = tchol.chol_update_batch_plan(96, 600)
+    assert plan["w_chunk"] < 600
+    _assert_batched_sweep(*_card_factors(2, 96, 600, 7, cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_batched_sweep_plan(cuda_device):
+    # the fleet's shape: W (16 x 20 row groups of 32) and one panel's
+    # rotations (16 x 32 float4) in shared memory, with the factoring warps'
+    # pivots (32 float4), hand-off (2 x 32) and counters (4)
+    plan = tchol.chol_update_batch_plan(625, 16)
+    assert {k: v for k, v in plan.items() if k != "resident_blocks_per_sm"} == {
+        "threads": 96, "w_chunk": 16, "w_in_shared": 1,
+        "smem_bytes": 16 * (16 * 32 + 32) + 4 * (20 * 16 * 32 + 2 * 32 + 4),
+        "scratch_floats": 2 * 16 * 32 * 4}
+    assert plan["resident_blocks_per_sm"] >= 1
+    # W past shared memory at any chunk: kept in global scratch
+    big = tchol.chol_update_batch_plan(8192, 200)
+    assert big["w_in_shared"] == 0 and big["scratch_floats"] == (8 + 256) * 200 * 32
+
+
+# the C entry repro_chol_update keeps its contract for a batch: in place
+# on column-major factors, the bits of the wrapper's out-of-place launch
+@pytest.mark.cuda
+def test_cuda_chol_update_entry_sweeps_a_batch_in_place(cuda_device):
+    L, W = _card_factors(3, 100, 8, 5, cuda_device)
+    work = L.mT.contiguous().clone()
+    scratch = torch.empty((3 * tchol.chol_update_batch_plan(100, 8)["scratch_floats"],),
+                          device=cuda_device)
+    rc = tchol._lib().repro_chol_update(work.data_ptr(), W.data_ptr(), 3, 100, 8,
+                                        scratch.data_ptr(),
+                                        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    assert torch.equal(work.mT, ops.chol_update(L, W))

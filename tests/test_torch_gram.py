@@ -2,8 +2,10 @@
 the port's ``ops.scaled_gram`` on CPU tensors (the kernel's plain version)
 against the JAX ``ops.scaled_gram`` in interpret mode, at the JAX tests'
 shapes and gates (tests/test_kernels.py:81-112); its dtype contract; and
-the CUDA kernel against its plain version (marked ``cuda``, skipped
-without a card)."""
+the CUDA kernel against its plain version, at its tile edges and bitwise
+against the fused fit (marked ``cuda``, skipped without a card)."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -14,6 +16,8 @@ import jax.numpy as jnp  # noqa: E402
 from test_torch_common import nn, tt  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.core import expansions as texp  # noqa: E402
+from repro_torch.core import fagp as tfagp  # noqa: E402
 from repro_torch.kernels import gram as tgram  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -123,3 +127,54 @@ def test_cuda_scaled_gram_matches_plain(cuda_device, N, M):
     # they differ only in the order of the float32 sums, as above
     _assert_gram_close(nn(Bh), nn(tgram.scaled_gram_plain(Ph, dc, 0.01)),
                        nn(Ph.float()), d, 0.01)
+
+
+# the kernel at its tile edges: M on both sides of one and two 128-column
+# tiles (and the fleet's 625), N on both sides of a 32-row step, float32
+# and bfloat16 (widened from 2-byte loads); B exactly symmetric
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 1037])
+@pytest.mark.parametrize("M", [1, 127, 128, 129, 255, 257, 625])
+def test_cuda_scaled_gram_at_tile_edges(cuda_device, M, N, dtype):
+    Phi, d = _inputs(N, M, seed=M + N, lo=1e-3)
+    Pc = tt(Phi).to(cuda_device).to(getattr(torch, dtype))
+    dc = tt(d).to(cuda_device)
+    P0 = Pc.clone()
+    B = ops.scaled_gram(Pc, dc, 0.01)
+    assert B.dtype == torch.float32 and torch.equal(B, B.T)
+    assert torch.equal(Pc, P0)
+    _assert_gram_close(nn(B), nn(tgram.scaled_gram_plain(Pc, dc, 0.01)),
+                       nn(Pc.float()), d, 0.01)
+
+
+# B of the stored features is bitwise the fused fit's B of the same X:
+# both sum every entry in row order, one fmaf per row from 0, and scale it
+# by the same pinned epilogue; ragged M = 129 and 625
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N", [(129, 1037), (625, 33), (128, 1)])
+def test_cuda_scaled_gram_is_bitwise_the_fused_fit(cuda_device, M, N):
+    ts = tfagp.GPSpec.create(5, np.full(4, 0.8, np.float32), 2.0, 0.05)
+    tile = texp.get_expansion("hermite").tile_args(ts, tfagp._idx_tensor(ts))
+    tile = dataclasses.replace(tile, M=M, idx=tile.idx[:M].contiguous())
+    tile = dataclasses.replace(tile, **{f: getattr(tile, f).to(cuda_device)
+                                        for f in ("consts", "coef", "idx")})
+    rng = np.random.default_rng(M + N)
+    X = tt(rng.uniform(-1, 1, (N, 4)).astype(np.float32)).to(cuda_device)
+    y = tt(rng.standard_normal(N).astype(np.float32)).to(cuda_device)
+    d = torch.linspace(1.0, 0.01, M, device=cuda_device)
+    B, _ = ops.fused_fit_moments(X, y, tile, d, 0.01)
+    assert torch.equal(ops.scaled_gram(ops.expansion_phi(X, tile), d, 0.01), B)
+
+
+@pytest.mark.cuda
+def test_cuda_scaled_gram_plan(cuda_device):
+    for bf16 in (False, True):
+        plan = tgram.scaled_gram_plan(10_000, 14_641, bf16, cuda_device)
+        # three stages of two (32, 128) float32 slices; 115 tile rows
+        assert {k: v for k, v in plan.items() if k != "resident_blocks_per_sm"} == {
+            "tile": 128, "rows_per_step": 32, "stages": 3, "steps": 313,
+            "blocks": 115 * 116 // 2, "smem_bytes": 4 * 3 * 2 * 32 * 128}
+        assert plan["resident_blocks_per_sm"] >= 1
+    with pytest.raises(RuntimeError, match="scaled_gram"):
+        tgram.scaled_gram_plan(10, 0, False, cuda_device)

@@ -3,6 +3,7 @@ CPU tensor runs) against the JAX kernel in interpret mode and against the
 oracles; plus the build helper's refusal and the card-only checks (marked
 ``cuda``, skipped without a card)."""
 import dataclasses
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -277,6 +278,21 @@ def test_kernel_sources_present():
         assert (_build.CSRC / f"{name}.cu").is_file()
     for name in _build.HEADERS:
         assert (_build.CSRC / name).is_file()
+
+
+def test_ablation_variants_edit_the_current_sources():
+    """benchmarks/torch_phi_gram_ablation.py builds its variants by
+    replacing statements of the kernel sources: each statement it replaces
+    is still there."""
+    path = Path(__file__).resolve().parents[1] / "benchmarks" / "torch_phi_gram_ablation.py"
+    spec = importlib.util.spec_from_file_location("torch_phi_gram_ablation", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for name, (source, edits) in mod.VARIANTS.items():
+        assert source in _build.SOURCES, name
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        for old, _ in edits:
+            assert old in text, (name, source, old)
 
 
 # ---------------------------------------------------------------------------
