@@ -23,7 +23,14 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    one-block kernel on a G = 2 batch of the same system, then at edge
    shapes (M < 32, M not a multiple of 32, K = 1, W swept in chunks,
    several row groups per block), and the latency of one anti-diagonal
-   step is measured for its pivot-chain bound;
+   step is measured for its pivot-chain bound.  The features kernel is
+   timed at each of the six shapes its paths give it (128 and 64 x 14,641
+   here, 128 x 8,192 RFF, the fleet's two and phase 6's below), its launch
+   plan and registers printed: ``kernel_ms`` is the device time of one
+   launch (50 launches into one output captured in a CUDA graph, the
+   replays timed with CUDA events), ``call_ms`` what a caller pays (CUDA
+   events around ``ops.expansion_phi``, host checks and allocation
+   included); at phase 6's shape torch.profiler's device time is read too;
 3. runs the main path at paper scale: ``serve_gp(backend="pallas",
    device="cuda")`` with N = 10^4, p = 4, n = 11, full grid (M = 14,641),
    4 rounds of 64-row updates, 1,024 queries in microbatches of 128, then
@@ -57,7 +64,8 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
 6. the paper's materialized pipeline at ``MAIN``'s full width (N = 10^4,
    M = 14,641): ``GP.fit`` with ``store_train=True`` (one fused-fit and one
    features launch; u bitwise equal to a fit without stored features; the
-   features kernel timed at that shape), then the scaled-Gram kernel on the
+   stored Phi, the features kernel's 8-column launch, against its plain
+   version; the features kernel timed at that shape), then the scaled-Gram kernel on the
    stored Phi (one launch), held against
    its plain version and, bitwise, against the fused-fit kernel's B, the u
    solved from it against the state's; kernel, plain and ``Phi^T Phi``
@@ -69,8 +77,10 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    N = 50, float32 paper mode equal to the fused mode; ``GP.save`` /
    ``GP.load`` of the full-width session, bitwise.
 
-Prints one JSON line with every kernel's numbers, then, as the last line,
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
+Prints the features kernel's times by shape on a ``[features]`` line, one
+JSON line with every kernel's numbers (the features kernel's ``ms`` its
+device time at 128 x 14,641, beside its ``call_ms``), then, as the last
+line, ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Bounds use the H100 SXM's published float32 CUDA-core rate and memory
 rate (67 TFLOP/s, 3.35 TB/s at 700 W); the power limit is printed beside.
 """
@@ -302,16 +312,87 @@ def main() -> int:
             sG = sG * (d[:, None] * d[None, :] / sig2)
         return [sG, cn * float((y * mask).norm())]
 
-    def features_line(Xr, t, n_):
-        """The features kernel's time at Xr's shape, beside its bound and
-        its plain version's time."""
+    def graph_ms(launch, reps: int = 50, replays: int = 10) -> float:
+        """Device time of one launch: ``reps`` launches captured in a CUDA
+        graph (a ctypes launch runs on the current stream, the capture
+        stream inside ``torch.cuda.graph``), its replays timed with CUDA
+        events, divided by ``reps``; median of ``replays``."""
+        launch()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                launch()
+        g.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(replays):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+        return statistics.median(times)
+
+    def profiler_ms(launch, name: str, reps: int = 20):
+        """The mean device time torch.profiler records for kernels whose
+        name holds ``name`` over ``reps`` launches (None where it records
+        none): a cross-check of graph_ms."""
+        from torch.profiler import ProfilerActivity, profile
+
+        launch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                launch()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if name in e.key]
+        total = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                    for e in hits)
+        count = sum(e.count for e in hits)
+        return total / count / 1e3 if count and total else None
+
+    features = {}
+
+    def features_line(Xr, t, n_, profile=False):
+        """The features kernel at Xr's shape: its launch plan and the
+        registers of the instance it runs; its device time (graph_ms, the
+        launches writing one preallocated output) and a caller's time
+        (CUDA events around ops.expansion_phi), beside its bound and its
+        plain version's time; with ``profile``, torch.profiler's device
+        time too.  Kept in ``features`` by shape."""
+        Xr = Xr.contiguous()
         Nr, pr = Xr.shape
         b = bound(Nr * t.M * (pr - 1) + Nr * pr * n_ * 6,
                   4 * (Xr.numel() + Nr * t.M + t.M * pr + pr * 3))
-        print(f"[kernel] phi_features ({Nr}x{t.M}): "
-              f"ms={cuda_ms(lambda: ops.expansion_phi(Xr, t), reps=5, warmup=1):.4f} "
-              f"plain_ms={cuda_ms(lambda: kphi.phi_features_plain(Xr, t), reps=5, warmup=1):.4f} "
-              f"bound_ms={b[0]:.4f} ({b[1]})")
+        plan = kphi.phi_features_plan(Nr, t.M, t.kind, pr, t.n_max)
+        out = torch.empty((Nr, t.M), device=dev)
+        r = dict(kernel_ms=graph_ms(lambda: kphi.phi_features_launch(Xr, t, out)),
+                 call_ms=cuda_ms(lambda: ops.expansion_phi(Xr, t)),
+                 plain_ms=cuda_ms(lambda: kphi.phi_features_plain(Xr, t), reps=5, warmup=1),
+                 bound=b)
+        label = f"{Nr}x{t.M}{' rff' if t.kind == 'rff' else ''}"
+        ident = (f"phi_features_kernelILi{kphi.KINDS[t.kind]}ELi{pr if pr <= 8 else 0}"
+                 f"ELi{plan['cols_per_thread']}E")
+        print(f"[plan phi_features {label}] {json.dumps(plan)}; {regs_of(ident)}")
+        extra = ""
+        if profile:
+            try:
+                pm = profiler_ms(lambda: kphi.phi_features_launch(Xr, t, out), "phi_features")
+            except Exception as e:  # a cross-check only: the graph's time stands
+                pm, extra = None, f" (torch.profiler failed: {type(e).__name__}: {e})"
+            r["profiler_ms"] = pm
+            extra = (f" profiler_ms={pm:.4f}" if pm is not None else
+                     extra or " (torch.profiler recorded no device time)")
+        cold = " (output > 50 MB L2: every launch cold)" if 4 * Nr * t.M > 50e6 else ""
+        print(f"[kernel] phi_features ({label}): kernel_ms={r['kernel_ms']:.4f} "
+              f"call_ms={r['call_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={b[0]:.4f} ({b[1]}){extra}{cold}")
+        features[label] = r
+        del out
+        return r
 
     def spec_for(expansion, p, n=1, R=None, noise=0.05):
         if expansion == "hermite":
@@ -348,14 +429,13 @@ def main() -> int:
     err = max(compare(f"phi_features ({r.shape[0]}x{M})",
                       [ops.expansion_phi(r, tile)], [kphi.phi_features_plain(r, tile)],
                       **tol_phi) for r in (Xq, Xn))
-    f_flops = Xq.shape[0] * M * (p - 1) + Xq.shape[0] * p * n * 6
-    f_bytes = 4 * (Xq.numel() + Xq.shape[0] * M + M * p + p * 3)
+    fq = features_line(Xq, tile, n)
+    features_line(Xn, tile, n)
     rows["phi_features"] = dict(
         source="src/repro_torch/kernels/csrc/phi_features.cu",
         replaces="src/repro/kernels/hermite_phi.py:102", max_abs_err=err,
-        ms=cuda_ms(lambda: ops.expansion_phi(Xq, tile)),
-        plain_ms=cuda_ms(lambda: kphi.phi_features_plain(Xq, tile)),
-        library_ms=None, bound=bound(f_flops, f_bytes))
+        ms=fq["kernel_ms"], call_ms=fq["call_ms"], plain_ms=fq["plain_ms"],
+        library_ms=None, bound=fq["bound"])
 
     # fused fit (TPU #1): scale=True (GP.fit), scale=False + mask (GP.nlml)
     # a tenth of the tests/test_streaming_fit.py:55 gate (1e-3), relative to
@@ -400,6 +480,7 @@ def main() -> int:
     compare(f"phi_features rff ({Xq.shape[0]}x{rtile.M})",
             [ops.expansion_phi(Xq, rtile)], [kphi.phi_features_plain(Xq, rtile)],
             rtol=1e-5, atol=2e-5, why="f32 cosf of the same sums")
+    features_line(Xq, rtile, 1)
     # the RFF fused fit's own time (the same kernel, a cosine per feature)
     RM = rtile.M
     Phir = kphi.phi_features_plain(X0, rtile)
@@ -566,7 +647,8 @@ def main() -> int:
             [kchol.chol_update_plain(Lg, Wg)], **tol_chol)
 
     for name, r in rows.items():
-        print(f"[kernel] {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        call = f" call_ms={r['call_ms']:.4f}" if "call_ms" in r else ""
+        print(f"[kernel] {name}: ms={r['ms']:.4f}{call} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
               f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) max_abs_err={r['max_abs_err']:.3e}")
 
@@ -972,13 +1054,21 @@ def main() -> int:
     check(tuple(Phi.shape) == (N, M) and Phi.dtype == torch.float32 and Phi.is_cuda,
           f"stored Phi is {tuple(Phi.shape)} {Phi.dtype} on {Phi.device}")
     check(torch.equal(st.y, y0), "the stored y is not the fitted y")
+    # the path's own launch at this shape (the 8-column instance) against
+    # the plain version
+    rows["phi_features"]["max_abs_err"] = max(
+        rows["phi_features"]["max_abs_err"],
+        compare(f"phi_features ({N}x{M}, the stored Phi)", [Phi],
+                [plain(lambda: kphi.phi_features_plain(X0, tile))], **tol_phi))
     ref_state = GP.fit(X0, y0, spec).state
     check(torch.equal(st.u, ref_state.u) and torch.equal(st.chol, ref_state.chol),
           "store_train changed the fit (u or chol not bitwise equal)")
     del ref_state
 
-    # the features kernel at the stored Phi's shape (its one launch here)
-    features_line(X0, tile, n)
+    # the features kernel at the stored Phi's shape (its one launch here),
+    # its time also read from torch.profiler (once a run: a second profiler
+    # session in one process may record no device time)
+    features_line(X0, tile, n, profile=True)
     torch.cuda.empty_cache()
     # the scaled-Gram kernel (TPU #5) against its plain version and against
     # the fused-fit kernel's B of the same X: two independent kernels
@@ -1177,6 +1267,11 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
+        if "call_ms" in r:
+            kernels[-1]["call_ms"] = r["call_ms"]
+    print("[features] " + json.dumps({
+        label: {k: (v[0] if k == "bound" else v) for k, v in r.items()}
+        for label, r in features.items()}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -336,22 +336,34 @@ def _on(tile, device):
 
 # the fused fit against the scaled Gram of the stored features, on both
 # sides of its 128-column tile edge, for p = 9 (past the producers unrolled
-# for p <= 8) and for an RFF tile: every entry is summed in row order by
-# one thread, one fmaf per row, from bitwise the features of the features
-# kernel, so B (scale=True) and the masked G (scale=False; the scaled Gram
-# with d = 1, sigma^2 = 1 is G + I) are equal
+# for p <= 8), for an RFF tile, and at the paths' shapes of the features
+# kernel (N x M, p = 4: a phase-3 microbatch and update, a fleet microbatch
+# and ingest round, phase 6's stored Phi, the RFF path's microbatch): every
+# entry is summed in row order by one thread, one fmaf per row, from
+# bitwise the features of the features kernel, so B (scale=True) and the
+# masked G (scale=False; the scaled Gram with d = 1, sigma^2 = 1 is G + I)
+# are equal
+PATH_SHAPES = {"128x14641": ("hermite", 128, 11), "64x14641": ("hermite", 64, 11),
+               "256x625": ("hermite", 256, 5), "8192x625": ("hermite", 8192, 5),
+               "10000x14641": ("hermite", 10_000, 11), "128x8192rff": ("rff_se", 128, 4096)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [125, 128, 129, 257, "p9", "rff"])
+@pytest.mark.parametrize("M", [125, 128, 129, 257, "p9", "rff", *PATH_SHAPES])
 def test_cuda_fused_fit_is_bitwise_the_scaled_gram_of_its_features(cuda_device, M):
-    if M == "rff":
+    N, p = 1037, {"rff": 3, "p9": 9}.get(M, 4)
+    if M in PATH_SHAPES:
+        expansion, N, nr = PATH_SHAPES[M]
+        rff = expansion != "hermite"
+        _, _, _, tile = _tiles(expansion, 4, 1 if rff else nr, nr if rff else None)
+    elif M == "rff":
         _, _, _, tile = _tiles("rff_se", 3, 1, 100)
     elif M == "p9":
         _, _, _, tile = _tiles("hermite", 9, 2, None)
     else:
         _, tile = _sliced_tiles(M)
     tile = _on(tile, cuda_device)
-    N = 1037
-    X, y = _fit_inputs(N, {"rff": 3, "p9": 9}.get(M, 4), 11)
+    X, y = _fit_inputs(N, p, 11)
     Xc, yc = tt(X).to(cuda_device), tt(y).to(cuda_device)
     d = torch.linspace(1.0, 0.01, tile.M, device=cuda_device)
     mask = (torch.arange(N, device=cuda_device) % 3 != 0).float()
