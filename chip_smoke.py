@@ -75,7 +75,19 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    queries (timed, finite, its gap to the fused mode printed), the same
    chain in float64 against the float64 fused mode at full width, and, at
    N = 50, float32 paper mode equal to the fused mode; ``GP.save`` /
-   ``GP.load`` of the full-width session, bitwise.
+   ``GP.load`` of the full-width session, bitwise;
+7. ``GP.optimize`` (the differentiable NLML and the lane engine): at
+   ``MAIN``'s full width (M = 14,641) 3 steps from the spec, its fused-fit
+   launches exact (one a step, one for the final lane value, one for the
+   fit at the winner), the NLML per row lower than at the init, the
+   optimized GP's rmse on 1,024 queries; the value, the Cholesky, the
+   backward pass, its streamed blocks and one step timed (CUDA events),
+   the step's peak memory; the value and its gradient in (log eps,
+   log rho, log noise) on the pallas backend against the jnp backend at
+   the JAX package's gates; then ``optimize_fleet`` over 8 tenants x 4
+   restarts at the fleet's per-tenant shape (M = 625), 5 steps, its
+   launches exact, tenants 0 and 1 alone bitwise equal to their lanes, a
+   step's and a lane's time.
 
 Prints the features kernel's times by shape on a ``[features]`` line, one
 JSON line with every kernel's numbers (the features kernel's ``ms`` its
@@ -88,6 +100,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -140,6 +153,23 @@ PATH_EXPECTED = {
     "chol_update": {},
     "scaled_gram": {},
 }
+# phase 7, GP.optimize at MAIN's full width: a fused fit (scale=False) for
+# the value of each step and for the final lane value, and one (scale=True)
+# for the fit at the winner; the backward pass launches nothing
+OPT = dict(steps=3)
+OPT_EXPECTED = {
+    "phi_features": {},
+    "phi_gram": {"moments": OPT["steps"] + 1, "scale": 1},
+    "diag_quad": {},
+    "chol_update": {},
+    "scaled_gram": {},
+}
+# the case of tests/test_gp_hyperopt.py:108-128, where float32 holds the
+# JAX package's gates between the two backends (ROADMAP.md section C, C5)
+OPT_GATE = dict(n_train=200, p=2, n=6, seed=3)
+# the lane engine at the fleet's per-tenant shape (phase 5)
+OPT_FLEET = dict(tenants=8, restarts=4, n_train=10_000, p=4, n=5, steps=5, noise=0.05,
+                 seed=0)
 # phase 6, the stored-features fit: one fused fit (the Gram) and one
 # features launch (the stored Phi); then one scaled-Gram launch on it
 PAPER_FIT_EXPECTED = {
@@ -200,6 +230,7 @@ def main() -> int:
     from repro_torch.launch.serve_gp import (
         fleet_dataset, microbatched_mean_var, serve_fleet, serve_gp,
     )
+    from repro_torch.optim import adamw, gp_hyperopt
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -1255,6 +1286,240 @@ def main() -> int:
           f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} "
           f"({r['bound'][1]}) max_abs_err={r['max_abs_err']:.3e}")
     print(f"[paper] phase took {time.perf_counter() - paper_t0:.1f} s")
+
+    # -- 7. GP.optimize: the differentiable NLML and the lane engine ---------
+    opt_t0 = time.perf_counter()
+    N, p, n = MAIN["n_train"], MAIN["p"], MAIN["n"]
+    ones_N = torch.ones(N, device=dev)
+
+    def nlml_row(sp):
+        with torch.no_grad():
+            return float(fagp.nlml(X0, y0, sp)) / N
+
+    # (a) the Figure 1 point at full width, its fused-fit launches exact
+    seen = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ogp = GP.optimize(X0, y0, spec, steps=OPT["steps"], restarts=1,
+                      callback=lambda step, v, sp: seen.append(v))
+    torch.cuda.synchronize()
+    optimize_s = time.perf_counter() - t0
+    ocounts = ops.launch_counts()
+    print(f"[optimize] N={N} M={M} steps={OPT['steps']}: optimize_s={optimize_s:.4f} "
+          f"launches={json.dumps(ocounts)}")
+    check(ocounts == OPT_EXPECTED, f"GP.optimize launch counts {ocounts} != {OPT_EXPECTED}")
+    v_init, v_end = nlml_row(spec), nlml_row(ogp.spec)
+    print(f"[optimize] nlml per row: at the init {v_init:.6f}, per step "
+          f"{[round(v, 6) for v in seen]}, at the learned spec {v_end:.6f}; learned "
+          f"eps={[round(float(e), 5) for e in ogp.spec.eps]} "
+          f"rho={[round(float(r), 5) for r in ogp.spec.rho]} noise={float(ogp.spec.noise):.5f}")
+    check(v_end < v_init, "GP.optimize did not lower the NLML per row")
+    mu_o, var_o, _ = microbatched_mean_var(ogp, Xq_all, microbatch=MAIN["microbatch"])
+    rmse_o = float(np.sqrt(np.mean((mu_o - ysq) ** 2)))
+    print(f"[optimize] the optimized GP on {Xq_all.shape[0]} queries: rmse={rmse_o:.5f}")
+    check(rmse_o < 0.1 and np.all(np.isfinite(var_o)),
+          "the optimized GP's rmse >= 0.1 on the cos target, or its variance is not finite")
+    del ogp
+    torch.cuda.empty_cache()
+
+    def log_leaves():
+        return {f"log_{f}": torch.log(getattr(spec, f)).detach().clone().requires_grad_()
+                for f in ("eps", "rho", "noise")}
+
+    def lane_value(backend, lv):
+        sp = gp_hyperopt._hp_to_spec(spec.replace(backend=backend), lv)
+        return fagp._nlml_core(X0, y0, sp, ones_N)
+
+    # where a step's time goes (CUDA events): the value alone (the fused
+    # fit, the M x M Cholesky and the solve), the Cholesky alone, the
+    # backward pass alone (through the Cholesky and the streamed blocks),
+    # the streamed blocks alone (the moments' VJP of a random cotangent),
+    # and one whole step with its peak memory
+    lv = log_leaves()
+    with torch.no_grad():
+        value_ms = cuda_ms(lambda: lane_value("pallas", lv), reps=5, warmup=1)
+        G7, _ = fagp._moments_via_registry(spec, X0, y0, ones_N)
+        B7, _ = fagp._assemble_scaled_system(
+            G7, get_expansion("hermite").log_eigenvalues(fagp._idx_tensor(spec), spec),
+            spec.noise**2)
+        chol_ms = cuda_ms(lambda: torch.linalg.cholesky(B7), reps=5, warmup=1)
+    del G7, B7
+    v7 = lane_value("pallas", lv)
+    backward_ms = cuda_ms(lambda: torch.autograd.grad(v7, list(lv.values()), retain_graph=True),
+                          reps=3, warmup=1)
+    del v7
+    sp7 = gp_hyperopt._hp_to_spec(spec, lv)
+    Gm, bm = fagp._MomentsDiff.apply(sp7.eps, sp7.rho, sp7.noise, sp7.omega, X0, y0, ones_N, sp7)
+    cot = (torch.randn(M, M, generator=gen).to(dev), torch.randn(M, generator=gen).to(dev))
+    blocks_ms = cuda_ms(lambda: torch.autograd.grad(
+        (Gm, bm), [lv["log_eps"], lv["log_rho"]], cot, retain_graph=True), reps=3, warmup=1)
+    del Gm, bm, cot, sp7
+    torch.cuda.empty_cache()
+    hp7 = {f: t.detach()[None, None] for f, t in lv.items()}
+    ocfg = adamw.AdamWConfig(lr=5e-2, weight_decay=0.0, clip_norm=None)
+
+    def one_step():
+        return gp_hyperopt._lane_step(
+            hp7, adamw.init(hp7, ocfg), torch.zeros((1, 1), dtype=torch.bool, device=dev),
+            torch.full((1, 1), float("inf"), device=dev), [(X0, y0, ones_N)], spec,
+            float("-inf"), ocfg)
+
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(one_step, reps=3, warmup=1)
+    step_peak = torch.cuda.max_memory_allocated()
+    print(f"[optimize] value_ms={value_ms:.3f} (cholesky_ms={chol_ms:.3f}) "
+          f"backward_ms={backward_ms:.3f} (streamed blocks {blocks_ms:.3f}) "
+          f"step_ms={step_ms:.3f}; step peak {step_peak} bytes allocated "
+          f"({step_peak - base_bytes} above the {base_bytes} held before it)")
+
+    # the value and its gradient in (log eps, log rho, log noise) on both
+    # backends, and a float64 witness of the same NLML (ROADMAP.md section
+    # C, C5): in float32 at this width both backends sit outside the JAX
+    # package's gates from it (printed); the streamed backward pass itself,
+    # run in float64, is held against direct float64 autograd at them
+    grads7 = {}
+    for be in ("pallas", "jnp"):
+        lvb = log_leaves()
+        vb = lane_value(be, lvb)
+        grads7[be] = [vb.detach().double().reshape(1)] + [
+            g.double() for g in torch.autograd.grad(vb, list(lvb.values()))]
+        del vb
+
+    def leaves64():
+        return {f: t.detach().double().clone().requires_grad_() for f, t in log_leaves().items()}
+
+    X64, y64, ones64 = X0.double(), y0.double(), ones_N.double()
+    l_s = leaves64()
+    v_s = fagp._nlml_core(X64, y64, gp_hyperopt._hp_to_spec(spec.replace(backend="jnp"), l_s),
+                          ones64)
+    streamed = [v_s.detach().reshape(1)] + list(torch.autograd.grad(v_s, list(l_s.values())))
+    del v_s
+    l_d = leaves64()
+    sp_d = gp_hyperopt._hp_to_spec(spec, l_d)
+    exp_h, idx_h = get_expansion("hermite"), fagp._idx_tensor(spec)
+    G64 = torch.zeros((M, M), dtype=torch.float64, device=dev)
+    b64 = torch.zeros(M, dtype=torch.float64, device=dev)
+    for lo in range(0, N, 2048):
+        Ph = exp_h.features(X64[lo:lo + 2048], idx_h, sp_d)
+        G64 = G64 + Ph.T @ Ph
+        b64 = b64 + Ph.T @ y64[lo:lo + 2048]
+    del Ph
+    B64, d64 = fagp._assemble_scaled_system(G64, exp_h.log_eigenvalues(idx_h, sp_d),
+                                            sp_d.noise**2)
+    L64 = torch.linalg.cholesky(B64)
+    s2 = sp_d.noise**2
+    bs64 = d64 * b64 / s2
+    w64 = torch.cholesky_solve(bs64[:, None], L64)[:, 0]
+    v_d = 0.5 * ((y64 @ y64) / s2 - bs64 @ w64 + 2.0 * torch.log(torch.diagonal(L64)).sum()
+                 + N * torch.log(s2) + N * math.log(2.0 * math.pi))
+    direct = [v_d.detach().reshape(1)] + list(torch.autograd.grad(v_d, list(l_d.values())))
+    del G64, b64, B64, L64, v_d, sp_d, l_d
+    torch.cuda.empty_cache()
+    compare(f"float64 nlml value, streamed (jnp backend) vs direct autograd ({N}x{M})",
+            streamed[:1], direct[:1], rtol=1e-4, atol=0.0, why="tests/test_gp_hyperopt.py:123")
+    compare(f"float64 nlml gradient in log eps, log rho, log noise, streamed vs direct "
+            f"({N}x{M})", streamed[1:], direct[1:], rtol=1e-3, atol=1e-2,
+            why="tests/test_gp_hyperopt.py:126")
+
+    def gate_ratio(got, want, rtol, atol):
+        return max(float(((g - w).abs() / (atol + rtol * w.abs())).max())
+                   for g, w in zip(got, want))
+
+    f32_gap = {be: dict(value_rel=float((g[0] - direct[0]).abs() / direct[0].abs()),
+                        value_ratio=gate_ratio(g[:1], direct[:1], 1e-4, 0.0),
+                        grad_ratio=gate_ratio(g[1:], direct[1:], 1e-3, 1e-2))
+               for be, g in grads7.items()}
+    f32_gap["pallas_vs_jnp"] = dict(
+        value_ratio=gate_ratio(grads7["pallas"][:1], grads7["jnp"][:1], 1e-4, 0.0),
+        grad_ratio=gate_ratio(grads7["pallas"][1:], grads7["jnp"][1:], 1e-3, 1e-2))
+    print(f"[optimize] float32 against the float64 witness ({N}x{M}; error/tolerance at the "
+          f"JAX gates, no gate here: ROADMAP.md section C, C5): {json.dumps(f32_gap)}")
+    del grads7, streamed, direct, X64, y64, ones64
+    torch.cuda.empty_cache()
+
+    # the two backends at the JAX package's gates where float32 holds them
+    # (C5): that test's own case (tests/test_gp_hyperopt.py:108-128: N = 200,
+    # p = 2, n = 6, seed 3, at log eps = 0), its value and its gradient in
+    # log eps; the gradients in log rho and log noise printed beside
+    G_ = OPT_GATE
+    Xg, yg, _, _ = make_gp_dataset(G_["n_train"], G_["p"], noise=0.05, seed=G_["seed"],
+                                   device=dev)
+    gspec = GPSpec.create(G_["n"], eps=np.ones(G_["p"], np.float32), rho=2.0, noise=0.05,
+                          device=dev)
+    gate7 = {}
+    for be in ("pallas", "jnp"):
+        lvg = {f"log_{f}": torch.log(getattr(gspec, f)).detach().clone().requires_grad_()
+               for f in ("eps", "rho", "noise")}
+        vg = fagp._nlml_core(Xg, yg, gp_hyperopt._hp_to_spec(gspec.replace(backend=be), lvg),
+                             torch.ones(Xg.shape[0], device=dev))
+        gate7[be] = [vg.detach().reshape(1)] + list(torch.autograd.grad(vg, list(lvg.values())))
+    gw = f"N={G_['n_train']}, p={G_['p']}, n={G_['n']}"
+    compare(f"nlml value, pallas vs jnp backend ({gw})", gate7["pallas"][:1], gate7["jnp"][:1],
+            rtol=1e-4, atol=0.0, why="tests/test_gp_hyperopt.py:123")
+    compare(f"nlml gradient in log eps, pallas vs jnp backend ({gw})", gate7["pallas"][1:2],
+            gate7["jnp"][1:2], rtol=1e-3, atol=1e-2, why="tests/test_gp_hyperopt.py:126")
+    print(f"[optimize] gradient in log rho / log noise, pallas vs jnp ({gw}), error/tolerance "
+          f"at rtol 1e-3, atol 1e-2 (no gate, C5): "
+          f"{gate_ratio(gate7['pallas'][2:3], gate7['jnp'][2:3], 1e-3, 1e-2):.3f} / "
+          f"{gate_ratio(gate7['pallas'][3:], gate7['jnp'][3:], 1e-3, 1e-2):.3f}")
+    del gate7, Xg, yg
+
+    # (b) the lane engine at the fleet's width: 8 tenants x 4 restarts of
+    # phase 5's per-tenant shape, the fused-fit launches exact, tenants 0
+    # and 1 alone through optimize_restarts bitwise equal to their lanes
+    OF = OPT_FLEET
+    _, Xf, yf, _ = fleet_dataset(np.random.default_rng(OF["seed"]), tenants=OF["tenants"],
+                                 n_train=OF["n_train"], p=OF["p"], rounds=1,
+                                 observations_per_round=OF["tenants"], noise=OF["noise"],
+                                 seed=OF["seed"])
+    Xf, yf = torch.from_numpy(Xf).to(dev), torch.from_numpy(yf).to(dev)
+    fspec = spec_for("hermite", OF["p"], OF["n"])
+    marks = []
+
+    def mark(step, vals, hp):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fres = gp_hyperopt.optimize_fleet(Xf, yf, fspec, restarts=OF["restarts"],
+                                      steps=OF["steps"], seed=OF["seed"], callback=mark)
+    torch.cuda.synchronize()
+    fleet_opt_s = time.perf_counter() - t0
+    fcounts7 = ops.launch_counts()
+    lanes = OF["tenants"] * OF["restarts"]
+    step_s = [b_ - a_ for a_, b_ in zip([t0] + marks[:-1], marks)]
+    print(f"[optimize fleet] {OF['tenants']} tenants x {OF['restarts']} restarts, "
+          f"N={OF['n_train']} M={fspec.n_features()} steps={OF['steps']}: "
+          f"optimize_fleet_s={fleet_opt_s:.4f} step_s={[round(x, 4) for x in step_s]} "
+          f"lane_ms={1e3 * statistics.median(step_s) / lanes:.3f} "
+          f"launches={json.dumps(fcounts7)}")
+    want7 = lanes * (OF["steps"] + 1)
+    check(fcounts7["phi_gram"] == {"moments": want7} and not fcounts7["phi_features"],
+          f"optimize_fleet launch counts {fcounts7} != {want7} fused fits")
+    for t in (0, 1):
+        one = gp_hyperopt.optimize_restarts(Xf[t], yf[t], fspec, restarts=OF["restarts"],
+                                            steps=OF["steps"], seed=OF["seed"])
+        for f in ("eps", "rho", "noise", "nlml", "lane_nlml"):
+            check(torch.equal(getattr(fres, f)[t], getattr(one, f)[0]),
+                  f"tenant {t}: the fleet's {f} is not bitwise its single run's")
+    print(f"[optimize fleet] tenants 0 and 1 alone: bitwise the fleet's lanes; best "
+          f"restarts {fres.best_restart.tolist()}, nlml per row "
+          f"{[round(float(v), 5) for v in fres.nlml]}")
+    print("[optimize] " + json.dumps({
+        "optimize_s": optimize_s, "value_ms": value_ms, "cholesky_ms": chol_ms,
+        "backward_ms": backward_ms, "blocks_ms": blocks_ms, "step_ms": step_ms,
+        "step_peak_bytes": step_peak, "bytes_before_step": base_bytes, "rmse": rmse_o,
+        "nlml_row_init": v_init, "nlml_row_end": v_end, "fleet_optimize_s": fleet_opt_s,
+        "fleet_step_s": step_s, "fleet_lane_ms": 1e3 * statistics.median(step_s) / lanes}))
+    del Xf, yf, fres
+    rows["phi_gram"]["launches"] = sum(counts["phi_gram"].values()) \
+        + sum(ocounts["phi_gram"].values()) + sum(fcounts7["phi_gram"].values())
+    print(f"[optimize] phase took {time.perf_counter() - opt_t0:.1f} s")
 
     # -- results --------------------------------------------------------------
     kernels = []

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the FAGP system in ``repro`` (the JAX package).
 
 The layout mirrors ``repro`` (``core/``, ``kernels/``, ``bank/``,
-``data/``, ``launch/``) so every module has a counterpart there, and the JAX package
-is the reference each module is tested against.  The package imports
+``optim/``, ``data/``, ``launch/``) so every module has a counterpart
+there, and the JAX package is the reference each module is tested
+against.  The package imports
 ``torch`` only: nothing of ``jax`` and nothing of ``repro``.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; with no
@@ -21,5 +22,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .device import resolve_device  # noqa: E402
+# the core first: the kernels' plain versions import its recurrence, so a
+# first import of ``repro_torch.kernels.*`` finds the core whole
+from . import core  # noqa: E402,F401
 
 __all__ = ["resolve_device"]

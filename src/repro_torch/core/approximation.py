@@ -82,6 +82,9 @@ class Approximation:
     def nlml(self, X, y, spec, *, mask=None):
         self.refuse("nlml", spec)
 
+    def optimize(self, X, y, spec, **kwargs):
+        self.refuse("optimize", spec)
+
     def ckpt_leaf_names(self) -> tuple:
         raise NotImplementedError
 

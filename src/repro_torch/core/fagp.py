@@ -361,10 +361,11 @@ def _block_scan_moments(X, y, feats_fn, M: int, block_rows: int,
     """The one home of the streaming row-block accumulation: G = Phi^T Phi
     (skipped when ``want_gram`` is False) and b = Phi^T y over row blocks of
     ``feats_fn(Xi)``, masked rows contributing nothing; y is (N,) or (N, T).
-    O(M^2) live memory beyond one (block_rows, M) tile."""
+    O(M^2) live memory beyond one (block_rows, M) tile.  The sums take X's
+    dtype: float32 on every path, float64 for a witness of the same NLML."""
     N = X.shape[0]
-    G = torch.zeros((M, M), dtype=torch.float32, device=X.device) if want_gram else None
-    b = torch.zeros((M,) + tuple(y.shape[1:]), dtype=torch.float32, device=X.device)
+    G = torch.zeros((M, M), dtype=X.dtype, device=X.device) if want_gram else None
+    b = torch.zeros((M,) + tuple(y.shape[1:]), dtype=X.dtype, device=X.device)
     for lo in range(0, N, block_rows):
         Phi_i = feats_fn(X[lo:lo + block_rows])
         yi = y[lo:lo + block_rows]
@@ -588,7 +589,7 @@ def _pallas_streamed_bt(X, Y, spec, idx, mask=None):
 def _pallas_moments(X, y, spec, idx, block_rows, mask=None):
     y0 = y if y.ndim == 1 else y[:, 0]
     G, b = ops.fused_fit_moments(X, y0, _tile(spec, idx), None, 1.0, mask,
-                                 scale=False)
+                                 scale=False, block_rows=block_rows)
     if y.ndim == 2:
         b = _pallas_streamed_bt(X, y, spec, idx, mask)
     return G, b
@@ -785,11 +786,145 @@ def _removed(old: str, new: str) -> None:
     raise TypeError(f"{old} was removed (deprecated two releases ago); {new}")
 
 
+# ---------------------------------------------------------------------------
+# The differentiable NLML
+#
+# The moments hooks are not differentiable (the kernel has no autograd
+# rule), so the moments are wrapped in a ``torch.autograd.Function`` whose
+# backward pass streams row blocks of the expansion's differentiable
+# feature map: O(M^2) live memory beyond one (block_rows, M) tile, never an
+# N x M buffer, on either backend.
+# ---------------------------------------------------------------------------
+
+
+def _moments_via_registry(spec: GPSpec, X, y, mask):
+    """Raw (G, b) = (Phi^T Phi, Phi^T y) over the masked rows through
+    ``spec.backend``'s moments hook (the value; ``_MomentsDiff`` adds the
+    gradient)."""
+    backend = get_backend(spec.backend)
+    # a small problem's one block is its N rows, not the serving block
+    block_rows = min(spec.block_rows, max(1, X.shape[0]))
+    return backend.moments(X, y, spec, _idx_tensor(spec, X.shape[1]),
+                           block_rows, mask)
+
+
+class _MomentsDiff(torch.autograd.Function):
+    """(G, b) of ``_moments_via_registry``, differentiable in the spec's
+    leaves (eps, rho, omega) and in the data (X, y, mask).
+
+    ``apply(eps, rho, noise, omega, X, y, mask, spec)``: the leaves come in
+    as explicit arguments (omega may be None); the spec, its leaves
+    stripped, keeps the static fields and rebuilds the spec around them.
+
+    The backward pass re-derives the cotangent contraction
+    <Gbar, Phi^T Phi> + <bbar, Phi^T y> block by block through the
+    expansion's feature map: for the masked rows Phi_i and weighted targets
+    y_i of a block, dPhi_i = Phi_i (Gbar + Gbar^T) + y_i bbar^T (Gbar need
+    not be symmetric) and dy_i = Phi_i bbar, pulled back to the leaves and
+    the block's X, y and mask by autograd.  The noise gets no cotangent:
+    the moments do not depend on it.
+    """
+
+    @staticmethod
+    def forward(ctx, eps, rho, noise, omega, X, y, mask, spec):
+        static = spec.replace(eps=None, rho=None, noise=None, omega=None)
+        ctx.static = static
+        ctx.save_for_backward(eps, rho, noise, omega, X, y, mask)
+        with torch.no_grad():
+            return _moments_via_registry(
+                static.replace(eps=eps, rho=rho, noise=noise, omega=omega),
+                X, y, mask)
+
+    @staticmethod
+    def backward(ctx, Gbar, bbar):
+        eps, rho, noise, omega, X, y, mask = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grads = [None] * 8
+        hyper = [i for i in (0, 1, 3) if need[i]]      # eps, rho, omega
+        data = [i for i in (4, 5, 6) if need[i]]       # X, y, mask
+        if not hyper and not data:
+            return tuple(grads)
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(i in hyper)
+                      for i, t in enumerate((eps, rho, noise, omega))]
+            spec = ctx.static.replace(eps=leaves[0], rho=leaves[1],
+                                      noise=leaves[2], omega=leaves[3])
+            feats = get_expansion(spec.expansion).features
+            idx = _idx_tensor(spec, X.shape[1])
+            for i in hyper:
+                grads[i] = torch.zeros_like(leaves[i])
+            for i, t in zip((4, 5, 6), (X, y, mask)):
+                if need[i]:
+                    grads[i] = torch.zeros_like(t)
+            S = Gbar + Gbar.mT
+            N = X.shape[0]
+            block_rows = min(spec.block_rows, max(1, N))
+            for lo in range(0, N, block_rows):
+                rows = slice(lo, lo + block_rows)
+                Xi, yi, mi = (t[rows].detach().requires_grad_(need[i])
+                              for i, t in zip((4, 5, 6), (X, y, mask)))
+                Phi = feats(Xi, idx, spec) * mi[:, None]
+                yw = _row_weight(mi, yi)
+                P = Phi.detach()
+                yb = yw.detach()
+                outs, cts = [], []
+                if Phi.requires_grad:
+                    outs.append(Phi)
+                    cts.append(P @ S + (yb[:, None] * bbar[None, :]
+                                        if yb.ndim == 1 else yb @ bbar.mT))
+                if yw.requires_grad:
+                    outs.append(yw)
+                    cts.append(P @ bbar)
+                if not outs:
+                    continue
+                inputs = [leaves[i] for i in hyper] + [
+                    t for i, t in zip((4, 5, 6), (Xi, yi, mi)) if need[i]]
+                got = torch.autograd.grad(outs, inputs, cts, allow_unused=True)
+                for i, g in zip(hyper, got[:len(hyper)]):
+                    if g is not None:
+                        grads[i] += g
+                for i, g in zip(data, got[len(hyper):]):
+                    if g is not None:
+                        grads[i][rows] = g
+        return tuple(grads)
+
+
+def _nlml_core(X, y, spec: GPSpec, mask):
+    """The one masked NLML, differentiable through ``_MomentsDiff``: the
+    moments from the spec's backend, the epilogue through the shared
+    scaled system.  ``mask`` (N,) of 0/1 row weights makes rows invisible
+    (N in the logdet and normalization terms is the mask's sum): the unit
+    the lane engine (``repro_torch.optim.gp_hyperopt``) steps."""
+    exp = get_expansion(spec.expansion)
+    idx = _idx_tensor(spec, X.shape[1])
+    T = 1 if y.ndim == 1 else y.shape[1]
+    sig2 = spec.noise**2
+    loglam = exp.log_eigenvalues(idx, spec)
+    G, b = _MomentsDiff.apply(spec.eps, spec.rho, spec.noise, spec.omega,
+                              X, y, mask, spec)
+    n_eff = torch.sum(mask)
+    B, sqrtlam = _assemble_scaled_system(G, loglam, sig2)
+    chol = torch.linalg.cholesky(B)
+    bs = _tscale(sqrtlam, b) / sig2
+    w = torch.cholesky_solve(bs[:, None] if bs.ndim == 1 else bs, chol)
+    w = w[:, 0] if bs.ndim == 1 else w
+    # y^T Kinv y = y^T y / sig2 - (D b / sig2)^T B^{-1} (D b / sig2)
+    quad = torch.sum(_row_weight(mask, y) * y) / sig2 - torch.sum(bs * w)
+    # logdet(K) = logdet(B) + N log sig2 (determinant lemma, scaled form)
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol))) + n_eff * torch.log(sig2)
+    return 0.5 * (quad + T * (logdet + n_eff * math.log(2.0 * math.pi)))
+
+
 def nlml(X, y, spec: GPSpec, idx=None, n_max: Optional[int] = None,
          block_rows: Optional[int] = None, *, mask=None) -> torch.Tensor:
-    """Negative log marginal likelihood (value only), O(N M^2 + M^3), with
-    the moments dispatched through the spec's backend; ``mask`` (N,) drops
-    rows.  For y (N, T) the result sums the per-task NLMLs.
+    """Negative log marginal likelihood, O(N M^2 + M^3), with the moments
+    dispatched through the spec's backend; ``mask`` (N,) drops rows.  For
+    y (N, T) the result sums the per-task NLMLs.
+
+    Differentiable (``_nlml_core``) in the spec's eps, rho and noise (for
+    the RFF expansions, eps through the scaled spectral draws, and in
+    omega) and in X, y and mask, on both backends, without an N x M buffer:
+    ``torch.autograd.grad(nlml(X, y, spec.replace(eps=torch.exp(le))), le)``.
 
     The signature is the JAX package's: ``block_rows`` overrides the spec's
     row-block size; ``idx`` and ``n_max`` belong to the removed
@@ -802,7 +937,7 @@ def nlml(X, y, spec: GPSpec, idx=None, n_max: Optional[int] = None,
         )
     X, y = _f32(X, spec.device), _f32(y, spec.device)
     _check_p(spec, X.shape[1])
-    backend = _check_backend_support(spec)
+    _check_backend_support(spec)
     if block_rows is not None:
         spec = spec.replace(block_rows=block_rows)
     N = X.shape[0]
@@ -812,24 +947,7 @@ def nlml(X, y, spec: GPSpec, idx=None, n_max: Optional[int] = None,
         mask = _f32(mask, spec.device)
         if tuple(mask.shape) != (N,):
             raise ValueError(f"nlml mask must be (N,) = ({N},), got {tuple(mask.shape)}")
-    exp = get_expansion(spec.expansion)
-    idx = _idx_tensor(spec, X.shape[1])
-    T = 1 if y.ndim == 1 else y.shape[1]
-    sig2 = spec.noise**2
-    loglam = exp.log_eigenvalues(idx, spec)
-    block_rows = min(spec.block_rows, max(1, N))
-    G, b = backend.moments(X, y, spec, idx, block_rows, mask)
-    n_eff = torch.sum(mask)
-    B, sqrtlam = _assemble_scaled_system(G, loglam, sig2)
-    chol = torch.linalg.cholesky(B)
-    bs = _tscale(sqrtlam, b) / sig2
-    w = torch.cholesky_solve(bs[:, None] if bs.ndim == 1 else bs, chol)
-    w = w[:, 0] if bs.ndim == 1 else w
-    # y^T Kinv y = y^T y / sig2 - (D b / sig2)^T B^{-1} (D b / sig2)
-    quad = torch.sum(_row_weight(mask, y) * y) / sig2 - torch.sum(bs * w)
-    # logdet(K) = logdet(B) + N log sig2 (determinant lemma, scaled form)
-    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol))) + n_eff * torch.log(sig2)
-    return 0.5 * (quad + T * (logdet + n_eff * math.log(2.0 * math.pi)))
+    return _nlml_core(X, y, spec, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -845,7 +963,7 @@ class _FagpApproximation(Approximation):
 
     name = "fagp"
     capabilities = frozenset({"fit", "predict", "mean_var", "update", "nlml",
-                              "bank"})
+                              "optimize", "bank"})
     state_type = FAGPState
 
     def validate(self, spec: Any) -> None:
@@ -865,6 +983,27 @@ class _FagpApproximation(Approximation):
 
     def nlml(self, X, y, spec, *, mask=None):
         return nlml(X, y, spec, mask=mask)
+
+    def optimize(self, X, y, spec, *, steps: int = 100, lr: float = 5e-2,
+                 restarts: int = 1, tol: Optional[float] = None,
+                 jitter: float = 0.3, seed: int = 0, callback=None):
+        """Gradient NLML hyperparameter learning on the lane engine
+        (``repro_torch.optim.gp_hyperopt``), then a fit at the learned
+        hyperparameters: the body behind ``GP.optimize``."""
+        from ..optim import gp_hyperopt
+
+        def cb(step, vals, hp):
+            if callback is None:
+                return
+            r = int(np.argmin(vals[0]))
+            callback(step, float(vals[0, r]),
+                     gp_hyperopt._hp_to_spec(spec, {f: leaf[0, r] for f, leaf in hp.items()}))
+
+        result = gp_hyperopt.optimize_restarts(
+            X, y, spec, restarts=restarts, steps=steps, lr=lr, tol=tol,
+            jitter=jitter, seed=seed, callback=cb,
+        )
+        return fit(X, y, result.spec_for(spec, 0))
 
     # -- checkpoint hooks (checkpoint/gpstate.py) ---------------------------
 

@@ -10,6 +10,7 @@ Counterpart of ``repro/core/gp.py``:
     mu, cov = gp.predict(Xs)             # full covariance
     gp = gp.update(X_new, y_new)         # rank-k ingest, no refit
     loss = gp.nlml(X, y)                 # NLML under the session's spec
+    gp = GP.optimize(X, y, spec, steps=100, restarts=4)  # learn, then fit
     version = gp.save(ckpt_dir)          # versioned checkpoint
     gp = GP.load(ckpt_dir)               # newest version, onto the card
 
@@ -17,13 +18,11 @@ Every method dispatches through the session's registered approximation
 family.  ``predict(mode="paper")`` (the literal Eqs. 11-12 chain) needs a
 spec with ``store_train=True``.  Checkpoints are the JAX package's format:
 ``GP.save`` here loads with ``repro.core.gp.GP.load`` and back.
-``optimize`` is not ported yet and raises :class:`UnsupportedError` naming
-the slice of the port that brings it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 from . import fagp  # noqa: F401  (registers the fagp family)
 from .approximation import (
@@ -67,9 +66,42 @@ class GP:
         return cls(state=state)
 
     @classmethod
-    def optimize(cls, X, y, spec: GPSpec, **kwargs) -> "GP":
-        """Gradient NLML hyperparameter learning (not ported yet)."""
-        _not_ported("optimize", "NLML gradient and GP.optimize (ROADMAP A1)", spec)
+    def optimize(
+        cls,
+        X,
+        y,
+        spec: GPSpec,
+        *,
+        steps: int = 100,
+        lr: float = 5e-2,
+        restarts: int = 1,
+        tol: Optional[float] = None,
+        jitter: float = 0.3,
+        seed: int = 0,
+        callback: Optional[Callable[[int, float, GPSpec], None]] = None,
+    ) -> "GP":
+        """Gradient NLML hyperparameter learning, then a fit at the learned
+        hyperparameters.
+
+        Minimizes ``nlml(X, y, spec) / N`` over (eps, rho, noise) in log
+        space with AdamW on the lane engine (``repro_torch.optim.
+        gp_hyperopt``): ``restarts`` lanes start from log-space jittered
+        inits (restart 0 is always the unperturbed spec; the jitter draws
+        are the port's own, see that module), the best lane by final NLML
+        wins, and ``tol`` freezes converged lanes early.  The objective's
+        moments stream through the backend registry (on the card, the
+        fused-fit kernel), and its gradient through the streamed backward
+        pass, so no N x M feature matrix is formed on either backend.
+
+        ``callback(step, nlml_per_row, current_spec)`` is invoked every 10%
+        of the run with the currently best lane's loss and hyperparameters.
+        """
+        ap = get_approximation(spec.approximation)
+        require_capability(ap, "optimize", spec)
+        return cls(state=ap.optimize(
+            X, y, spec, steps=steps, lr=lr, restarts=restarts, tol=tol,
+            jitter=jitter, seed=seed, callback=callback,
+        ))
 
     @property
     def spec(self) -> GPSpec:

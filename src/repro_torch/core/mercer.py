@@ -27,7 +27,9 @@ import torch
 __all__ = [
     "mercer_constants",
     "log_eigenvalues_1d",
+    "eigenvalues_1d",
     "log_eigenvalues_nd",
+    "eigenvalues_nd",
     "hermite_coefficients",
     "hermite_psi_rows",
     "eigenfunctions_1d",
@@ -76,6 +78,17 @@ def log_eigenvalues_nd(idx: torch.Tensor, eps: torch.Tensor,
     return out
 
 
+def eigenvalues_1d(n: int, eps: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
+    """Paper Eq. 16: the first ``n`` SE-kernel eigenvalues for one dimension."""
+    return torch.exp(log_eigenvalues_1d(n, eps, rho))
+
+
+def eigenvalues_nd(idx: torch.Tensor, eps: torch.Tensor,
+                   rho: torch.Tensor) -> torch.Tensor:
+    """lambda_n = prod_j lambda_{n_j}  (Eq. 20).  idx (M, p) -> (M,)."""
+    return torch.exp(log_eigenvalues_nd(idx, eps, rho))
+
+
 def hermite_coefficients(n: int) -> np.ndarray:
     """(2, n) float32 table of the recurrence constants: row 0 holds
     sqrt(2 / i), row 1 sqrt((i - 1) / i), each rounded once from float64
@@ -99,6 +112,13 @@ def hermite_psi_rows(z: torch.Tensor, beta: torch.Tensor, n: int) -> list:
 
     Returns the list [psi_1 .. psi_n] shaped like ``z``, without the
     Gaussian envelope.
+
+    A step rounds once, as the kernels' fused multiply-add does: z sqrt(2/i)
+    is rounded to z's dtype, then its product with psi_i and the difference
+    are formed in float64 (the product of two float32 values is exact there)
+    and rounded back.  Rounding the product first, then the difference,
+    leaves psi near a zero of H_{i-1}, where the step cancels, outside the
+    kernels' gate.  The step stays differentiable.
     """
     coef = hermite_coefficients(max(n, 2))
     psi_prev = torch.sqrt(beta) * torch.ones_like(z)
@@ -107,7 +127,9 @@ def hermite_psi_rows(z: torch.Tensor, beta: torch.Tensor, n: int) -> list:
         psi_cur = z * float(np.float32(np.sqrt(2.0))) * psi_prev
         rows.append(psi_cur)
         for i in range(2, n):
-            nxt = z * float(coef[0, i]) * psi_cur - float(coef[1, i]) * psi_prev
+            zc = z * float(coef[0, i])
+            nxt = (zc.double() * psi_cur.double()
+                   - (float(coef[1, i]) * psi_prev).double()).to(zc.dtype)
             psi_prev, psi_cur = psi_cur, nxt
             rows.append(nxt)
     return rows

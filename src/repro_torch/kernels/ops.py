@@ -98,12 +98,15 @@ def fused_fit_moments(
     mask: Optional[torch.Tensor] = None,
     *,
     scale: bool = True,
+    block_rows: int = _gram.PLAIN_BLOCK,
 ):
     """Streaming fit statistics, Phi never materialized on the card.
 
     scale=True  -> (B, b), B = I + D Phi^T Phi D / sig2, D = diag(sqrtlam)
     scale=False -> (G, b), G = Phi^T Phi (sqrtlam and sig2 unused)
     b = Phi^T (mask * y) in both cases; rows with mask 0 contribute nothing.
+    ``block_rows`` is the row block of the plain version (a CPU tensor's
+    only Phi buffer); the kernel streams its own tiles.
     """
     X = X.contiguous()
     N, p = X.shape
@@ -125,7 +128,7 @@ def fused_fit_moments(
     sig2 = float(sig2)
     if _on_cuda("fused_fit_moments", X, y, mask, d, *tile.tensors()):
         return _gram.phi_gram_cuda(X, y, mask, tile, d, sig2, scale)
-    return _gram.phi_gram_plain(X, y, mask, tile, d, sig2, scale)
+    return _gram.phi_gram_plain(X, y, mask, tile, d, sig2, scale, block_rows)
 
 
 def bank_fused_fit_moments(

@@ -38,23 +38,24 @@ __all__ = ["phi_gram_plain", "phi_gram_cuda", "phi_gram_plan",
            "bank_phi_gram_plain", "bank_phi_gram_cuda", "COUNTER"]
 
 COUNTER = _build.LaunchCounter("phi_gram")
-_PLAIN_BLOCK = 4096
+PLAIN_BLOCK = 4096
 MAX_BANK = 65535  # slots are the grid's y axis
 _PLAN_KEYS = ("tile", "rows_per_step", "stages", "steps", "tile_rows",
               "blocks_per_slot", "blocks", "smem_bytes", "resident_blocks_per_sm")
 
 
-def phi_gram_plain(X, y, mask, tile: TileArgs, d, sig2, scale: bool):
+def phi_gram_plain(X, y, mask, tile: TileArgs, d, sig2, scale: bool,
+                   block_rows: int = PLAIN_BLOCK):
     """Plain version: (B or G (M, M), b (M,)) accumulated over row blocks
-    of the masked features, b = Phi^T (mask * y)."""
+    of ``block_rows`` masked features, b = Phi^T (mask * y)."""
     M = tile.M
     G = torch.zeros((M, M), dtype=torch.float32, device=X.device)
     b = torch.zeros((M,), dtype=torch.float32, device=X.device)
-    for lo in range(0, X.shape[0], _PLAIN_BLOCK):
-        m = mask[lo:lo + _PLAIN_BLOCK]
-        Phi = plain_tile(X[lo:lo + _PLAIN_BLOCK], tile) * m[:, None]
+    for lo in range(0, X.shape[0], block_rows):
+        m = mask[lo:lo + block_rows]
+        Phi = plain_tile(X[lo:lo + block_rows], tile) * m[:, None]
         G += Phi.T @ Phi
-        b += Phi.T @ (y[lo:lo + _PLAIN_BLOCK] * m)
+        b += Phi.T @ (y[lo:lo + block_rows] * m)
     if scale:
         G = G * (d[:, None] * d[None, :] / sig2) \
             + torch.eye(M, dtype=torch.float32, device=X.device)

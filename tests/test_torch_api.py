@@ -1,7 +1,10 @@
 """The port's public surface against the JAX package's: ``nlml``'s
 signature (``block_rows=`` and the removed ``idx`` / ``n_max`` arguments),
-and the refusals of what is not ported yet, each naming its current
-ROADMAP.md item."""
+the signatures of ``GP.optimize`` and the lane engine, the names
+``repro_torch.core`` exports, and the refusals of what is not ported yet,
+each naming its current ROADMAP.md item."""
+import ast
+import inspect
 import re
 from pathlib import Path
 
@@ -14,14 +17,19 @@ import jax.numpy as jnp  # noqa: E402
 
 from test_torch_common import gp_data, specs, tt  # noqa: E402
 
+import repro.core as jcore  # noqa: E402
+import repro_torch.core as tcore  # noqa: E402
 from repro.core import fagp as jfagp  # noqa: E402
+from repro.core import mercer as jmercer  # noqa: E402
 from repro.core.gp import GP as JGP  # noqa: E402
 from repro.core.gp import GPSpec as JSpec  # noqa: E402
+from repro.optim import gp_hyperopt as jgh  # noqa: E402
 from repro_torch.bank import BankRouter, GPBank  # noqa: E402
 from repro_torch.core import fagp as tfagp  # noqa: E402
 from repro_torch.core.approximation import UnsupportedError  # noqa: E402
 from repro_torch.core.gp import GP  # noqa: E402
 from repro_torch.launch import serve_gp as t_serve  # noqa: E402
+from repro_torch.optim import gp_hyperopt as tgh  # noqa: E402
 
 ROADMAP = Path(__file__).resolve().parents[1] / "ROADMAP.md"
 
@@ -108,6 +116,43 @@ def test_nlml_mask_stays_keyword_only():
         tfagp.nlml(tt(X), tt(y), ts, None, None, None, torch.ones(20))
 
 
+@pytest.mark.parametrize("name", ["GP.optimize", "optimize_fleet", "optimize_restarts"])
+def test_optimize_signatures_match_jax(name):
+    """The port's optimizers take the JAX package's arguments, in order,
+    of the same kinds and defaults (``metrics`` and ``tracer`` included)."""
+    mine, ref = {"GP.optimize": (GP.optimize, JGP.optimize),
+                 "optimize_fleet": (tgh.optimize_fleet, jgh.optimize_fleet),
+                 "optimize_restarts": (tgh.optimize_restarts, jgh.optimize_restarts)}[name]
+    params = [[(p.name, p.kind, p.default) for p in inspect.signature(f).parameters.values()]
+              for f in (mine, ref)]
+    assert params[0] == params[1]
+
+
+# names of the reference's core that belong to items still queued
+NOT_PORTED = {"SEKernelParams", "vecchia", "VecchiaState", "FAGPConfig"}
+
+
+def test_core_exports_the_references_names():
+    """``repro_torch.core`` exports every name ``repro/core/__init__.py``
+    imports, less those of items still queued; and the two eigenvalue
+    helpers it gained agree with the reference's at rtol 1e-6."""
+    tree = ast.parse(Path(jcore.__file__).read_text())
+    ref_names = {a.asname or a.name for node in tree.body
+                 if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert set(tcore.__all__) == ref_names - NOT_PORTED
+    assert all(hasattr(tcore, n) for n in tcore.__all__)
+    eps, rho = np.float32(0.7), np.float32(1.6)
+    np.testing.assert_allclose(
+        tcore.eigenvalues_1d(9, tt(eps), tt(rho)).numpy(),
+        np.asarray(jmercer.eigenvalues_1d(9, jnp.float32(eps), jnp.float32(rho))), rtol=1e-6)
+    idx = jmercer.total_degree(5, 3)
+    e3, r3 = np.array([0.5, 0.9, 1.3], np.float32), np.array([1.5, 2.0, 2.5], np.float32)
+    want = jmercer.eigenvalues_nd(jnp.asarray(idx), jmercer.SEKernelParams.create(
+        jnp.asarray(e3), jnp.asarray(r3), 0.1))
+    np.testing.assert_allclose(tcore.eigenvalues_nd(tt(idx), tt(e3), tt(r3)).numpy(),
+                               np.asarray(want), rtol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # Refusals name their ROADMAP.md item
 # ---------------------------------------------------------------------------
@@ -137,8 +182,6 @@ def _fleet(**option):
 
 # (refusal, ROADMAP item, a word of that item's heading)
 REFUSALS = {
-    "GP.optimize": (lambda tp: GP.optimize(torch.zeros(4, 2), torch.zeros(4), _bank()[1]),
-                    "A1", "optimize"),
     "GPBank.downdate": (lambda tp: _bank()[0].downdate([0], torch.zeros(1, 2, 2),
                                                       torch.zeros(1, 2)), "A2", "downdate"),
     "GPBank.refit_window": (lambda tp: _bank()[0].refit_window(
@@ -157,6 +200,10 @@ REFUSALS = {
     "serve_fleet(engine=pipelined)": (lambda tp: _fleet(engine="pipelined"), "A4", "pipelined"),
     "serve_fleet(cold_dir)": (lambda tp: _fleet(cold_dir=str(tp)), "A4", "tiered bank"),
     "serve_fleet(metrics)": (lambda tp: _fleet(metrics=object()), "A4", "obs"),
+    "optimize_fleet(metrics)": (lambda tp: tgh.optimize_fleet(
+        torch.zeros(1, 4, 2), torch.zeros(1, 4), _bank()[1], metrics=object()), "A4", "obs"),
+    "optimize_fleet(tracer)": (lambda tp: tgh.optimize_fleet(
+        torch.zeros(1, 4, 2), torch.zeros(1, 4), _bank()[1], tracer=object()), "A4", "obs"),
     "serve_fleet(watchdog)": (lambda tp: _fleet(watchdog=object()), "A4", "obs"),
     "BankRouter(tracer)": (lambda tp: BankRouter(_bank()[0], tracer=object()), "A4", "obs"),
     "BankRouter(donate_updates)": (lambda tp: BankRouter(_bank()[0], donate_updates=True),

@@ -4,9 +4,9 @@ version (what a CPU tensor runs, launching nothing) against the JAX kernel
 in interpret mode; the C signatures bound in Python against the source;
 and, on the card (marked ``cuda``, skipped without one), the kernel against
 its plain version at the same edges and at the paths' shapes, its launch
-plan and its launch count.  Past the paths' inputs the plain version
-drifts from both kernels near a zero of a Hermite polynomial (ROADMAP.md
-§C, C3), which two strict xfails hold in view."""
+plan and its launch count.  Past the paths' inputs, near a zero of a
+Hermite polynomial, the plain version, the JAX kernel and the CUDA kernel
+agree at the gate too (ROADMAP.md §C, C3, closed)."""
 import ctypes
 import dataclasses
 import re
@@ -112,18 +112,15 @@ def test_bound_c_signatures_match_the_source(name):
 # ROADMAP.md §C, C3: the fleet's ingest shape (8,192 x 625, p = 4, n = 5) on
 # inputs in +-1.5, the JAX test's range; row 4954 has x_3 = 0.7294, where
 # z = 1.6508 sits on a zero of H_4, so psi_5 there is a cancellation that
-# the plain version (two roundings a step) and the kernels (one fused
-# rounding) leave on different sides of the gate
+# lands inside the gate only when the recurrence rounds each step once, as
+# the kernels' fused multiply-add does
 C3 = ("hermite", 8192, 4, 5, None)
-C3_REASON = ("ROADMAP.md §C C3: the plain version drifts from the kernels near "
-             "a zero of H_4 on inputs past +-1")
 
 
 def _c3_inputs():
     return uniform(np.random.default_rng(C3[1] + C3[2]), C3[1:3], -1.5, 1.5)
 
 
-@pytest.mark.xfail(strict=True, reason=C3_REASON)
 def test_plain_features_match_jax_kernel_past_the_paths_inputs():
     (c, table, fn, n_max), tile = _tiles("hermite", 4, 5, None)
     X = _c3_inputs()
@@ -187,7 +184,7 @@ def test_cuda_features_match_plain(cuda_device, expansion, N, p, nr, M):
     _, tile = _tiles(expansion, p, n, nr if expansion != "hermite" else None, M)
     tile = _on(tile, cuda_device)
     # the edges on the JAX test's inputs (+-1.5), the paths' and the wide
-    # shapes on the paths' own (the data generator's +-1; past it, C3)
+    # shapes on the paths' own (the data generator's +-1)
     lim = 1.0 if (expansion, N, p, nr, M) in PATHS + WIDE else 1.5
     X = tt(uniform(np.random.default_rng(N + p), (N, p), -lim, lim)).to(cuda_device)
     ops.reset_launch_counts()
@@ -235,7 +232,6 @@ def test_cuda_features_match_jax_kernel_past_the_paths_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.xfail(strict=True, reason=C3_REASON)
 def test_cuda_features_match_plain_past_the_paths_inputs(cuda_device):
     _, tile = _tiles("hermite", 4, 5, None)
     tile = _on(tile, cuda_device)
