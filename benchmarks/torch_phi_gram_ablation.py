@@ -273,11 +273,11 @@ def main() -> int:
         b = torch.empty(slots, tile.M, device=dev)
         fn = lib.repro_bank_phi_gram
         fn.restype = ctypes.c_int
-        fn.argtypes = [P, P, P] + [ctypes.c_int] * 6 + [P] * 7
+        fn.argtypes = [P, P, P] + [ctypes.c_int] * 6 + [P] * 7 + [ctypes.c_longlong]
         rc = fn(_build.ptr(Xb), _build.ptr(yb), _build.ptr(onesb), slots, N, 4, tile.M,
                 KINDS[tile.kind], tile.n_max, _build.ptr(tile.consts),
                 _build.ptr(tile.coef), _build.ptr(tile.idx), _build.ptr(tile.table),
-                _build.ptr(G), _build.ptr(b), stream)
+                _build.ptr(G), _build.ptr(b), stream, 0)
         _build.check_launch(rc, "phi_gram bank (ablation)")
         return G, b
 
@@ -340,7 +340,7 @@ def features(libs: dict, card: str, dev, reps: int) -> bool:
     def launch(fn, X, t, out):
         rc = fn(X.data_ptr(), X.shape[0], X.shape[1], t.M, kphi.KINDS[t.kind], t.n_max,
                 kphi._addr(t.consts), kphi._addr(t.coef), kphi._addr(t.idx),
-                kphi._addr(t.table), out.data_ptr(), kphi._current_stream(X.get_device()))
+                kphi._addr(t.table), out.data_ptr(), kphi._current_stream(X.get_device()), None)
         if rc != 0:
             raise RuntimeError(f"repro_phi_features returned cudaError {rc}")
 

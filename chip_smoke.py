@@ -87,7 +87,26 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    the JAX package's gates; then ``optimize_fleet`` over 8 tenants x 4
    restarts at the fleet's per-tenant shape (M = 625), 5 steps, its
    launches exact, tenants 0 and 1 alone bitwise equal to their lanes, a
-   step's and a lane's time.
+   step's and a lane's time;
+8. re-optimizing fleets, the downdate and ``refit_window`` (ROADMAP A2,
+   A3) at the fleet's width (512 tenants, N = 10^4, M = 625): (a)
+   ``serve_fleet(engine="sync", reopt_every=2)``, 2 rounds, stale tenants
+   (>= 12 new rows) re-optimized by ``GPBank.optimize`` (3 steps, 1
+   restart: depth cut from 25 and 2), its launches exact (the lanes' fused
+   fits, one bank fused fit with per-slot constants for the refit, one
+   features launch with per-row constants per heterogeneous microbatch),
+   rmse < 0.1, two re-optimized tenants served as their own sessions
+   (1e-5), the per-slot bank launch and the per-row features launch against
+   their plain versions and bitwise against the shared launches, both
+   timed beside the shared ones; (b) ``GPBank.downdate`` of every tenant's
+   first 16 rows (G = 512, K = 16): every ``ok``, the batched downdate
+   kernel against its plain version and the batched refactor, its inputs
+   untouched, timed (median of 20) beside its bound and pivot chain;
+   ``refit_window`` on the retained rows (one bank launch) against the
+   downdated bank on mixed-tenant queries, both against a float64 refit for
+   8 tenants; a mixed call whose bogus groups report ``ok=False`` and keep
+   their slots bitwise; (c) the JAX package's own downdate gate
+   (benchmarks/tenant_churn.py's shape) on both backends.
 
 Prints the features kernel's times by shape on a ``[features]`` line, one
 JSON line with every kernel's numbers (the features kernel's ``ms`` its
@@ -179,6 +198,16 @@ PAPER_FIT_EXPECTED = {
     "chol_update": {},
     "scaled_gram": {},
 }
+# phase 8, the re-optimizing fleet: FLEET's width and data, 2 rounds, a
+# re-optimization after round 1's ingest of the tenants with >= 12 new rows
+# (~57 of 512: Binomial(4,096, 1/512) >= 12), 3 steps and 1 restart (depth
+# cut from the JAX defaults 25 and 2, as phase 7 cut its steps)
+REOPT_FLEET = dict(FLEET, rounds=2, reopt_every=2, reopt_min_rows=12, reopt_steps=3,
+                   reopt_restarts=1)
+# the downdate at full width: every tenant forgets its first 16 rows
+FORGET = 16
+# benchmarks/tenant_churn.py:48-53, the JAX package's own downdate gate
+CHURN = dict(tenants=16, n_train=40, p=2, n=6, noise=0.1, forget=6)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1520,6 +1549,317 @@ def main() -> int:
     rows["phi_gram"]["launches"] = sum(counts["phi_gram"].values()) \
         + sum(ocounts["phi_gram"].values()) + sum(fcounts7["phi_gram"].values())
     print(f"[optimize] phase took {time.perf_counter() - opt_t0:.1f} s")
+
+    # -- 8. re-optimizing fleets, the downdate and refit_window -------------
+    phase8_t0 = time.perf_counter()
+    from repro_torch.kernels.hermite_phi import slot_tile
+
+    RF = REOPT_FLEET
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rout = serve_fleet(engine="sync", backend="pallas", device="cuda", **RF)
+    part_a_serve_s = time.perf_counter() - t0
+    rcounts8 = ops.launch_counts()
+    hbank = rout.pop("bank")
+    B, N, p, FM = RF["tenants"], RF["n_train"], RF["p"], rout["M"]
+    for h in rout["rounds"]:
+        print(f"[reopt fleet] round {h['round']}: rows_absorbed={h['rows_absorbed']} "
+              f"ingest_rounds={h['ingest_rounds']} ingest_s={h['ingest_s']:.4f} "
+              f"reopt_tenants={h['reopt_tenants']} reopt_s={h['reopt_s']:.4f} "
+              f"query_mean_s={h['query_mean_s']:.5f} queries_per_s={h['queries_per_s']:.1f} "
+              f"rmse={h['rmse']:.5f}")
+    stale_n = sum(h["reopt_tenants"] for h in rout["rounds"])
+    first = min(h["round"] for h in rout["rounds"] if h["reopt_tenants"])
+    blocks = -(-RF["queries_per_round"] // RF["microbatch"])
+    homo_ingest = sum(h["ingest_rounds"] for h in rout["rounds"] if h["round"] <= first)
+    het_ingest = sum(h["ingest_rounds"] for h in rout["rounds"] if h["round"] > first)
+    het_rounds = RF["rounds"] - first
+    # the fit; per ingest round a feature launch (per-row once heterogeneous)
+    # and a batched sweep; per microbatch a feature launch, per-row on the
+    # heterogeneous bank; per lane a fused fit a step and one for its final
+    # value; one bank fused fit with per-slot constants for the refit
+    reopt_expected = {
+        "phi_features": {k: v for k, v in (
+            ("", (RF["rounds"] - het_rounds) * blocks + homo_ingest),
+            ("slots", het_rounds * blocks + het_ingest)) if v},
+        "phi_gram": {"bank": 1, "bank_slots": 1,
+                     "moments": stale_n * RF["reopt_restarts"] * (RF["reopt_steps"] + 1)},
+        "diag_quad": {},
+        "chol_update": {"batched": homo_ingest + het_ingest},
+        "scaled_gram": {},
+    }
+    print(f"[reopt fleet] stale tenants re-optimized: {stale_n} of {B}; launches="
+          f"{json.dumps(rcounts8)}")
+    check(stale_n > 0 and hbank.hypers is not None,
+          "the re-optimizing fleet re-optimized no tenant, or its bank is not heterogeneous")
+    check(rcounts8 == reopt_expected,
+          f"re-optimizing fleet launch counts {rcounts8} != expected {reopt_expected}")
+    check(all(h["rmse"] < 0.1 and h["var_finite"] for h in rout["rounds"]),
+          "re-optimizing fleet: rmse >= 0.1 or non-finite variances")
+    h8 = hbank.hypers
+    moved = torch.nonzero((h8.eps != hbank.spec.eps).any(1) | (h8.noise != hbank.spec.noise))
+    opt_slots = [int(s) for s in moved[:, 0].tolist()]
+    check(len(opt_slots) == stale_n, f"{len(opt_slots)} slots hold learned hypers, "
+          f"{stale_n} were re-optimized")
+    for t in opt_slots[:2]:
+        m1, v1 = GP.from_state(hbank.state(t)).mean_var(Xq16)
+        m2, v2 = hbank.mean_var([t] * Xq16.shape[0], Xq16)
+        compare(f"re-optimized tenant {t}: bank vs its own session, mean", [m2], [m1],
+                rtol=0.0, atol=1e-5, why="tests/test_gp_bank.py:90 gate")
+        compare(f"re-optimized tenant {t}: bank vs its own session, variance", [v2], [v1],
+                rtol=0.0, atol=1e-5, why="tests/test_gp_bank.py:91 gate")
+    print(f"[reopt fleet] tenant {opt_slots[0]}: learned eps="
+          f"{[round(float(e), 5) for e in h8.eps[opt_slots[0]]]} "
+          f"noise={float(h8.noise[opt_slots[0]]):.5f}")
+
+    # the per-row features launch (TPU #2) on one 256-row mixed microbatch of
+    # the heterogeneous bank: bitwise its plain version, each row bitwise the
+    # plain version under its own slot's tile, bitwise the shared launch
+    # where every slot's constants are equal; timed beside the shared launch
+    hexp, hidx = get_expansion("hermite"), hbank.stack.idx
+    htile = hexp.slot_tile_args(hbank.spec, hidx, h8.eps, h8.rho)
+    ftile8 = hexp.tile_args(hbank.spec, hidx)
+    q_mix = torch.tensor(np.random.default_rng(12).choice(opt_slots + list(range(min(64, B))), 256),
+                         dtype=torch.int32, device=dev)
+    ph_k = ops.expansion_phi(Xq16, htile, q_mix)
+    ph_p = plain(lambda: kphi.phi_features_plain(Xq16, htile, q_mix))
+    rows_ok = all(bool(torch.equal(ph_k[q_mix == s], kphi.phi_features_plain(
+        Xq16[q_mix == s], slot_tile(htile, s)))) for s in torch.unique(q_mix).tolist())
+    same8 = dataclasses.replace(ftile8, consts=ftile8.consts.expand(B, p, 3).contiguous())
+    shared_ok = bool(torch.equal(ops.expansion_phi(Xq16, same8, q_mix),
+                                 ops.expansion_phi(Xq16, ftile8)))
+    print(f"[check] per-row features (256x{FM}): bitwise plain {bool(torch.equal(ph_k, ph_p))}, "
+          f"each row bitwise its slot's tile {rows_ok}, equal constants bitwise the shared "
+          f"launch {shared_ok}")
+    check(bool(torch.equal(ph_k, ph_p)) and rows_ok and shared_ok,
+          "the per-row features launch is not bitwise its plain version or the shared launch")
+    out8 = torch.empty((256, FM), device=dev)
+    feat8 = dict(slots_kernel_ms=graph_ms(lambda: kphi.phi_features_launch(Xq16, htile, out8,
+                                                                           q_mix)),
+                 shared_kernel_ms=graph_ms(lambda: kphi.phi_features_launch(Xq16, ftile8, out8)),
+                 slots_call_ms=cuda_ms(lambda: ops.expansion_phi(Xq16, htile, q_mix)),
+                 shared_call_ms=cuda_ms(lambda: ops.expansion_phi(Xq16, ftile8)),
+                 slots_plain_ms=cuda_ms(lambda: kphi.phi_features_plain(Xq16, htile, q_mix),
+                                        reps=5, warmup=1))
+    print(f"[kernel] phi_features per-row (256x{FM}): {json.dumps(feat8)}")
+    del out8, ph_k, ph_p
+
+    # the bank fused fit (TPU #4) with per-slot constants on 8 re-optimized
+    # tenants' pool data: each slot bitwise the shared launch under its own
+    # map, every map equal bitwise the shared launch, against its plain
+    # version at the fit gate; timed beside the shared launch
+    sel = opt_slots[:8]
+    _, _, _, pools8 = fleet_dataset(
+        np.random.default_rng(RF["seed"]), tenants=B, n_train=N, p=p, rounds=RF["rounds"],
+        observations_per_round=RF["observations_per_round"], noise=RF["noise"],
+        seed=RF["seed"])
+    Xs8 = torch.from_numpy(np.stack([pools8[t][0] for t in sel])).to(dev)
+    ys8 = torch.from_numpy(np.stack([pools8[t][1] for t in sel])).to(dev)
+    ms8 = torch.ones(ys8.shape, device=dev)
+    stile = hexp.slot_tile_args(hbank.spec, hidx, h8.eps[sel], h8.rho[sel])
+    G8, b8 = ops.bank_fused_fit_moments(Xs8, ys8, stile, ms8)
+    bit8 = all(bool(torch.equal(G8[i], ops.bank_fused_fit_moments(
+        Xs8, ys8, slot_tile(stile, i), ms8)[0][i])) for i in (0, len(sel) - 1))
+    same_s = dataclasses.replace(ftile8, consts=ftile8.consts.expand(len(sel), p, 3).contiguous())
+    eq8 = all(bool(torch.equal(a, c)) for a, c in zip(
+        ops.bank_fused_fit_moments(Xs8, ys8, same_s, ms8),
+        ops.bank_fused_fit_moments(Xs8, ys8, ftile8, ms8)))
+    sG8 = torch.empty_like(G8)
+    sb8 = torch.empty_like(b8)
+    for i in range(len(sel)):
+        sG8[i], sb8[i] = gram_scales(Xs8[i], ys8[i], ms8[i], slot_tile(stile, i), None, 1.0,
+                                     False)
+    err8 = compare(f"bank phi_gram per-slot constants ({len(sel)} x {Xs8.shape[1]} x {FM})",
+                   [G8, b8], plain(lambda: kgram.bank_phi_gram_plain(Xs8, ys8, ms8, stile)),
+                   scales=[sG8, sb8], **tol_fit)
+    print(f"[check] bank phi_gram per-slot: each slot bitwise the shared launch under its "
+          f"map {bit8}; equal maps bitwise the shared launch {eq8}")
+    check(bit8 and eq8, "the per-slot bank launch is not bitwise the shared launch")
+    rows["phi_gram.bank"]["max_abs_err"] = max(rows["phi_gram.bank"]["max_abs_err"], err8)
+    bank8 = dict(slots_ms=cuda_ms(lambda: ops.bank_fused_fit_moments(Xs8, ys8, stile, ms8)),
+                 shared_ms=cuda_ms(lambda: ops.bank_fused_fit_moments(Xs8, ys8, ftile8, ms8)),
+                 slots=len(sel), rows=int(Xs8.shape[1]))
+    print(f"[kernel] phi_gram.bank per-slot constants: {json.dumps(bank8)}")
+    del G8, b8, sG8, sb8, Xs8, ys8, ms8, pools8
+    het_q = [h["query_mean_s"] for h in rout["rounds"] if h["round"] >= first]
+    print(f"[reopt fleet] reopt_s={[h['reopt_s'] for h in rout['rounds']]} heterogeneous "
+          f"query_mean_s={het_q} beside phase 5's homogeneous "
+          f"{[round(h['query_mean_s'], 5) for h in fout['rounds']]}; serve_fleet took "
+          f"{part_a_serve_s:.1f} s; part (a) {time.perf_counter() - phase8_t0:.1f} s")
+    del hbank, htile, stile, same8, same_s
+    torch.cuda.empty_cache()
+
+    # (b) the downdate at full width: a homogeneous bank of the fleet's data,
+    # every tenant forgets its first 16 rows
+    part_b_t0 = time.perf_counter()
+    _, Xb_np, yb_np, _ = fleet_dataset(
+        np.random.default_rng(F["seed"]), tenants=B, n_train=N, p=p, rounds=F["rounds"],
+        observations_per_round=F["observations_per_round"], noise=F["noise"], seed=F["seed"])
+    Xd, yd = torch.from_numpy(Xb_np).to(dev), torch.from_numpy(yb_np).to(dev)
+    del Xb_np, yb_np
+    dbank = GPBank.fit(Xd, yd, fspec)
+    Kf = FORGET
+    ids = list(range(B))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    down, ok8 = dbank.downdate(ids, Xd[:, :Kf], yd[:, :Kf])
+    torch.cuda.synchronize()
+    downdate_s = time.perf_counter() - t0
+    dcounts = ops.launch_counts()
+    print(f"[downdate] GPBank.downdate G={B} K={Kf} M={FM}: {downdate_s:.4f} s, all ok "
+          f"{bool(ok8.all())}, launches={json.dumps(dcounts)}")
+    check(bool(ok8.all()), f"the full-width downdate lost a pivot in {int((~ok8).sum())} groups")
+    check(dcounts["chol_update"] == {"downdate": 1} and dcounts["phi_features"] == {"": 1},
+          f"GPBank.downdate launches {dcounts} != one downdate sweep and one features launch")
+    Lg = dbank.stack.chol
+    Wg = (ops.expansion_phi(Xd[:, :Kf].reshape(-1, p), ftile).reshape(B, Kf, FM)
+          * dbank.stack.sqrtlam[:, None, :] / fspec.noise).contiguous()
+    Lg0, Wg0 = Lg.clone(), Wg.clone()
+    Ld, okd = ops.chol_downdate(Lg, Wg)
+    check(torch.equal(Lg, Lg0) and torch.equal(Wg, Wg0), "the downdate sweep wrote its inputs")
+    check(bool(okd.all()) and torch.equal(Ld, down.stack.chol)
+          and bool(torch.all(torch.triu(Ld, 1) == 0)),
+          "the downdate sweep is not the bank's factor, or lost a pivot")
+    del Lg0, Wg0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Lp, okp = plain(lambda: kchol.chol_downdate_plain(Lg, Wg))
+    torch.cuda.synchronize()
+    down_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(okp.all()), "the plain downdate lost a pivot")
+    derr = compare(f"batched chol_downdate vs plain sweep (G={B}, M={FM}, K={Kf})",
+                   [Ld], [Lp], **tol_chol)
+    compare(f"batched chol_downdate vs chol(LL^T - W^TW) (G={B}, M={FM}, K={Kf})",
+            [Ld], [torch.linalg.cholesky(Lg @ Lg.mT - Wg.mT @ Wg)], **tol_chol)
+    del Lp, Ld
+    dd_bytes = B * 4 * (2 * FM * (FM + 1) / 2 + Kf * FM)
+    dd_flops = B * 6 * Kf * FM * (FM - 1) / 2
+    rows["chol_downdate.batched"] = dict(
+        source="src/repro_torch/kernels/csrc/chol_update.cu",
+        replaces="src/repro/bank/bank.py:138", max_abs_err=derr,
+        launches=dcounts["chol_update"]["downdate"],
+        ms=cuda_ms(lambda: ops.chol_downdate(Lg, Wg), reps=20, warmup=2),
+        plain_ms=down_plain_ms,
+        library_ms=cuda_ms(lambda: torch.linalg.cholesky(Lg @ Lg.mT - Wg.mT @ Wg),
+                           reps=20, warmup=2),
+        bound=bound(dd_flops, dd_bytes))
+    print(f"[plan chol_downdate.batched] G={B} M={FM} K={Kf}: "
+          f"{json.dumps(kchol.chol_downdate_batch_plan(FM, Kf))}; "
+          f"{regs_of('chol_downdate_batch_kernel')}")
+    print(f"[kernel] chol_downdate.batched chain bound (one step {step_us:.4f} us): "
+          f"(K + M - 1) steps {(Kf + FM - 1) * step_us / 1e3:.4f} ms; {-(-FM // 32)} panels "
+          f"x (K + 31) steps {-(-FM // 32) * (Kf + 31) * step_us / 1e3:.4f} ms")
+    del Wg
+
+    # refit_window on the retained rows (one bank launch, each slot under
+    # its own map) against the downdated bank on mixed-tenant queries
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rbank = dbank.refit_window(ids, Xd[:, Kf:], yd[:, Kf:])
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    fcounts8 = ops.launch_counts()
+    check(fcounts8["phi_gram"] == {"bank_slots": 1} and not fcounts8["phi_features"],
+          f"refit_window launches {fcounts8} != one bank launch")
+    q8 = [int(t) for t in np.random.default_rng(13).integers(0, B, 256)]
+    mu_d, var_d = down.mean_var(q8, Xq16)
+    mu_r, var_r = rbank.mean_var(q8, Xq16)
+    dist = dict(mean=float((mu_d - mu_r).abs().max()), var=float((var_d - var_r).abs().max()))
+    # float64 refits of 8 tenants' retained rows: where each float32 result sits
+    idx8 = fagp._idx_tensor(fspec)
+    sp64 = dataclasses.replace(fspec, eps=fspec.eps.double(), rho=fspec.rho.double(),
+                               noise=fspec.noise.double())
+    ll64 = get_expansion("hermite").log_eigenvalues(idx8, sp64)
+    d64 = torch.exp(0.5 * ll64)
+    far = {"downdate": dict(mean=0.0, var=0.0), "refit_window": dict(mean=0.0, var=0.0)}
+    for t in range(8):
+        Ph = get_expansion("hermite").features(Xd[t, Kf:].double(), idx8, sp64)
+        B64 = torch.eye(FM, dtype=torch.float64, device=dev) \
+            + d64[:, None] * (Ph.T @ Ph) * d64[None, :] / sp64.noise**2
+        L64 = torch.linalg.cholesky(B64)
+        u64 = d64 * torch.cholesky_solve((d64 * (Ph.T @ yd[t, Kf:].double()))[:, None],
+                                         L64)[:, 0] / sp64.noise**2
+        Pq = get_expansion("hermite").features(Xq16.double(), idx8, sp64)
+        V = torch.linalg.solve_triangular(L64, (Pq * d64).T, upper=False)
+        m64, v64 = Pq @ u64, (V * V).sum(0)
+        for name, bk in (("downdate", down), ("refit_window", rbank)):
+            m32, v32 = bk.mean_var([t] * 256, Xq16)
+            far[name]["mean"] = max(far[name]["mean"], float((m32.double() - m64).abs().max()))
+            far[name]["var"] = max(far[name]["var"], float((v32.double() - v64).abs().max()))
+    print(f"[downdate] downdate vs refit_window at full width (G={B}, N={N}, K={Kf}, M={FM}, "
+          f"256 mixed queries): {json.dumps(dist)} (gate 1e-5, "
+          f"{'holds' if max(dist.values()) <= 1e-5 else 'does not hold: ROADMAP.md section C, C7'});"
+          f" from a float64 refit of the retained rows (8 tenants): {json.dumps(far)}; "
+          f"downdate_s={downdate_s:.4f} refit_s={refit_s:.4f}")
+    del rbank, mu_d, var_d, mu_r, var_r
+
+    # a mixed call: odd groups downdate 16 copies of a row they never
+    # absorbed, from outside the data's box (a pivot is lost: ok False,
+    # their slots bitwise unchanged; inside the box, at 10^4 rows, the
+    # posterior variance is so small that 16 copies leave B positive
+    # definite), even groups downdate their own first rows (the bits of
+    # the all-tenant call)
+    mix = list(range(min(32, B)))
+    Xm, ym = Xd[:len(mix), :Kf].clone(), yd[:len(mix), :Kf].clone()
+    Xm[1::2], ym[1::2] = 1.5, 50.0
+    mbank, okm = dbank.downdate(mix, Xm, ym)
+    want_ok = [g % 2 == 0 for g in mix]
+    kept = all(torch.equal(getattr(mbank.stack, f)[g], getattr(dbank.stack, f)[g])
+               for f in ("chol", "u", "b") for g in mix[1::2])
+    good = all(torch.equal(mbank.stack.chol[g], down.stack.chol[g]) for g in mix[0::2])
+    print(f"[check] mixed downdate (16 good, 16 bogus groups): ok as expected "
+          f"{okm.tolist() == want_ok}, bogus slots bitwise unchanged {kept}, good factors "
+          f"bitwise the all-tenant call's {good}")
+    check(okm.tolist() == want_ok and kept and good, "the mixed downdate broke its contract")
+    del down, mbank, dbank, Xd, yd, Lg
+    torch.cuda.empty_cache()
+    print(f"[downdate] part (b) took {time.perf_counter() - part_b_t0:.1f} s")
+
+    # (c) the JAX package's own gate (benchmarks/tenant_churn.py:48-53, its
+    # queries: 256 over the first 8 tenants from seed 11): the downdate
+    # equals refit_window within 1e-5, on both backends
+    C_ = CHURN
+    Xc = np.zeros((C_["tenants"], C_["n_train"], C_["p"]), np.float32)
+    yc = np.zeros((C_["tenants"], C_["n_train"]), np.float32)
+    for s_ in range(C_["tenants"]):
+        Xs_, ys_, _, _ = make_gp_dataset(C_["n_train"], C_["p"], seed=s_, device="cpu")
+        Xc[s_], yc[s_] = Xs_.numpy(), ys_.numpy()
+    crng = np.random.default_rng(11)
+    cb = []
+    for _ in range(4):
+        cb.append(([int(i) for i in crng.integers(0, 8, 64)],
+                   torch.from_numpy(crng.uniform(-1, 1, size=(64, C_["p"])).astype(np.float32))
+                   .to(dev)))
+    for be in ("pallas", "jnp"):
+        cspec = GPSpec.create(C_["n"], eps=np.full((C_["p"],), 0.8, np.float32), rho=2.0,
+                              noise=C_["noise"], backend=be, device=dev)
+        cbank = GPBank.fit(torch.from_numpy(Xc).to(dev), torch.from_numpy(yc).to(dev), cspec)
+        k_ = C_["forget"]
+        cdown, cok = cbank.downdate(list(range(C_["tenants"])), Xc[:, :k_], yc[:, :k_])
+        crefit = cbank.refit_window(list(range(C_["tenants"])), Xc[:, k_:], yc[:, k_:])
+        check(bool(cok.all()), f"the churn-shape downdate lost a pivot ({be})")
+        got = [cdown.mean_var(q, X_) for q, X_ in cb]
+        want = [crefit.mean_var(q, X_) for q, X_ in cb]
+        compare(f"downdate vs refit_window, churn shape ({be}) mean",
+                [g[0] for g in got], [w[0] for w in want], rtol=0.0, atol=1e-5,
+                why="benchmarks/tenant_churn.py:192 gate")
+        compare(f"downdate vs refit_window, churn shape ({be}) variance",
+                [g[1] for g in got], [w[1] for w in want], rtol=0.0, atol=1e-5,
+                why="benchmarks/tenant_churn.py:193 gate")
+    r = rows["chol_downdate.batched"]
+    print(f"[kernel] chol_downdate.batched: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+          f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} ({r['bound'][1]}) "
+          f"max_abs_err={r['max_abs_err']:.3e}")
+    print("[reopt] " + json.dumps({
+        "stale_tenants": stale_n, "reopt_s": [h["reopt_s"] for h in rout["rounds"]],
+        "hetero_query_mean_s": het_q,
+        "homo_query_mean_s": [h["query_mean_s"] for h in fout["rounds"]],
+        "features_per_row": feat8, "bank_per_slot": bank8, "downdate_s": downdate_s,
+        "refit_s": refit_s, "downdate_vs_refit": dist, "from_float64": far}))
+    print(f"[reopt] phase took {time.perf_counter() - phase8_t0:.1f} s")
 
     # -- results --------------------------------------------------------------
     kernels = []

@@ -1,13 +1,14 @@
 """GPBank: a fleet of independent GP sessions served as one batched model.
 
-Counterpart of ``repro/bank/bank.py`` for homogeneous banks (every tenant
-shares the spec's hyperparameters).  A bank keeps ``capacity`` fitted
+Counterpart of ``repro/bank/bank.py``.  A bank keeps ``capacity`` fitted
 sessions on the device as ONE stacked :class:`~repro_torch.core.fagp.FAGPState`:
 
 * leading bank axis on ``chol`` (C, M, M), ``u`` (C, M), ``b`` (C, M),
   ``lam``/``sqrtlam`` (C, M): the per-tenant factorizations;
 * one shared :class:`~repro_torch.core.fagp.GPSpec` (index set, Mercer
-  depth, backend, hyperparameters), so every tenant shares one feature map.
+  depth, backend, hyperparameters), so every tenant shares one feature map;
+  or, in a *heterogeneous* bank (after :meth:`GPBank.optimize`), a per-slot
+  (eps, rho, noise) overlay (``GPBank.hypers``) over the shared structure.
 
 Some slots are *active* (hold a tenant); the rest hold the prior state
 (chol = I, u = b = 0: zero mean, prior variance).
@@ -20,19 +21,27 @@ Entry points, each a few batched calls over the whole fleet:
   row mask on a fixed (B, N, p) stack.
 * :meth:`GPBank.mean_var` a mixed-tenant query batch: row q is answered by
   tenant ``tenant_ids[q]``'s posterior, gathered from the stack against the
-  per-slot B^{-1} cache.
+  per-slot B^{-1} cache; a heterogeneous bank builds each row's features
+  under its slot's hyperparameters (one launch of the features kernel with
+  per-row constants on the ``pallas`` backend).
 * :meth:`GPBank.update`   batched rank-k ingest: the gathered groups' rank-k
   Cholesky update (one launch of the batched sweep kernel when K * 8 <= M
   on the ``pallas`` backend), scattered into a new stack.
+* :meth:`GPBank.downdate` batched rank-k forgetting: hyperbolic rank-1
+  downdate sweeps (one launch of the batched downdate kernel on the
+  ``pallas`` backend); a group that loses a pivot keeps its slot
+  bit-exactly and reports ``ok=False``.
+* :meth:`GPBank.refit_window` re-factorizes tenants from retained data,
+  each under its own slot's hyperparameters (one launch of the bank kernel
+  with per-slot constants): the downdate's fallback and its reference.
+* :meth:`GPBank.optimize` fleet-scale hyperparameter learning on the lane
+  engine, then that refit: the bank becomes heterogeneous.
 * :meth:`GPBank.insert` / :meth:`GPBank.evict` membership churn.
 
 A bank is immutable: every mutating method returns a new bank, and the old
 one serves exactly as before.  The port never writes a stack tensor in
 place: a mutation clones the leaves it changes (the JAX package's
-``.at[].set`` does the same).  ``downdate``, ``refit_window``, ``optimize``
-and per-slot hyperparameters (``hypers``) are not ported yet and raise
-:class:`~repro_torch.core.approximation.UnsupportedError` naming their
-ROADMAP items.
+``.at[].set`` does the same).
 """
 from __future__ import annotations
 
@@ -46,19 +55,17 @@ from ..core import fagp
 from ..core.expansions import get_expansion
 from ..core.fagp import FAGPState, GPSpec, _f32
 from ..core.gp import GP, _not_ported
+from ..core.mercer import SEKernelParams
 
 __all__ = ["GPBank"]
 
 _LEAVES = ("lam", "sqrtlam", "chol", "u", "b")
-_DOWNDATE = "bank downdate / refit_window (ROADMAP A2)"
-_HETERO = ("heterogeneous bank: GPBank.optimize and per-slot hyperparameters "
-           "(ROADMAP A3, on A1's NLML gradient)")
 _OBS = "pipelined fleet serving with obs and the tiered bank (ROADMAP A4)"
 
 
 def _bank_mean_weights(chol, sqrtlam, b, sig2):
     """u_s = D_s B_s^{-1} D_s b_s / sig2 for every slot: chol (C, M, M),
-    sqrtlam and b (C, M) -> (C, M)."""
+    sqrtlam and b (C, M), sig2 shared or (C, 1) -> (C, M)."""
     rhs = (sqrtlam * b)[..., None]
     return sqrtlam * torch.cholesky_solve(rhs, chol)[..., 0] / sig2
 
@@ -83,6 +90,14 @@ def _scatter(stack: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor):
     return out
 
 
+def _group_noise(noise: torch.Tensor):
+    """(noise for W (G, K, M), sig2 for the mean weights (G, M)): the bank's
+    one noise, or one per group (G,) in a heterogeneous bank."""
+    if noise.ndim == 0:
+        return noise, noise**2
+    return noise[:, None, None], (noise**2)[:, None]
+
+
 def _bank_update_scatter(chol_s, u_s, b_s, sqrtlam_s, noise, slots, Phi_g,
                          y_g, mask_g, rank_update):
     """Gather the slots' states, apply the rank-k update per group, scatter
@@ -91,20 +106,68 @@ def _bank_update_scatter(chol_s, u_s, b_s, sqrtlam_s, noise, slots, Phi_g,
     group (the router's group-axis padding) leaves its slot bit-identical:
     the identity sweep is exact only up to sqrt rounding, and an untouched
     tenant must not drift.  The sweep runs on the gathered copy, never on
-    the stack's storage."""
+    the stack's storage.  ``noise`` is the bank's or one per group (G,)."""
     Phi_g = Phi_g * mask_g[..., None]
     y_g = y_g * mask_g
     chol_g = chol_s[slots]
     d = sqrtlam_s[slots]
+    nz, sig2 = _group_noise(noise)
     # B_new = B + sum_k v_k v_k^T,  v_k = D phi_k / sigma
-    W = Phi_g * d[:, None, :] / noise
+    W = Phi_g * d[:, None, :] / nz
     ch = fagp._rank_k_chol(chol_g, W, rank_update)
     bb = b_s[slots] + (Phi_g.mT @ y_g[..., None])[..., 0]
-    uu = _bank_mean_weights(ch, d, bb, noise**2)
+    uu = _bank_mean_weights(ch, d, bb, sig2)
     real = torch.amax(mask_g, dim=1) > 0
     live = slots[real]
     return (_scatter(chol_s, live, ch[real]), _scatter(u_s, live, uu[real]),
             _scatter(b_s, live, bb[real]))
+
+
+def _bank_downdate_scatter(chol_s, u_s, b_s, sqrtlam_s, noise, slots, Phi_g,
+                           y_g, mask_g, rank_downdate):
+    """The downdate mirror of ``_bank_update_scatter``: gather the slots'
+    states, remove the masked rank-k rows per group, B' = B - sum_k v_k v_k^T
+    (v_k = D phi_k / sigma), by hyperbolic sweeps (never by subtracting and
+    refactoring, which NaNs silently where positive definiteness is lost),
+    and scatter into new stack tensors.  A group that lost a pivot, and a
+    fully-masked padding group, leaves its slot bit-identical: the scatter
+    discards its output, so the refit fallback starts from a consistent
+    state.  Returns the new leaves and a (G,) ``ok`` flag per group on the
+    device (a padding group reports ok: nothing to remove)."""
+    Phi_g = Phi_g * mask_g[..., None]
+    y_g = y_g * mask_g
+    chol_g = chol_s[slots]
+    d = sqrtlam_s[slots]
+    nz, sig2 = _group_noise(noise)
+    W = Phi_g * d[:, None, :] / nz
+    ch, ok = rank_downdate(chol_g, W)
+    bb = b_s[slots] - (Phi_g.mT @ y_g[..., None])[..., 0]
+    uu = _bank_mean_weights(ch, d, bb, sig2)
+    real = torch.amax(mask_g, dim=1) > 0
+    good = ok & real
+    live = slots[good]
+    return (_scatter(chol_s, live, ch[good]), _scatter(u_s, live, uu[good]),
+            _scatter(b_s, live, bb[good]), ok | ~real)
+
+
+def _bank_hetero_refit(Xb, yb, maskb, eps_b, rho_b, noise_b, spec, idx):
+    """Batched refit of B tenants, each under ITS OWN hyperparameters
+    (eps_b, rho_b (B, p), noise_b (B,)): the backend's ``bank_moments`` with
+    per-slot maps (one launch of the bank kernel on the ``pallas`` backend,
+    no N x M Phi), then the batched scaled solve, each slot with its own
+    eigenvalue row and noise.  Returns stacked (lam, sqrtlam, chol, u, b)."""
+    backend = fagp.get_backend(spec.backend)
+    B = Xb.shape[0]
+    G, b = backend.bank_moments(Xb.contiguous(), yb.contiguous(), spec, idx,
+                                spec.block_rows, maskb.contiguous(), hypers=(eps_b, rho_b))
+    loglam = get_expansion(spec.expansion).log_eigenvalues(
+        idx, spec.replace(eps=eps_b, rho=rho_b)).expand(B, -1).contiguous()
+    sig2 = noise_b**2
+    Bm, sqrtlam = fagp._assemble_scaled_system(G, loglam, sig2[:, None, None])
+    del G
+    chol = torch.linalg.cholesky(Bm)
+    u = _bank_mean_weights(chol, sqrtlam, b, sig2[:, None])
+    return torch.exp(loglam), sqrtlam, chol, u, b
 
 
 def _write_slot(stack: FAGPState, slot: int, values: dict) -> dict:
@@ -137,6 +200,14 @@ def _bank_spec(spec: GPSpec) -> GPSpec:
     return spec.replace(store_train=False) if spec.store_train else spec
 
 
+def _check_single_task(state: FAGPState, who: str) -> None:
+    if state.u.ndim != 1:
+        raise ValueError(
+            f"{who}: multi-output states (T={state.n_tasks}) cannot join a "
+            f"bank; banks batch over tenants, one task each"
+        )
+
+
 def _check_bankable(state: FAGPState, spec: GPSpec, who: str) -> None:
     """A state can join a homogeneous bank iff it was factorized under the
     bank's shared spec (structure AND hyperparameters, including any RFF
@@ -150,11 +221,30 @@ def _check_bankable(state: FAGPState, spec: GPSpec, who: str) -> None:
             f"scaling across all tenants — refit the tenant under the "
             f"bank spec"
         ) from None
-    if state.u.ndim != 1:
+    _check_single_task(state, who)
+
+
+def _check_bankable_hetero(state: FAGPState, spec: GPSpec, who: str) -> None:
+    """A heterogeneous bank admits any tenant sharing the bank's expansion
+    STRUCTURE: eps/rho/noise may differ per slot, but the expansion family,
+    truncation and any RFF spectral draws stay bank-wide (they define the
+    shared index table and, for RFF, the shared base frequencies)."""
+    for f in fagp._STRUCTURAL_FIELDS:
+        if getattr(state.spec, f) != getattr(spec, f):
+            raise ValueError(
+                f"{who}: spec/state mismatch: state was fitted with "
+                f"{state.spec.describe()} but the bank holds "
+                f"{spec.describe()}; even a heterogeneous bank shares one "
+                f"expansion structure — refit the tenant"
+            )
+    if not fagp._leaf_equal(state.spec.omega, spec.omega):
         raise ValueError(
-            f"{who}: multi-output states (T={state.n_tasks}) cannot join a "
-            f"bank; banks batch over tenants, one task each"
+            f"{who}: omega differs from the bank's spectral draws; the "
+            f"RFF base frequencies are bank structure even in a "
+            f"heterogeneous bank — refit the tenant under the bank's draws"
         )
+    fagp._check_spec_regenerates_idx(state, state.spec)
+    _check_single_task(state, who)
 
 
 def _as_mask(mask, shape, dev, who: str) -> torch.Tensor:
@@ -169,6 +259,27 @@ def _as_mask(mask, shape, dev, who: str) -> torch.Tensor:
     return mask
 
 
+def _check_batch(who: str, X, y, ids, what: str, names=("Xk", "yk", "k")):
+    """X (G, k, p) and y (G, k), one distinct tenant id per group."""
+    x, yn, k = names
+    if X.ndim != 3 or tuple(y.shape) != tuple(X.shape[:2]):
+        raise ValueError(
+            f"GPBank.{who} wants {x} (G, {k}, p) and {yn} (G, {k}); got "
+            f"{tuple(X.shape)} and {tuple(y.shape)}"
+        )
+    if len(set(ids)) != len(ids):
+        raise ValueError(
+            f"duplicate tenant in one {what} batch ({ids!r}): the "
+            f"scattered writes would collide — split into rounds"
+            + (" (BankRouter.ingest does this)" if what == "update" else "")
+        )
+    if len(ids) != X.shape[0]:
+        raise ValueError(
+            f"one tenant id per {what} group: got {len(ids)} ids for "
+            f"{X.shape[0]} groups"
+        )
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class GPBank:
     """A fixed-capacity bank of independent GP sessions (see module doc).
@@ -180,17 +291,36 @@ class GPBank:
             idx and spec.
     active: (capacity,) host-side bool mask of occupied slots.
     slots:  tenant id -> slot index (insertion order preserved).
-    hypers: per-slot hyperparameters are not ported (must be None).
+    hypers: None for a homogeneous bank (every tenant under the spec's
+            eps/rho/noise), or per-slot
+            :class:`~repro_torch.core.mercer.SEKernelParams` (eps and rho
+            (C, p), noise (C,)) once :meth:`optimize` has learned
+            per-tenant values; serving then builds each query row's
+            features under its own slot's hyperparameters.
     """
 
     stack: FAGPState
     active: np.ndarray
     slots: Mapping[Hashable, int]
-    hypers: Any = None
+    hypers: Optional[SEKernelParams] = None
 
     def __post_init__(self):
-        if self.hypers is not None:
-            _not_ported("GPBank(hypers=...)", _HETERO, self.stack.spec)
+        h = self.hypers
+        if h is None:
+            return
+        if not isinstance(h, SEKernelParams):
+            raise TypeError(
+                f"GPBank.hypers must be None or a SEKernelParams of per-slot "
+                f"eps and rho (C, p) and noise (C,), got {type(h).__name__}")
+        C, p = self.capacity, self.stack.spec.p
+        for f, want in (("eps", (C, p)), ("rho", (C, p)), ("noise", (C,))):
+            leaf = getattr(h, f)
+            if tuple(leaf.shape) != want or leaf.dtype != torch.float32 \
+                    or leaf.device != self.stack.spec.device:
+                raise ValueError(
+                    f"GPBank.hypers.{f} must be float32 {want} on "
+                    f"{self.stack.spec.device}, got {leaf.dtype} {tuple(leaf.shape)} "
+                    f"on {leaf.device}")
 
     # -- constructors -------------------------------------------------------
 
@@ -324,22 +454,51 @@ class GPBank:
 
     def state(self, tenant: Hashable) -> FAGPState:
         """The tenant's session, unstacked: a normal single-model FAGPState
-        usable with every ``fagp``/``GP`` entry point."""
+        usable with every ``fagp``/``GP`` entry point.  In a heterogeneous
+        bank its spec carries the tenant's OWN hyperparameters."""
         s = self.slot_of(tenant)
-        return dataclasses.replace(
+        st = dataclasses.replace(
             self.stack, **{f: getattr(self.stack, f)[s] for f in _LEAVES})
+        if self.hypers is not None:
+            h = self.hypers
+            st = dataclasses.replace(st, spec=self.spec.replace(
+                eps=h.eps[s], rho=h.rho[s], noise=h.noise[s]))
+        return st
 
     def states(self) -> dict:
         """All tenants' sessions, unstacked (tenant -> FAGPState)."""
         return {t: self.state(t) for t in self.slots}
 
+    def _stacked_hypers(self) -> SEKernelParams:
+        """Per-slot hyperparameters, materialized: the overlay when
+        heterogeneous, the shared spec values broadcast when not."""
+        if self.hypers is not None:
+            return self.hypers
+        sp, C = self.spec, self.capacity
+        return SEKernelParams(eps=sp.eps.expand(C, -1), rho=sp.rho.expand(C, -1),
+                              noise=sp.noise.expand(C))
+
     def _with(self, leaves: dict, **fields) -> "GPBank":
         """A new bank with the stack's ``leaves`` (and any bank ``fields``)
-        replaced; the expansion's feature table rides along."""
+        replaced; the expansion's feature table rides along, and so do the
+        per-slot feature maps while the hyperparameters stay."""
         stack = dataclasses.replace(self.stack, **leaves)
         if "tile" in self.stack.serving:
             stack.serving["tile"] = self.stack.serving["tile"]
-        return dataclasses.replace(self, stack=stack, **fields)
+        new = dataclasses.replace(self, stack=stack, **fields)
+        if "hypers" not in fields and "_slot_cache" in self.__dict__:
+            object.__setattr__(new, "_slot_cache", self.__dict__["_slot_cache"])
+        return new
+
+    @property
+    def _slot_maps(self) -> dict:
+        """The backend's per-slot feature maps of this bank's overlay
+        (``slot_features``' cache), kept while the hyperparameters stay."""
+        cache = self.__dict__.get("_slot_cache")
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_slot_cache", cache)
+        return cache
 
     @property
     def _binv(self) -> torch.Tensor:
@@ -373,6 +532,28 @@ class GPBank:
         return torch.tensor([self.slot_of(t) for t in tenant_ids],
                             dtype=torch.long, device=self.spec.device)
 
+    def _group_slots(self, slots, G: int, who: str) -> torch.Tensor:
+        slots = torch.as_tensor(slots, dtype=torch.long, device=self.spec.device)
+        if tuple(slots.shape) != (G,) or torch.unique(slots).numel() != G:
+            raise ValueError(f"{who} wants {G} distinct slots, got {slots.tolist()}")
+        return slots
+
+    def _group_features(self, slots: torch.Tensor, Xk: torch.Tensor):
+        """(Phi (G, k, M), noise) of the groups ``Xk`` (G, k, p) aimed at
+        ``slots``: under the bank's spec (noise the spec's), or in a
+        heterogeneous bank each group under its slot's hyperparameters
+        (noise (G,), one per group)."""
+        G, k, p = Xk.shape
+        backend = fagp._check_backend_support(self.spec)
+        flat = Xk.reshape(G * k, p)
+        if self.hypers is None:
+            Phi = backend.features(flat, self.spec, self.stack.idx, self.stack)
+            return Phi.reshape(G, k, -1), self.spec.noise
+        h = self.hypers
+        Phi = backend.slot_features(flat, self.spec, self.stack.idx, h.eps, h.rho,
+                                    slots.repeat_interleave(k), self.stack, self._slot_maps)
+        return Phi.reshape(G, k, -1), h.noise[slots]
+
     # -- the batched pipeline ----------------------------------------------
 
     def mean_var(self, tenant_ids, Xq):
@@ -388,8 +569,14 @@ class GPBank:
             )
         fagp._check_p(self.spec, Xq.shape[1])
         backend = fagp._check_backend_support(self.spec)
-        serve = fagp._gathered_bank_mean_var(backend.features)
-        return serve(self.stack, self._binv, slots, Xq)
+        if self.hypers is None:
+            serve = fagp._gathered_bank_mean_var(backend.features)
+            return serve(self.stack, self._binv, slots, Xq)
+        h = self.hypers
+        Phis = backend.slot_features(Xq, self.spec, self.stack.idx, h.eps, h.rho, slots,
+                                     self.stack, self._slot_maps)
+        return fagp._bank_gathered_posterior(self._binv, self.stack.u, self.stack.sqrtlam,
+                                             slots, Phis)
 
     def update(self, tenant_ids, Xk, yk, mask=None) -> "GPBank":
         """Batched rank-k ingest: group g absorbs (Xk[g], yk[g]) into tenant
@@ -399,23 +586,8 @@ class GPBank:
         rounds."""
         dev = self.spec.device
         Xk, yk = _f32(Xk, dev), _f32(yk, dev)
-        if Xk.ndim != 3 or tuple(yk.shape) != tuple(Xk.shape[:2]):
-            raise ValueError(
-                f"GPBank.update wants Xk (G, k, p) and yk (G, k); got "
-                f"{tuple(Xk.shape)} and {tuple(yk.shape)}"
-            )
         ids = list(tenant_ids)
-        if len(set(ids)) != len(ids):
-            raise ValueError(
-                f"duplicate tenant in one update batch ({ids!r}): the "
-                f"scattered writes would collide — split into rounds "
-                f"(BankRouter.ingest does this)"
-            )
-        if len(ids) != Xk.shape[0]:
-            raise ValueError(
-                f"one tenant id per update group: got {len(ids)} ids for "
-                f"{Xk.shape[0]} groups"
-            )
+        _check_batch("update", Xk, yk, ids, "update")
         return self._update_at_slots(self._slots_for(ids), Xk, yk, mask)
 
     def _update_at_slots(self, slots, Xk, yk, mask=None,
@@ -431,38 +603,100 @@ class GPBank:
         G, k, p = Xk.shape
         fagp._check_p(self.spec, p)
         mask = _as_mask(mask, (G, k), dev, "GPBank.update")
-        slots = torch.as_tensor(slots, dtype=torch.long, device=dev)
-        if tuple(slots.shape) != (G,) or torch.unique(slots).numel() != G:
-            raise ValueError(f"update wants {G} distinct slots, got {slots.tolist()}")
+        slots = self._group_slots(slots, G, "update")
         backend = fagp._check_backend_support(self.spec)
-        Phi_g = backend.features(Xk.reshape(G * k, p), self.spec, self.stack.idx,
-                                 self.stack).reshape(G, k, -1)
+        Phi_g, noise = self._group_features(slots, Xk)
         chol, u, b = _bank_update_scatter(
             self.stack.chol, self.stack.u, self.stack.b, self.stack.sqrtlam,
-            self.spec.noise, slots, Phi_g, yk, mask, backend.rank_update,
+            noise, slots, Phi_g, yk, mask, backend.rank_update,
         )
         new = self._with(dict(chol=chol, u=u, b=b))
         self._carry_binv_into(new, slots)
         return new
 
+    # -- sliding-window forgetting (rank-k downdate + refit fallback) -------
+
     def downdate(self, tenant_ids, Xk, yk, mask=None):
-        """Batched rank-k forget (not ported yet)."""
-        _not_ported("GPBank.downdate", _DOWNDATE, self.spec)
+        """Batched rank-k FORGET: group g removes previously absorbed rows
+        (Xk[g], yk[g]) from tenant ``tenant_ids[g]``'s factorization, by
+        hyperbolic rank-1 downdate sweeps (one launch of the batched
+        downdate kernel on the ``pallas`` backend).  ``mask`` (G, k) zeroes
+        padded rows.  Tenants must be distinct within one call.
+
+        Returns ``(bank, ok)`` where ``ok`` is a host (G,) bool array: a
+        group whose downdate lost positive definiteness kept its slot
+        bit-exactly UNCHANGED (ok False); re-factorize it from retained
+        data with :meth:`refit_window`."""
+        dev = self.spec.device
+        Xk, yk = _f32(Xk, dev), _f32(yk, dev)
+        ids = list(tenant_ids)
+        _check_batch("downdate", Xk, yk, ids, "downdate")
+        return self._downdate_at_slots(self._slots_for(ids), Xk, yk, mask)
+
+    def _downdate_at_slots(self, slots, Xk, yk, mask=None):
+        """Slot-addressed core of :meth:`downdate`, the fixed-shape entry:
+        fully-masked padding groups on distinct slots leave their slots
+        bit-identical and report ok."""
+        dev = self.spec.device
+        Xk, yk = _f32(Xk, dev), _f32(yk, dev)
+        G, k, p = Xk.shape
+        fagp._check_p(self.spec, p)
+        mask = _as_mask(mask, (G, k), dev, "GPBank.downdate")
+        slots = self._group_slots(slots, G, "downdate")
+        backend = fagp._check_backend_support(self.spec)
+        Phi_g, noise = self._group_features(slots, Xk)
+        chol, u, b, ok = _bank_downdate_scatter(
+            self.stack.chol, self.stack.u, self.stack.b, self.stack.sqrtlam,
+            noise, slots, Phi_g, yk, mask, backend.rank_downdate,
+        )
+        new = self._with(dict(chol=chol, u=u, b=b))
+        self._carry_binv_into(new, slots)
+        return new, ok.cpu().numpy()
 
     def refit_window(self, tenant_ids, Xw, yw, mask=None) -> "GPBank":
-        """Re-factorize tenants from retained window data (not ported yet)."""
-        _not_ported("GPBank.refit_window", _DOWNDATE, self.spec)
+        """Re-factorize ``tenant_ids`` from scratch on their RETAINED window
+        data (Xw (G, W, p), yw (G, W), mask (G, W) for ragged windows), each
+        under its own slot's hyperparameters, its eigenvalue row rewritten:
+        one launch of the bank kernel with per-slot maps on the ``pallas``
+        backend.  The fallback for downdates that lost positive
+        definiteness, and the reference the downdate is held against
+        (<= 1e-5)."""
+        dev = self.spec.device
+        Xw, yw = _f32(Xw, dev), _f32(yw, dev)
+        ids = list(tenant_ids)
+        _check_batch("refit_window", Xw, yw, ids, "refit", names=("Xw", "yw", "W"))
+        return self._refit_at_slots(self._slots_for(ids), Xw, yw, mask)
 
-    def optimize(self, Xb, yb, **kwargs) -> "GPBank":
-        """Fleet-scale hyperparameter learning (not ported yet)."""
-        _not_ported("GPBank.optimize", _HETERO, self.spec)
+    def _refit_at_slots(self, slots, Xw, yw, mask=None) -> "GPBank":
+        """Slot-addressed core of :meth:`refit_window` (the fixed-shape
+        entry; fully-masked padding groups leave their slots untouched)."""
+        dev = self.spec.device
+        Xw, yw = _f32(Xw, dev), _f32(yw, dev)
+        G, W, p = Xw.shape
+        fagp._check_p(self.spec, p)
+        mask = _as_mask(mask, (G, W), dev, "GPBank.refit_window")
+        slots = self._group_slots(slots, G, "refit_window")
+        fagp._check_backend_support(self.spec)
+        hyp = self._stacked_hypers()
+        spec_r = self.spec.replace(block_rows=min(self.spec.block_rows, max(1, W)))
+        fresh = dict(zip(("lam", "sqrtlam", "chol", "u", "b"), _bank_hetero_refit(
+            Xw, yw, mask, hyp.eps[slots], hyp.rho[slots], hyp.noise[slots], spec_r,
+            self.stack.idx)))
+        real = torch.amax(mask, dim=1) > 0
+        live = slots[real]
+        new = self._with({f: _scatter(getattr(self.stack, f), live, v[real])
+                          for f, v in fresh.items()})
+        self._carry_binv_into(new, slots)
+        return new
 
     # -- membership churn ---------------------------------------------------
 
     def insert(self, tenant: Hashable, source) -> "GPBank":
         """Add a tenant into the first free slot.  ``source`` is a fitted
-        ``GP`` / ``FAGPState`` sharing the bank's spec, or an ``(X, y)``
-        tuple fitted under it.  Raises when full or when the id is taken."""
+        ``GP`` / ``FAGPState`` sharing the bank's spec (in a heterogeneous
+        bank: its structure, under any hyperparameters), or an ``(X, y)``
+        tuple fitted under the bank's spec.  Raises when full or when the
+        id is taken."""
         if tenant in self.slots:
             raise ValueError(f"tenant {tenant!r} already in the bank")
         free = np.flatnonzero(~self.active)
@@ -476,26 +710,126 @@ class GPBank:
             st = fagp.fit(X, y, self.spec)
         else:
             st = source.state if isinstance(source, GP) else source
-        _check_bankable(st, self.spec, f"insert({tenant!r})")
+        if self.hypers is None:
+            _check_bankable(st, self.spec, f"insert({tenant!r})")
+        else:
+            _check_bankable_hetero(st, self.spec, f"insert({tenant!r})")
         slot = int(free[0])
-        leaves = _write_slot(self.stack, slot, {f: getattr(st, f) for f in _LEAVES})
+        leaves = _write_slot(self.stack, slot, {f: getattr(st, f).to(self.spec.device)
+                                                for f in _LEAVES})
+        fields = {}
+        if self.hypers is not None:
+            fields["hypers"] = self._overlay_with(slot, st.spec)
         active = self.active.copy()
         active[slot] = True
-        new = self._with(leaves, active=active, slots={**self.slots, tenant: slot})
+        new = self._with(leaves, active=active, slots={**self.slots, tenant: slot}, **fields)
         self._carry_binv_into(new, torch.tensor([slot], device=self.spec.device))
         return new
 
     def evict(self, tenant: Hashable) -> "GPBank":
-        """Remove a tenant; its slot is reset to the prior state and becomes
-        reusable by the next :meth:`insert`."""
+        """Remove a tenant; its slot is reset to the prior state (under the
+        bank spec's own hyperparameters) and becomes reusable by the next
+        :meth:`insert`."""
         slot = self.slot_of(tenant)
         loglam = get_expansion(self.spec.expansion).log_eigenvalues(
             self.stack.idx, self.spec)
         prior = _prior_leaves(loglam, 1)
         leaves = _write_slot(self.stack, slot, {f: prior[f][0] for f in _LEAVES})
+        fields = {}
+        if self.hypers is not None:
+            fields["hypers"] = self._overlay_with(slot, self.spec)
         active = self.active.copy()
         active[slot] = False
         slots = {t: s for t, s in self.slots.items() if t != tenant}
-        new = self._with(leaves, active=active, slots=slots)
+        new = self._with(leaves, active=active, slots=slots, **fields)
         self._carry_binv_into(new, torch.tensor([slot], device=self.spec.device))
+        return new
+
+    def _overlay_with(self, slot: int, sp: GPSpec) -> SEKernelParams:
+        """The overlay with ``slot`` set to ``sp``'s (eps, rho, noise)."""
+        index = torch.tensor([slot], device=self.spec.device)
+        h = self.hypers
+        return SEKernelParams(
+            **{f: _scatter(getattr(h, f), index, _f32(getattr(sp, f), self.spec.device)[None])
+               for f in ("eps", "rho", "noise")})
+
+    # -- fleet-scale hyperparameter optimization ----------------------------
+
+    def optimize(
+        self,
+        Xb,
+        yb,
+        *,
+        tenant_ids: Optional[Sequence[Hashable]] = None,
+        mask=None,
+        restarts: int = 4,
+        steps: int = 100,
+        lr: float = 5e-2,
+        tol: Optional[float] = None,
+        jitter: float = 0.3,
+        seed: int = 0,
+        callback=None,
+        metrics=None,
+        tracer=None,
+    ) -> "GPBank":
+        """Learn per-tenant hyperparameters for the fleet in one batched run,
+        then refit the winners back into the stacked state.
+
+        Runs the (B tenants x R restarts) lane engine
+        (``repro_torch.optim.gp_hyperopt.optimize_fleet``; each lane's
+        arithmetic is that of a single-tenant ``GP.optimize`` run), then
+        one refit of the B tenants, each under its own learned (eps, rho,
+        noise) (one launch of the bank kernel with per-slot maps on the
+        ``pallas`` backend).
+
+        Xb (B, N, p) / yb (B, N) carry each tenant's training data in the
+        row order of ``tenant_ids`` (default: every tenant in insertion
+        order); ``mask`` (B, N) expresses ragged per-tenant N.  ``restarts``
+        jittered inits per tenant, the best selected by final NLML;
+        ``tol`` freezes converged lanes.
+
+        Returns a new HETEROGENEOUS bank: the optimized slots hold
+        factorizations under their own learned hyperparameters, with their
+        own eigenvalue rows.  A bank that is already heterogeneous starts
+        from each tenant's current values.  ``metrics`` / ``tracer`` are
+        refused by ``optimize_fleet`` (the port has no obs yet).
+        """
+        from ..optim.gp_hyperopt import optimize_fleet
+
+        dev = self.spec.device
+        Xb, yb = _f32(Xb, dev), _f32(yb, dev)
+        if Xb.ndim != 3 or yb.ndim != 2 or tuple(yb.shape) != tuple(Xb.shape[:2]):
+            raise ValueError(
+                f"GPBank.optimize wants Xb (B, N, p) and yb (B, N); got "
+                f"{tuple(Xb.shape)} and {tuple(yb.shape)}"
+            )
+        B, N, p = Xb.shape
+        fagp._check_p(self.spec, p)
+        ids = list(self.tenants if tenant_ids is None else tenant_ids)
+        if len(set(ids)) != len(ids):
+            raise ValueError(f"duplicate tenant in optimize batch ({ids!r})")
+        if len(ids) != B:
+            raise ValueError(f"one tenant id per data row: got {len(ids)} ids for {B} rows")
+        slots = self._slots_for(ids)
+        if mask is not None:
+            mask = _as_mask(mask, (B, N), dev, "GPBank.optimize")
+        init = None
+        if self.hypers is not None:
+            init = {f: getattr(self.hypers, f)[slots] for f in ("eps", "rho", "noise")}
+        res = optimize_fleet(
+            Xb, yb, self.spec, mask=mask, restarts=restarts, steps=steps, lr=lr,
+            tol=tol, jitter=jitter, seed=seed, init=init, callback=callback,
+            metrics=metrics, tracer=tracer,
+        )
+        maskb = torch.ones((B, N), dtype=torch.float32, device=dev) if mask is None else mask
+        spec_r = self.spec.replace(block_rows=min(self.spec.block_rows, max(1, N)))
+        fresh = _bank_hetero_refit(Xb, yb, maskb, res.eps, res.rho, res.noise, spec_r,
+                                   self.stack.idx)
+        leaves = {f: _scatter(getattr(self.stack, f), slots, v)
+                  for f, v in zip(("lam", "sqrtlam", "chol", "u", "b"), fresh)}
+        hyp = self._stacked_hypers()
+        hypers = SEKernelParams(**{f: _scatter(getattr(hyp, f), slots, getattr(res, f))
+                                   for f in ("eps", "rho", "noise")})
+        new = self._with(leaves, hypers=hypers)
+        self._carry_binv_into(new, slots)
         return new

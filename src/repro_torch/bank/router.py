@@ -15,11 +15,16 @@ padded mixed-tenant batches for :class:`~repro_torch.bank.GPBank`:
   ``GPBank.update`` rounds of distinct tenants; a tenant with more than one
   chunk pending is spread across rounds.
 
-The router owns the bank reference: :meth:`ingest` replaces it with the
-updated (immutable) bank, and later :meth:`flush` calls serve the new
-posterior.  Telemetry (``metrics``/``tracer``), sharded banks, staleness
-tracking and re-optimization are not ported yet and raise
-:class:`~repro_torch.core.approximation.UnsupportedError`.
+* **Staleness**: :meth:`ingest` counts the rows each tenant absorbed since
+  its hyperparameters were last optimized; :meth:`stale_tenants` lists the
+  tenants past a threshold and :meth:`reoptimize` re-learns theirs with one
+  batched ``GPBank.optimize`` run, the bank becoming heterogeneous.
+
+The router owns the bank reference: :meth:`ingest` and :meth:`reoptimize`
+replace it with the new (immutable) bank, and later :meth:`flush` calls
+serve the new posterior.  Telemetry (``metrics``/``tracer``, with the
+JAX router's ``reopt`` span and counters) and sharded banks are not ported
+yet and raise :class:`~repro_torch.core.approximation.UnsupportedError`.
 """
 from __future__ import annotations
 
@@ -34,7 +39,6 @@ from .bank import GPBank
 __all__ = ["BankRouter"]
 
 _OBS = "pipelined fleet serving with obs (ROADMAP A4)"
-_REOPT = "re-optimizing fleets (ROADMAP A3, on A1's NLML gradient)"
 
 
 class BankRouter:
@@ -59,17 +63,41 @@ class BankRouter:
         self._pending: list = []
         self._observations: dict = {}
         self._next_ticket = 0
+        self._since_reopt: dict = {}   # tenant -> rows absorbed since its last optimize
 
     # -- not ported ----------------------------------------------------------
 
     def rebalance(self, **kwargs) -> int:
         _not_ported("BankRouter.rebalance", "multi-device (ROADMAP A5)", self.bank.spec)
 
+    # -- staleness + periodic re-optimization -------------------------------
+
     def stale_tenants(self, min_rows: int, *, retain=()) -> list:
-        _not_ported("BankRouter.stale_tenants", _REOPT, self.bank.spec)
+        """Tenants that absorbed at least ``min_rows`` observations since
+        their hyperparameters were last optimized (insertion order): the
+        candidates for the next :meth:`reoptimize`.
+
+        Counters of tenants no longer in the bank are dropped here, so an
+        id evicted and later re-inserted starts fresh, unless ``retain``
+        names it (a tiered bank's cold tenants keep their drift record;
+        they are still never returned as stale)."""
+        keep = set(retain)
+        self._since_reopt = {t: c for t, c in self._since_reopt.items()
+                             if t in self.bank.slots or t in keep}
+        return [t for t in self.bank.slots if self._since_reopt.get(t, 0) >= min_rows]
 
     def reoptimize(self, tenant_ids, Xb, yb, mask=None, **kw) -> None:
-        _not_ported("BankRouter.reoptimize", _REOPT, self.bank.spec)
+        """Re-learn the hyperparameters of ``tenant_ids`` (typically
+        :meth:`stale_tenants`) from their accumulated data, Xb (B, N, p),
+        yb (B, N), mask (B, N), and swap the optimized bank in: one batched
+        ``GPBank.optimize`` run (``**kw`` forwards restarts, steps, lr, tol,
+        seed), the staleness counters reset on success."""
+        ids = list(tenant_ids)
+        if not ids:
+            return
+        self.bank = self.bank.optimize(Xb, yb, tenant_ids=ids, mask=mask, **kw)
+        for t in ids:
+            self._since_reopt[t] = 0
 
     # -- query path ---------------------------------------------------------
 
@@ -214,4 +242,6 @@ class BankRouter:
                 raise
             absorbed += sum(len(rows) for rows in taken.values())
             self.ingest_rounds += 1
+            for t, rows in taken.items():
+                self._since_reopt[t] = self._since_reopt.get(t, 0) + len(rows)
         return absorbed

@@ -2,8 +2,8 @@
 exact_gp (and convert, which carries JAX parameters across).
 
 Counterpart of ``repro/core/__init__.py``, with the same public names, less
-those of what is not ported yet: ``SEKernelParams`` (ROADMAP A3),
-``vecchia`` and ``VecchiaState`` (A6), and the legacy ``FAGPConfig``.
+those of what is not ported yet: ``vecchia`` and ``VecchiaState``
+(ROADMAP A6), and the legacy ``FAGPConfig``.
 ``mercer`` is imported first: the kernels' plain tile builder imports the
 recurrence from it while this package is still initializing.
 """
@@ -33,6 +33,7 @@ from .fagp import (
 )
 from .gp import GP
 from .mercer import (
+    SEKernelParams,
     eigenvalues_1d,
     eigenfunctions_1d,
     eigenvalues_nd,
@@ -55,7 +56,7 @@ __all__ = [
     "register_expansion",
     "FAGPState", "GPSpec", "fit", "fit_update", "nlml", "predict",
     "predict_mean_var",
-    "GP",
+    "GP", "SEKernelParams",
     "eigenvalues_1d", "eigenfunctions_1d", "eigenvalues_nd",
     "log_eigenvalues_1d", "log_eigenvalues_nd", "full_grid",
     "hyperbolic_cross", "k_matern52_ard", "k_se_ard", "make_index_set",

@@ -16,11 +16,14 @@ import torch
 
 from ..device import resolve_device
 from .fagp import FAGPState, GPSpec, _check_backend_support
+from .mercer import SEKernelParams
 
 __all__ = ["spec_from_numpy", "state_from_numpy", "bank_from_numpy"]
 
 
 def _t(x, dev, dtype=torch.float32):
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
     return torch.as_tensor(np.array(x), dtype=dtype, device=dev).contiguous()
 
 
@@ -112,8 +115,9 @@ def bank_from_numpy(
     """A port ``GPBank`` from a JAX bank: its stacked leaves (numpy, leading
     capacity axis on lam/sqrtlam/chol/u/b), ``slots`` (tenant -> slot),
     ``active`` (capacity,) and the spec (the port ``spec``, or the fields
-    :func:`spec_from_numpy` takes).  A heterogeneous bank (``hypers``) is
-    not ported yet and raises ``UnsupportedError``."""
+    :func:`spec_from_numpy` takes).  A heterogeneous bank's ``hypers``
+    (anything with per-slot ``eps`` and ``rho`` (C, p) and ``noise`` (C,),
+    a JAX ``SEKernelParams`` too) becomes the port's overlay."""
     from ..bank import GPBank
 
     stack = state_from_numpy(idx=idx, lam=lam, sqrtlam=sqrtlam, chol=chol, u=u,
@@ -133,4 +137,11 @@ def bank_from_numpy(
             f"bank_from_numpy: slots {slots!r} must name each active slot of "
             f"the (capacity={C},) active mask exactly once"
         )
+    if hypers is not None:
+        if not all(hasattr(hypers, f) for f in ("eps", "rho", "noise")):
+            raise TypeError(f"bank_from_numpy: hypers must carry per-slot eps, rho and noise, "
+                            f"got {type(hypers).__name__}")
+        dev = stack.spec.device
+        hypers = SEKernelParams(**{f: _t(getattr(hypers, f), dev)
+                                   for f in ("eps", "rho", "noise")})
     return GPBank(stack=stack, active=active, slots=slots, hypers=hypers)

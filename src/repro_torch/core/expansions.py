@@ -14,6 +14,7 @@ gives bit-identical ``omega`` in both packages.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -73,6 +74,13 @@ class KernelExpansion:
         """The feature map in the form the kernels take."""
         raise NotImplementedError
 
+    def slot_tile_args(self, spec, idx: torch.Tensor, eps: torch.Tensor,
+                       rho: torch.Tensor) -> TileArgs:
+        """A stacked tile: slot s's map under (eps[s], rho[s]) (C, p) and
+        the spec's structure, each slot's map the one ``tile_args`` builds
+        for that spec."""
+        raise NotImplementedError
+
 
 class HermiteMercerExpansion(KernelExpansion):
     """Tensor-product Hermite eigenfunctions of the ARD SE kernel (paper
@@ -115,6 +123,10 @@ class HermiteMercerExpansion(KernelExpansion):
             coef=torch.from_numpy(mercer.hermite_coefficients(max(spec.n, 2))).to(dev),
             idx=idx.to(device=dev, dtype=torch.int32).contiguous(),
         )
+
+    def slot_tile_args(self, spec, idx, eps, rho):
+        return dataclasses.replace(self.tile_args(spec, idx),
+                                   consts=phi_consts(eps, rho).contiguous())
 
 
 class RandomFourierExpansion(KernelExpansion):
@@ -159,10 +171,12 @@ class RandomFourierExpansion(KernelExpansion):
         return torch.full((M,), -math.log(M / 2.0), dtype=torch.float32,
                           device=spec.eps.device)
 
-    def _scaled_freqs(self, spec) -> torch.Tensor:
+    def _scaled_freqs(self, spec, eps=None) -> torch.Tensor:
         """(R, p) frequencies sqrt(2) * eps (.) omega (the one place the
-        lengthscale scaling is applied)."""
-        return float(np.float32(np.sqrt(2.0))) * spec.eps[None, :] * spec.omega
+        lengthscale scaling is applied); per-slot eps (C, p) gives
+        (C, R, p)."""
+        eps = spec.eps if eps is None else eps
+        return float(np.float32(np.sqrt(2.0))) * eps[..., None, :] * spec.omega
 
     def features(self, X, idx, spec):
         Z = X @ self._scaled_freqs(spec).T
@@ -174,14 +188,21 @@ class RandomFourierExpansion(KernelExpansion):
         return mercer.k_matern52_ard(Xa, Xb, spec.eps)
 
     def tile_args(self, spec, idx):
-        Wt = self._scaled_freqs(spec).T                    # (p, R)
-        R = Wt.shape[1]
+        return self._tile(self._scaled_freqs(spec).mT)
+
+    def slot_tile_args(self, spec, idx, eps, rho):
+        return self._tile(self._scaled_freqs(spec, eps).mT)
+
+    @staticmethod
+    def _tile(Wt: torch.Tensor) -> TileArgs:
+        """The [W; phase] table from W^T (p, R), or (C, p, R) per slot."""
+        R = Wt.shape[-1]
         dev = Wt.device
         phase = torch.cat([
             torch.zeros((1, R), dtype=torch.float32, device=dev),
             torch.full((1, R), -0.5 * math.pi, dtype=torch.float32, device=dev),
-        ], dim=1)
-        table = torch.cat([torch.cat([Wt, Wt], dim=1), phase], dim=0)
+        ], dim=1).expand(Wt.shape[:-2] + (1, 2 * R))
+        table = torch.cat([torch.cat([Wt, Wt], dim=-1), phase], dim=-2)
         return TileArgs(kind="rff", n_max=1, M=2 * R, table=table.contiguous())
 
 

@@ -338,12 +338,13 @@ def _row_weight(mi: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def _assemble_scaled_system(G: torch.Tensor, loglam: torch.Tensor, sig2):
     """The one home of the f32 log-space scaled system:
     B = I + D G D / sigma^2, D = diag(exp(0.5 log lambda)), for one G
-    (M, M) or a stack (C, M, M) sharing the eigenvalues.
+    (M, M) or a stack (C, M, M), sharing the eigenvalues (M,) or each with
+    its own row of loglam (C, M) and its own sig2 (C, 1, 1).
     Returns (B, sqrtlam)."""
     M = G.shape[-1]
     sqrtlam = torch.exp(0.5 * loglam)
     B = torch.eye(M, dtype=G.dtype, device=G.device) \
-        + (sqrtlam[:, None] * G * sqrtlam[None, :]) / sig2
+        + (sqrtlam[..., :, None] * G * sqrtlam[..., None, :]) / sig2
     return B, sqrtlam
 
 
@@ -409,13 +410,22 @@ class FitBackend:
     rank_update: (chol, W) -> chol(chol chol^T + W^T W), the K*8 <= M
                  branch of ``fit_update``; also takes a batch
                  chol (G, M, M), W (G, K, M) (``GPBank.update``).
+    rank_downdate: (chol, W) -> (chol(chol chol^T - W^T W), ok), batched
+                 like ``rank_update`` (``GPBank.downdate``); ``ok`` False
+                 where a pivot was lost.
     bank_moments: (Xb (B, N, p), yb (B, N), spec, idx, block_rows,
-                 maskb (B, N)) -> raw (G (B, M, M), b (B, M)) for B
-                 independent datasets (``GPBank.fit``); per-slot row masks
-                 express ragged per-tenant N.
+                 maskb (B, N), hypers=None) -> raw (G (B, M, M), b (B, M))
+                 for B independent datasets (``GPBank.fit``); per-slot row
+                 masks express ragged per-tenant N; ``hypers`` (eps, rho),
+                 each (B, p), give every slot its own feature map (a
+                 heterogeneous bank's refit).
+    slot_features: (X (Q, p), spec, idx, eps (C, p), rho (C, p), slots (Q,),
+                 state=None, cache=None) -> (Q, M): row q under slot
+                 ``slots[q]``'s (eps, rho) (a heterogeneous bank's serving,
+                 update and downdate); ``cache`` a dict kept with eps and rho.
     supports:    spec -> None, or the reason the backend refuses it.
 
-    The bank's serving path needs no hook of its own: it is the gathered
+    The bank's serving path needs no other hook: it is the gathered
     posterior over the backend's ``features`` (``_gathered_bank_mean_var``).
     """
 
@@ -425,7 +435,9 @@ class FitBackend:
     mean_var: Callable[..., tuple]
     moments: Callable[..., tuple]
     rank_update: Callable[..., torch.Tensor]
+    rank_downdate: Callable[..., tuple]
     bank_moments: Callable[..., tuple]
+    slot_features: Callable[..., torch.Tensor]
     supports: Callable[["GPSpec"], Optional[str]] = _supports_everything
 
 
@@ -529,17 +541,31 @@ def _bank_gathered_posterior(binv_s, u_s, sqrtlam_s, slots, Phis):
 def _looped_bank_moments(moments):
     """A ``bank_moments`` from a backend's single-model ``moments``: slot by
     slot (the JAX package's vmap, written out), so each slot's sums are
-    exactly those of a single fit: the ``jnp`` backend's hook."""
-    def f(Xb, yb, spec, idx, block_rows, maskb=None):
+    exactly those of a single fit, under its own (eps, rho) where ``hypers``
+    gives them: the ``jnp`` backend's hook."""
+    def f(Xb, yb, spec, idx, block_rows, maskb=None, hypers=None):
         B, N, _ = Xb.shape
         if maskb is None:
             maskb = torch.ones((B, N), dtype=torch.float32, device=Xb.device)
         # banks hold SMALL tenants: never let a block pad a slot's few rows
         # up to the default serving block
         block_rows = min(block_rows, max(1, N))
-        out = [moments(Xb[s], yb[s], spec, idx, block_rows, maskb[s]) for s in range(B)]
+        specs = [spec if hypers is None else spec.replace(eps=hypers[0][s], rho=hypers[1][s])
+                 for s in range(B)]
+        out = [moments(Xb[s], yb[s], specs[s], idx, block_rows, maskb[s]) for s in range(B)]
         return torch.stack([G for G, _ in out]), torch.stack([b for _, b in out])
     return f
+
+
+def _jnp_slot_features(X, spec, idx, eps, rho, slots, state=None, cache=None):
+    """Per-row hyperparameters on the plain path: the rows of each slot
+    through the feature map under that slot's own spec (the reference's
+    per-row vmap, grouped by slot)."""
+    out = torch.empty((X.shape[0], idx.shape[0]), dtype=torch.float32, device=X.device)
+    for s in torch.unique(slots).tolist():
+        rows = torch.nonzero(slots == s)[:, 0]
+        out[rows] = _jnp_features(X[rows], spec.replace(eps=eps[s], rho=rho[s]), idx)
+    return out
 
 
 def _gathered_bank_mean_var(features):
@@ -627,23 +653,47 @@ def _pallas_mean_var(state, Xs):
     return mu, var
 
 
-def _pallas_bank_moments(Xb, yb, spec, idx, block_rows, maskb=None):
+def _pallas_bank_moments(Xb, yb, spec, idx, block_rows, maskb=None, hypers=None):
     """One launch of the bank kernel for the whole bank, whichever
-    expansion the bank's shared spec names (``block_rows`` unused: the
-    kernel streams its own rows)."""
-    return ops.bank_fused_fit_moments(Xb, yb, _tile(spec, idx), maskb)
+    expansion the bank's shared spec names, each slot under its own map
+    where ``hypers`` gives them (``block_rows`` unused: the kernel streams
+    its own rows)."""
+    tile = (_tile(spec, idx) if hypers is None
+            else get_expansion(spec.expansion).slot_tile_args(spec, idx, *hypers))
+    return ops.bank_fused_fit_moments(Xb, yb, tile, maskb)
+
+
+def _pallas_slot_features(X, spec, idx, eps, rho, slots, state=None, cache=None):
+    """Per-row hyperparameters on the kernel path, one launch: Hermite rows
+    each under their slot's constants (a stacked tile, kept in ``cache``);
+    RFF rows scaled by their slot's eps over the spec's under the shared
+    table (W = sqrt(2) eps . omega: the kernel keeps each column's [W;
+    phase] in registers across rows, so it takes no per-row table).  The
+    scaling rounds differently from a session fitted under the slot's own
+    eps; the JAX package's RFF gates hold it."""
+    tile = _tile(spec, idx, state)
+    if tile.kind == "rff":
+        return ops.expansion_phi(X * (eps / spec.eps)[slots], tile)
+    stacked = None if cache is None else cache.get("slot_tile")
+    if stacked is None:
+        stacked = get_expansion(spec.expansion).slot_tile_args(spec, idx, eps, rho)
+        if cache is not None:
+            cache["slot_tile"] = stacked
+    return ops.expansion_phi(X, stacked, slots.to(torch.int32))
 
 
 register_backend(FitBackend(
     name="jnp", fit=_jnp_fit, features=_jnp_features, mean_var=_jnp_mean_var,
     moments=_jnp_moments, rank_update=_chol.chol_update_plain,
-    bank_moments=_looped_bank_moments(_jnp_moments),
+    rank_downdate=_chol.chol_downdate_plain,
+    bank_moments=_looped_bank_moments(_jnp_moments), slot_features=_jnp_slot_features,
 ))
 register_backend(FitBackend(
     name="pallas", fit=_pallas_fit, features=_pallas_features,
     mean_var=_pallas_mean_var, moments=_pallas_moments,
-    rank_update=ops.chol_update, supports=_pallas_supports,
-    bank_moments=_pallas_bank_moments,
+    rank_update=ops.chol_update, rank_downdate=ops.chol_downdate,
+    supports=_pallas_supports, bank_moments=_pallas_bank_moments,
+    slot_features=_pallas_slot_features,
 ))
 
 

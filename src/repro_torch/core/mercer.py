@@ -19,12 +19,16 @@ recurrence with the same constants.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Literal, Optional
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 __all__ = [
+    "SEKernelParams",
     "mercer_constants",
     "log_eigenvalues_1d",
     "eigenvalues_1d",
@@ -43,6 +47,43 @@ __all__ = [
 ]
 
 IndexSetKind = Literal["full", "total_degree", "hyperbolic_cross"]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SEKernelParams:
+    """ARD squared-exponential kernel + Mercer-expansion hyperparameters.
+
+    eps:   per-dimension inverse length scales, (p,). Paper's eps_j.
+    rho:   per-dimension global scale factors, (p,). Paper's rho_j;
+           controls eigenvalue decay speed.
+    noise: observation noise std sigma_n (scalar).
+
+    A heterogeneous ``GPBank`` stacks one set per slot: eps and rho
+    (C, p), noise (C,).
+    """
+
+    eps: torch.Tensor
+    rho: torch.Tensor
+    noise: torch.Tensor
+
+    @property
+    def p(self) -> int:
+        return self.eps.shape[-1]
+
+    @staticmethod
+    def create(eps, rho, noise=1e-2, *, device=None) -> "SEKernelParams":
+        """float32 leaves on ``device`` (default "cuda"), rho broadcast to
+        eps's shape."""
+        dev = resolve_device(device)
+
+        def f32(x):
+            if not isinstance(x, torch.Tensor):
+                x = np.array(x, dtype=np.float32)
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        eps = torch.atleast_1d(f32(eps))
+        rho = torch.broadcast_to(f32(rho), eps.shape).clone()
+        return SEKernelParams(eps=eps, rho=rho, noise=f32(noise))
 
 
 def mercer_constants(eps: torch.Tensor, rho: torch.Tensor):
@@ -65,9 +106,12 @@ def log_eigenvalues_1d(n: int, eps: torch.Tensor, rho: torch.Tensor) -> torch.Te
 
 def log_eigenvalues_nd(idx: torch.Tensor, eps: torch.Tensor,
                        rho: torch.Tensor) -> torch.Tensor:
-    """log lambda_n = sum_j log lambda_{n_j}  (Eq. 20).  idx (M, p) -> (M,)."""
+    """log lambda_n = sum_j log lambda_{n_j}  (Eq. 20).  idx (M, p) -> (M,);
+    with per-slot eps and rho (C, p), the (C, M) rows of every slot."""
+    if eps.ndim == 2:   # (p, C, 1): dimension j of every slot at once
+        eps, rho = eps.T[..., None], rho.T[..., None]
     out = None
-    for j in range(eps.shape[0]):
+    for j in range(idx.shape[1]):
         _, delta2 = mercer_constants(eps[j], rho[j])
         denom = rho[j] ** 2 + delta2 + eps[j] ** 2
         i = idx[:, j].to(torch.float32)

@@ -43,6 +43,16 @@
 // aligned 16-byte stores), 4.9 us for a 128-row serving microbatch, 4.2 us
 // for a fleet microbatch of 256 x 625.
 //
+// Per-row constants (a heterogeneous bank's serving and its update and
+// downdate groups, repro/bank/bank.py::_hetero_gathered_mean_var and
+// _hetero_group_features, which vmap the feature map over per-row
+// hyperparameters): with `row_slot` (N,) int32, row r's Hermite values are
+// built from the (p, 3) constants at consts + 3 p row_slot[r] of a (C, p, 3)
+// table; null is the shared (p, 3).  The row table is built row by row, so
+// that is an address, not another instance.  The RFF instances keep each
+// column's [W; phase] in registers across rows, so they take no per-row
+// table: a caller scales the rows instead.
+//
 // Bits: every element is the pinned recurrence repro::hermite_row folded
 // left in order j = 0..p-1 with plain products, or the __fmaf_rn chain and
 // cosf of repro::rff_feature (expansion.cuh), as the fused fit
@@ -180,6 +190,7 @@ phi_features_kernel(const float* __restrict__ X, int N, int p, int M, int n,
                     const float* __restrict__ coef,
                     const int* __restrict__ idx,
                     const float* __restrict__ table,
+                    const int* __restrict__ row_slot,
                     float* __restrict__ out) {
   extern __shared__ __align__(16) float sh[];
   constexpr bool kHermite = kKind == repro::kHermite;
@@ -238,20 +249,24 @@ phi_features_kernel(const float* __restrict__ X, int N, int p, int M, int n,
       xs[i] = (task < kRows * kPr && row < N) ? X[(size_t)row * kPr + task / kRows] : 0.f;
     }
   };
+  // the constants of a row: its slot's (per-row Hermite), else the shared
+  auto consts_of = [&](int row) {
+    return (kHermite && row_slot != nullptr) ? consts + (size_t)row_slot[row] * 3 * p : consts;
+  };
   auto build = [&](int t, float* tab) {
     if (kP > 0) {
 #pragma unroll
       for (int i = 0; i < kTasks; ++i) {
         const int task = task0 + i * kThreads, r = task % kRows;
         if (task < kRows * kPr && t * kRows + r < N)
-          build_task<kKind>(xs[i], task / kRows, r, n, consts, coef, tab);
+          build_task<kKind>(xs[i], task / kRows, r, n, consts_of(t * kRows + r), coef, tab);
       }
     } else {
       for (int task = task0; task < kRows * p; task += kThreads) {
         const int r = task % kRows, row = t * kRows + r;
         if (row < N)
           build_task<kKind>(X[(size_t)row * p + task / kRows], task / kRows, r, n,
-                            consts, coef, tab);
+                            consts_of(row), coef, tab);
       }
     }
   };
@@ -279,7 +294,7 @@ phi_features_kernel(const float* __restrict__ X, int N, int p, int M, int n,
 }
 
 using Kernel = void (*)(const float*, int, int, int, int, int, const float*,
-                        const float*, const int*, const float*, float*);
+                        const float*, const int*, const float*, const int*, float*);
 
 template <int kKind, int kC>
 Kernel instance(int p) {
@@ -397,14 +412,18 @@ extern "C" int repro_phi_features_plan(int N, int p, int M, int kind, int n,
   return 0;
 }
 
+// row_slot: null (every row under `consts` (p, 3)), or (N,) int32 slots
+// into a (C, p, 3) `consts` (Hermite only; the caller keeps them in range);
+// last, so a caller that passes no slots binds as before.
 extern "C" int repro_phi_features(const float* X, int N, int p, int M, int kind,
                                   int n, const float* consts, const float* coef,
                                   const int* idx, const float* table, float* out,
-                                  void* stream) {
+                                  void* stream, const int* row_slot) {
+  if (row_slot != nullptr && kind != repro::kHermite) return (int)cudaErrorInvalidValue;
   Plan P;
   const cudaError_t err = make_plan(N, p, M, kind, n, &P);
   if (err != cudaSuccess) return (int)err;
   P.kernel<<<dim3(P.col_blocks, P.strips), kThreads, P.smem, (cudaStream_t)stream>>>(
-      X, N, p, M, n, P.tiles_per_block, consts, coef, idx, table, out);
+      X, N, p, M, n, P.tiles_per_block, consts, coef, idx, table, row_slot, out);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,13 @@
 //  * repro/kernels/phi_gram.py::bank_phi_gram_kernel (a bank of B
 //    independent models; body _bank_phi_gram_body) -- entry
 //    repro_bank_phi_gram: unscaled G_s = Phi_s^T Phi_s and
-//    b_s = Phi_s^T (mask_s * y_s) for every slot s in one launch;
+//    b_s = Phi_s^T (mask_s * y_s) for every slot s in one launch, every
+//    slot under the bank's one feature map or (a heterogeneous bank's
+//    refit, repro/bank/bank.py::_bank_hetero_refit, which vmaps the fused
+//    fit over per-slot hyperparameters) under its own: slot s reads its
+//    Hermite constants (p, 3) or its RFF table (p + 1, M) at
+//    s * hyper_stride floats (0: the shared map).  A block belongs to one
+//    slot, so that is an offset, not another instance;
 // with the tile builders hermite_phi.py::phi_tile and rff_phi.py::rff_tile
 // inlined.
 //
@@ -193,7 +199,7 @@ phi_gram_body(const float* __restrict__ X, const float* __restrict__ y,
               const float* __restrict__ coef, const int* __restrict__ idx,
               const float* __restrict__ table, const float* __restrict__ d,
               float sig2, int scale, float* __restrict__ out,
-              float* __restrict__ b) {
+              float* __restrict__ b, long long hyper_stride) {
   if (kBank) {
     const size_t slot = blockIdx.y;
     X += slot * N * p;
@@ -201,6 +207,10 @@ phi_gram_body(const float* __restrict__ X, const float* __restrict__ y,
     mask += slot * N;
     out += slot * M * M;
     b += slot * M;
+    if (kind == repro::kHermite)
+      consts += slot * hyper_stride;
+    else
+      table += slot * hyper_stride;
   }
   // linear block -> (bi, bj) with bi <= bj
   const long long lin = blockIdx.x;
@@ -315,9 +325,10 @@ phi_gram_body(const float* __restrict__ X, const float* __restrict__ y,
       const float* __restrict__ consts, const float* __restrict__ coef,     \
       const int* __restrict__ idx, const float* __restrict__ table,         \
       const float* __restrict__ d, float sig2, int scale,                   \
-      float* __restrict__ out, float* __restrict__ b
-#define PHI_GRAM_ARGS \
-  X, y, mask, N, p, M, kind, n, consts, coef, idx, table, d, sig2, scale, out, b
+      float* __restrict__ out, float* __restrict__ b, long long hyper_stride
+#define PHI_GRAM_ARGS                                                        \
+  X, y, mask, N, p, M, kind, n, consts, coef, idx, table, d, sig2, scale, out, b, \
+      hyper_stride
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 phi_gram_kernel(PHI_GRAM_PARAMS) {
@@ -363,7 +374,7 @@ cudaError_t gram_plan(int N, int M, int nbank, int kind, int p, int n,
 int launch(const float* X, const float* y, const float* mask, int nbank, int N,
            int p, int M, int kind, int n, const float* consts, const float* coef,
            const int* idx, const float* table, const float* d, float sig2,
-           int scale, float* out, float* b, void* stream) {
+           int scale, float* out, float* b, long long hyper_stride, void* stream) {
   GramPlan P;
   const cudaError_t err = gram_plan(N, M, nbank, kind, p, n, &P);
   if (err != cudaSuccess) return (int)err;
@@ -371,7 +382,7 @@ int launch(const float* X, const float* y, const float* mask, int nbank, int N,
   auto kernel = (nbank > 1) ? bank_phi_gram_kernel : phi_gram_kernel;
   kernel<<<grid, kThreads, (size_t)P.smem, (cudaStream_t)stream>>>(
       X, y, mask, N, p, M, kind, n, consts, coef, idx, table, d, sig2, scale,
-      out, b);
+      out, b, hyper_stride);
   return (int)cudaGetLastError();
 }
 
@@ -398,17 +409,19 @@ extern "C" int repro_phi_gram(const float* X, const float* y, const float* mask,
                               float sig2, int scale, float* out, float* b,
                               void* stream) {
   return launch(X, y, mask, 1, N, p, M, kind, n, consts, coef, idx, table, d,
-                sig2, scale, out, b, stream);
+                sig2, scale, out, b, 0, stream);
 }
 
 // A bank of nbank models: unscaled G (nbank, M, M) and b (nbank, M);
-// X (nbank, N, p), y and mask (nbank, N).
+// X (nbank, N, p), y and mask (nbank, N); slot s's Hermite constants or RFF
+// table at s * hyper_stride floats (0: one map for every slot).
 extern "C" int repro_bank_phi_gram(const float* X, const float* y,
                                    const float* mask, int nbank, int N, int p,
                                    int M, int kind, int n, const float* consts,
                                    const float* coef, const int* idx,
                                    const float* table, float* G, float* b,
-                                   void* stream) {
+                                   void* stream, long long hyper_stride) {
+  if (hyper_stride < 0) return (int)cudaErrorInvalidValue;
   return launch(X, y, mask, nbank, N, p, M, kind, n, consts, coef, idx, table,
-                nullptr, 1.f, 0, G, b, stream);
+                nullptr, 1.f, 0, G, b, hyper_stride, stream);
 }

@@ -19,6 +19,14 @@ stores the current one; :func:`phi_features_plan` reports the launch.  On
 an NVIDIA H100 80GB HBM3 at 700 W it takes 0.270 ms at 10^4 x 14,641 and
 4.9 us for a 128-row microbatch (``benchmarks/torch_phi_gram_ablation.py``).
 
+A heterogeneous bank gives every slot its own constants: a *stacked*
+tile carries one (p, 3) Hermite table (or one (p + 1, M) RFF table) per
+slot, (C, p, 3) or (C, p + 1, M).  The features kernel takes a stacked
+Hermite tile with a (N,) int32 slot per row (``slots``): row r is built
+under slot ``slots[r]``'s constants (counted as variant "slots"); the bank
+fused fit takes a stacked tile of either kind, one slot per tenant
+(``phi_gram.py``).
+
 The C entry points' signatures (:data:`ARGTYPES`) are bound once, on first
 use, and the handles held here, so a launch takes no Python lock and sets
 no ``argtypes`` (the C plan reads its per-device residency cache under a
@@ -39,7 +47,7 @@ from ..core.mercer import hermite_psi_rows
 from . import _build
 from .rff_phi import rff_tile
 
-__all__ = ["TileArgs", "phi_tile", "plain_tile", "phi_features_plain",
+__all__ = ["TileArgs", "phi_tile", "plain_tile", "slot_tile", "phi_features_plain",
            "phi_features_cuda", "phi_features_launch", "phi_features_plan",
            "COUNTER"]
 
@@ -48,7 +56,7 @@ KINDS = {"hermite": 0, "rff": 1}
 _V, _I = ctypes.c_void_p, ctypes.c_int
 # the C signatures of csrc/phi_features.cu's entry points
 ARGTYPES = {
-    "repro_phi_features": [_V, _I, _I, _I, _I, _I, _V, _V, _V, _V, _V, _V],
+    "repro_phi_features": [_V, _I, _I, _I, _I, _I, _V, _V, _V, _V, _V, _V, _V],
     "repro_phi_features_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
 }
 _PLAN_KEYS = ("threads", "rows_per_tile", "cols_per_thread", "col_blocks",
@@ -64,10 +72,11 @@ class TileArgs:
     kind:   "hermite" or "rff".
     n_max:  Hermite recurrence depth (1 for RFF).
     M:      number of features.
-    consts: (p, 3) float32 [beta, delta2, rho*beta] (Hermite).
+    consts: (p, 3) float32 [beta, delta2, rho*beta] (Hermite), or
+            (C, p, 3), one per slot (a stacked tile).
     coef:   (2, n_max) float32 recurrence coefficients (Hermite).
     idx:    (M, p) int32 multi-indices (Hermite).
-    table:  (p + 1, M) float32 [W; phase] (RFF).
+    table:  (p + 1, M) float32 [W; phase] (RFF), or (C, p + 1, M).
     """
 
     kind: str
@@ -82,17 +91,31 @@ class TileArgs:
         return [t for t in (self.consts, self.coef, self.idx, self.table)
                 if t is not None]
 
+    @property
+    def slots(self) -> Optional[int]:
+        """C for a stacked tile (one map per slot), else None."""
+        per = self.consts if self.kind == "hermite" else self.table
+        return per.shape[0] if per is not None and per.ndim == 3 else None
+
+
+def slot_tile(tile: TileArgs, s: int) -> TileArgs:
+    """Slot ``s``'s own map of a stacked tile."""
+    if tile.kind == "hermite":
+        return dataclasses.replace(tile, consts=tile.consts[s])
+    return dataclasses.replace(tile, table=tile.table[s])
+
 
 def phi_tile(x: torch.Tensor, consts: torch.Tensor, idx: torch.Tensor,
              n_max: int) -> torch.Tensor:
     """(TN, p) rows -> (TN, M) Hermite-Mercer features: per dimension the
     scaled recurrence (``core/mercer.py::hermite_psi_rows``, its one home)
     times exp(-delta2 x^2), gathered through the index table and multiplied
-    across dimensions in order j = 0..p-1."""
+    across dimensions in order j = 0..p-1.  ``consts`` is (p, 3), or
+    (TN, p, 3): each row under its own constants."""
     idx = idx.to(torch.long)
     out = None
     for j in range(x.shape[1]):
-        beta, delta2, zscale = consts[j, 0], consts[j, 1], consts[j, 2]
+        beta, delta2, zscale = consts[..., j, 0], consts[..., j, 1], consts[..., j, 2]
         xj = x[:, j]
         env = torch.exp(-delta2 * xj * xj)
         feats = torch.stack(hermite_psi_rows(zscale * xj, beta, n_max), dim=1)
@@ -101,16 +124,20 @@ def phi_tile(x: torch.Tensor, consts: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-def plain_tile(x: torch.Tensor, tile: TileArgs) -> torch.Tensor:
-    """The plain feature map of ``tile`` on rows ``x``."""
+def plain_tile(x: torch.Tensor, tile: TileArgs,
+               slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain feature map of ``tile`` on rows ``x``; with ``slots`` (TN,)
+    row r under slot ``slots[r]``'s constants of a stacked Hermite tile."""
     if tile.kind == "hermite":
-        return phi_tile(x, tile.consts, tile.idx, tile.n_max)
+        consts = tile.consts if slots is None else tile.consts[slots.to(torch.long)]
+        return phi_tile(x, consts, tile.idx, tile.n_max)
     return rff_tile(x, tile.table)
 
 
-def phi_features_plain(X: torch.Tensor, tile: TileArgs) -> torch.Tensor:
+def phi_features_plain(X: torch.Tensor, tile: TileArgs,
+                       slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of the features kernel: (N, p) -> (N, M)."""
-    return plain_tile(X, tile)
+    return plain_tile(X, tile, slots)
 
 
 def _entry(name: str):
@@ -151,16 +178,19 @@ def phi_features_plan(N: int, M: int, kind: str = "hermite", p: int = 1,
     return dict(zip(_PLAN_KEYS, out))
 
 
-def phi_features_launch(X: torch.Tensor, tile: TileArgs, out: torch.Tensor) -> None:
+def phi_features_launch(X: torch.Tensor, tile: TileArgs, out: torch.Tensor,
+                        slots: Optional[torch.Tensor] = None) -> None:
     """Launch ``csrc/phi_features.cu`` on the current stream of X's device,
     writing Phi(X) (N, M) into ``out``, a contiguous float32 tensor on X's
     device; allocates nothing.  Checks its inputs as ``ops.expansion_phi``
     does, and ``out``."""
-    from .ops import _check_tile, _on_cuda  # ops imports this module
+    from .ops import _check_slots, _check_tile, _on_cuda  # ops imports this module
 
     N, p = X.shape
-    _check_tile("phi_features_launch", tile, p)
-    if not _on_cuda("phi_features_launch", X, out, *tile.tensors()):
+    _check_tile("phi_features_launch", tile, p, None if slots is None else tile.slots)
+    _check_slots("phi_features_launch", tile, slots, N)
+    extra = [] if slots is None else [slots]
+    if not _on_cuda("phi_features_launch", X, out, *tile.tensors(), *extra):
         raise ValueError("phi_features_launch: the tensors are on the CPU, where "
                          "phi_features_plain runs")
     if tuple(out.shape) != (N, tile.M) or out.dtype != torch.float32 \
@@ -168,22 +198,25 @@ def phi_features_launch(X: torch.Tensor, tile: TileArgs, out: torch.Tensor) -> N
         raise ValueError(f"phi_features_launch: X {X.dtype}, out {tuple(out.shape)} "
                          f"{out.dtype}; the launch takes float32 X and writes a "
                          f"({N}, {tile.M}) float32 out")
-    _launch(X, tile, out)
+    _launch(X, tile, out, slots)
 
 
-def _launch(X: torch.Tensor, tile: TileArgs, out: torch.Tensor) -> None:
+def _launch(X: torch.Tensor, tile: TileArgs, out: torch.Tensor,
+            slots: Optional[torch.Tensor] = None) -> None:
     N, p = X.shape
     rc = _entry("repro_phi_features")(
         X.data_ptr(), N, p, tile.M, KINDS[tile.kind], tile.n_max, _addr(tile.consts),
         _addr(tile.coef), _addr(tile.idx), _addr(tile.table), out.data_ptr(),
-        _current_stream(X.get_device()))
+        _current_stream(X.get_device()), _addr(slots))
     _build.check_launch(rc, "phi_features")
-    COUNTER.add()
+    COUNTER.add("" if slots is None else "slots")
 
 
-def phi_features_cuda(X: torch.Tensor, tile: TileArgs) -> torch.Tensor:
-    """Launch ``csrc/phi_features.cu`` on X's stream: (N, p) -> (N, M)."""
+def phi_features_cuda(X: torch.Tensor, tile: TileArgs,
+                      slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch ``csrc/phi_features.cu`` on X's stream: (N, p) -> (N, M);
+    with ``slots``, row r under slot ``slots[r]``'s constants."""
     out = torch.empty((X.shape[0], tile.M), dtype=torch.float32, device=X.device)
     if out.numel():
-        _launch(X, tile, out)
+        _launch(X, tile, out, slots)
     return out

@@ -26,7 +26,7 @@ from .hermite_phi import TileArgs
 __all__ = [
     "TileArgs", "expansion_phi", "fused_fit_moments",
     "bank_fused_fit_moments", "scaled_gram", "diag_quad", "chol_update",
-    "launch_counts", "reset_launch_counts",
+    "chol_downdate", "launch_counts", "reset_launch_counts",
 ]
 
 _COUNTERS = (_phi.COUNTER, _gram.COUNTER, _dq.COUNTER, _chol.COUNTER,
@@ -65,28 +65,53 @@ def _on_cuda(name: str, *tensors: torch.Tensor, dtypes: tuple = _F32_I32) -> boo
     raise ValueError(f"{name}: unsupported device {dev}")
 
 
-def _check_tile(name: str, tile: TileArgs, p: int) -> None:
+def _check_tile(name: str, tile: TileArgs, p: int, stacked: Optional[int] = None) -> None:
+    """A tile of p inputs: shared, or where the caller takes one, stacked
+    with ``stacked`` slot maps (``TileArgs.slots``)."""
+    if tile.kind not in ("hermite", "rff"):
+        raise ValueError(f"{name}: unknown tile kind {tile.kind!r}")
+    C = tile.slots
+    if C is not None and C != stacked:
+        raise ValueError(f"{name}: a stacked tile of {C} slot maps where "
+                         f"{'a shared tile' if stacked is None else f'{stacked} maps'} "
+                         f"is taken")
+    lead = () if C is None else (C,)
     if tile.kind == "hermite":
-        if tile.consts.shape != (p, 3) or tile.idx.shape != (tile.M, p) \
+        if tile.consts.shape != lead + (p, 3) or tile.idx.shape != (tile.M, p) \
                 or tile.coef.shape[0] != 2 or tile.coef.shape[1] < tile.n_max:
             raise ValueError(f"{name}: Hermite tile does not match p={p}")
         if tile.idx.dtype != torch.int32:
             raise TypeError(f"{name}: the index table must be int32")
-    elif tile.kind == "rff":
-        if tile.table.shape != (p + 1, tile.M):
-            raise ValueError(f"{name}: RFF table must be ({p + 1}, {tile.M}), "
-                             f"got {tuple(tile.table.shape)}")
-    else:
-        raise ValueError(f"{name}: unknown tile kind {tile.kind!r}")
+    elif tile.table.shape != lead + (p + 1, tile.M):
+        raise ValueError(f"{name}: RFF table must be {lead + (p + 1, tile.M)}, "
+                         f"got {tuple(tile.table.shape)}")
 
 
-def expansion_phi(X: torch.Tensor, tile: TileArgs) -> torch.Tensor:
-    """Phi(X): (N, p) -> (N, M) features of the expansion ``tile``."""
+def _check_slots(name: str, tile: TileArgs, slots: Optional[torch.Tensor], N: int) -> None:
+    """Per-row slots (N,) int32 into a stacked Hermite tile, or None.  The
+    caller keeps them in [0, C): the kernel does not check them."""
+    if slots is None:
+        return
+    if tile.kind != "hermite" or tile.slots is None:
+        raise ValueError(f"{name}: per-row slots take a stacked Hermite tile (an RFF "
+                         f"caller scales its rows instead)")
+    if slots.dtype != torch.int32 or tuple(slots.shape) != (N,):
+        raise ValueError(f"{name}: slots must be ({N},) int32, got {tuple(slots.shape)} "
+                         f"{slots.dtype}")
+
+
+def expansion_phi(X: torch.Tensor, tile: TileArgs,
+                  slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Phi(X): (N, p) -> (N, M) features of the expansion ``tile``; with
+    ``slots`` (N,) int32, row r under slot ``slots[r]``'s constants of a
+    stacked Hermite tile (values in [0, C), not checked on the card)."""
     X = X.contiguous()
-    _check_tile("expansion_phi", tile, X.shape[1])
-    if _on_cuda("expansion_phi", X, *tile.tensors()):
-        return _phi.phi_features_cuda(X, tile)
-    return _phi.phi_features_plain(X, tile)
+    _check_tile("expansion_phi", tile, X.shape[1], None if slots is None else tile.slots)
+    _check_slots("expansion_phi", tile, slots, X.shape[0])
+    extra = [] if slots is None else [slots.contiguous()]
+    if _on_cuda("expansion_phi", X, *tile.tensors(), *extra):
+        return _phi.phi_features_cuda(X, tile, *extra)
+    return _phi.phi_features_plain(X, tile, *extra)
 
 
 def fused_fit_moments(
@@ -141,7 +166,8 @@ def bank_fused_fit_moments(
     G (B, M, M) with G_s = Phi_s^T Phi_s and b (B, M) with
     b_s = Phi_s^T (mask_s * y_s), Phi never materialized on the card.
     Xb (B, N, p), yb (B, N), mask (B, N): rows with mask 0 contribute
-    nothing (ragged per-slot N on a fixed stack)."""
+    nothing (ragged per-slot N on a fixed stack).  ``tile`` is shared, or
+    stacked with one map per slot (B of them)."""
     Xb = Xb.contiguous()
     if Xb.ndim != 3:
         raise ValueError(f"bank_fused_fit_moments: Xb must be (B, N, p), got {tuple(Xb.shape)}")
@@ -154,7 +180,7 @@ def bank_fused_fit_moments(
     mask = mask.to(torch.float32).contiguous()
     if tuple(mask.shape) != (B, N):
         raise ValueError(f"bank_fused_fit_moments: mask must be {(B, N)}, got {tuple(mask.shape)}")
-    _check_tile("bank_fused_fit_moments", tile, p)
+    _check_tile("bank_fused_fit_moments", tile, p, B)
     if _on_cuda("bank_fused_fit_moments", Xb, yb, mask, *tile.tensors()):
         return _gram.bank_phi_gram_cuda(Xb, yb, mask, tile)
     return _gram.bank_phi_gram_plain(Xb, yb, mask, tile)
@@ -207,3 +233,23 @@ def chol_update(L: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     if _on_cuda("chol_update", W):
         return _chol.chol_update_cuda(L, W)
     return _chol.chol_update_plain(L, W)
+
+
+def chol_downdate(L: torch.Tensor, W: torch.Tensor):
+    """chol(L L^T - W^T W) for lower-triangular L (M, M) and W (K, M), by K
+    sequential hyperbolic rank-1 sweeps, or for a batch of G independent
+    systems, L (G, M, M) and W (G, K, M), in one launch.  Returns (factor,
+    ok): ``ok`` (bool, () or (G,)) is False for a system that lost a pivot
+    (r^2 <= 1e-6 Lkk^2), whose factor is then garbage for the caller to
+    discard.  New tensors: the inputs are never written.  L may have any
+    layout."""
+    W = W.contiguous()
+    if L.ndim not in (2, 3) or W.ndim != L.ndim or L.shape[-1] != L.shape[-2] \
+            or W.shape[-1] != L.shape[-1] or L.shape[:-2] != W.shape[:-2]:
+        raise ValueError(f"chol_downdate: shapes {tuple(L.shape)} and {tuple(W.shape)}")
+    if L.device != W.device or L.dtype != W.dtype:
+        raise ValueError(f"chol_downdate: L is {L.dtype} on {L.device}, W {W.dtype} on "
+                         f"{W.device}")
+    if _on_cuda("chol_downdate", W):
+        return _chol.chol_downdate_cuda(L, W)
+    return _chol.chol_downdate_plain(L, W)

@@ -24,6 +24,12 @@ plain version, :func:`phi_gram_plain`, materializes one row block of Phi at
 a time; it is what a CPU tensor runs.  The bank's plain version,
 :func:`bank_phi_gram_plain`, runs it slot by slot, so it never forms a
 (B, N, M) Phi either.
+
+The bank entry also takes a stacked tile (``TileArgs.slots``: one Hermite
+constant table or RFF table per slot, a heterogeneous bank's refit): each
+block reads its slot's map at a slot stride, so with every slot's map
+equal the moments are bitwise those of the shared launch.  It is counted
+as variant "bank_slots" (the shared map: "bank").
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import ctypes
 import torch
 
 from . import _build
-from .hermite_phi import KINDS, TileArgs, plain_tile
+from .hermite_phi import KINDS, TileArgs, plain_tile, slot_tile
 
 __all__ = ["phi_gram_plain", "phi_gram_cuda", "phi_gram_plan",
            "bank_phi_gram_plain", "bank_phi_gram_cuda", "COUNTER"]
@@ -109,18 +115,20 @@ def phi_gram_cuda(X, y, mask, tile: TileArgs, d, sig2: float, scale: bool):
 
 def bank_phi_gram_plain(Xb, yb, maskb, tile: TileArgs):
     """Plain version of the bank kernel: unscaled (G (B, M, M), b (B, M)),
-    slot by slot in row blocks."""
+    slot by slot in row blocks (each under its own map of a stacked tile)."""
     B = Xb.shape[0]
     G = torch.empty((B, tile.M, tile.M), dtype=torch.float32, device=Xb.device)
     b = torch.empty((B, tile.M), dtype=torch.float32, device=Xb.device)
     for s in range(B):
-        G[s], b[s] = phi_gram_plain(Xb[s], yb[s], maskb[s], tile, None, 1.0, False)
+        ts = tile if tile.slots is None else slot_tile(tile, s)
+        G[s], b[s] = phi_gram_plain(Xb[s], yb[s], maskb[s], ts, None, 1.0, False)
     return G, b
 
 
 def bank_phi_gram_cuda(Xb, yb, maskb, tile: TileArgs):
     """Launch ``csrc/phi_gram.cu``'s bank entry on Xb's stream: one launch
-    for all B slots -> unscaled (G (B, M, M), b (B, M))."""
+    for all B slots -> unscaled (G (B, M, M), b (B, M)); a stacked tile
+    gives each slot its own map."""
     B, N, p = Xb.shape
     M = tile.M
     G = torch.empty((B, M, M), dtype=torch.float32, device=Xb.device)
@@ -136,12 +144,15 @@ def bank_phi_gram_cuda(Xb, yb, maskb, tile: TileArgs):
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong]
+    per = tile.consts if tile.kind == "hermite" else tile.table
+    stride = 0 if tile.slots is None else per[0].numel()
     stream = torch.cuda.current_stream(Xb.device).cuda_stream
     rc = fn(_build.ptr(Xb), _build.ptr(yb), _build.ptr(maskb), B, N, p, M,
             KINDS[tile.kind], tile.n_max, _build.ptr(tile.consts),
             _build.ptr(tile.coef), _build.ptr(tile.idx), _build.ptr(tile.table),
-            _build.ptr(G), _build.ptr(b), ctypes.c_void_p(stream))
+            _build.ptr(G), _build.ptr(b), ctypes.c_void_p(stream), stride)
     _build.check_launch(rc, "phi_gram (bank)")
-    COUNTER.add("bank")
+    COUNTER.add("bank" if tile.slots is None else "bank_slots")
     return G, b

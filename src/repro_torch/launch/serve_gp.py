@@ -7,16 +7,17 @@ Counterpart of ``repro/launch/serve_gp.py``:
 * ``serve_fleet`` MANY independent sessions (one per tenant) live in a
   :class:`~repro_torch.bank.GPBank` and traffic flows through a
   :class:`~repro_torch.bank.BankRouter`: the synchronous loop
-  (``engine="sync"``).  The pipelined engine, the tiered, sharded and
-  re-optimized fleets and telemetry come with later slices (ROADMAP.md)
-  and raise ``UnsupportedError``.
+  (``engine="sync"``), optionally re-optimizing stale tenants every few
+  rounds (``reopt_every``).  The pipelined engine, the tiered and sharded
+  fleets and telemetry come with later slices (ROADMAP.md) and raise
+  ``UnsupportedError``.
 
   python -m repro_torch.launch.serve_gp --backend pallas --device cuda \\
       --n-train 10000 --p 4 --n 11 --rounds 4 --update-size 64 \\
       --queries 1024 --microbatch 128
   python -m repro_torch.launch.serve_gp --backend pallas --device cuda \\
       --fleet 512 --engine sync --n-train 10000 --p 4 --n 5 --rounds 4 \\
-      --update-size 2048 --queries 8192 --microbatch 256
+      --update-size 2048 --queries 8192 --microbatch 256 --reopt-every 2
 
 Times are host-clock seconds around work that ends in
 ``torch.cuda.synchronize()`` on a card.
@@ -165,6 +166,9 @@ def serve_fleet(
     noise: float = 0.05,
     seed: int = 0,
     reopt_every: int = 0,
+    reopt_min_rows: int = 16,
+    reopt_steps: int = 25,
+    reopt_restarts: int = 2,
     engine: str = "pipelined",
     capacity=None,
     cold_dir=None,
@@ -184,19 +188,29 @@ def serve_fleet(
     router in padded microbatches.  Reported per round, as in the JAX
     package: ingest time, query wall time, its mean per microbatch,
     fleet-wide queries/s and the RMSE against each tenant's own
-    noise-free target; the port adds ``ingest_rounds`` (distinct-tenant
-    update rounds) and ``var_finite``.  The returned dict also carries the
-    final bank under ``"bank"``.
+    noise-free target, and the re-optimization's time and tenants
+    (``reopt_s``, ``reopt_tenants``); the port adds ``ingest_rounds``
+    (distinct-tenant update rounds) and ``var_finite``.  The returned dict
+    also carries the final bank under ``"bank"``.
+
+    ``reopt_every > 0`` re-optimizes STALE tenants every that many rounds,
+    after the round's ingest: tenants that absorbed >= ``reopt_min_rows``
+    observations since their last optimization are re-learned with one
+    batched ``GPBank.optimize`` run (``reopt_steps`` steps,
+    ``reopt_restarts`` restarts) over their accumulated data, padded to
+    the fixed pool size and masked (``BankRouter.reoptimize``); the bank
+    becomes heterogeneous and each tenant serves under its own learned
+    hyperparameters.
 
     Only ``engine="sync"`` is ported (the JAX default, ``"pipelined"``,
-    raises ``UnsupportedError``), and so do ``cold_dir``, ``window``,
-    ``shards``, ``reopt_every``, ``metrics``, ``tracer`` and ``watchdog``.
-    The JAX signature's knobs that only those paths read (the pipelined
-    engine's ``max_in_flight``, ``queue_budget`` and ``slo_s``, the
-    ``reopt_*`` settings) and the record fields they fill (``timeouts``,
-    ``reopt_s``, ``reopt_tenants``, ``aged_rows``) come with their paths.
-    Times are host-clock seconds around work that ends in
-    ``torch.cuda.synchronize()`` on a card.
+    raises ``UnsupportedError``), and so do ``cold_dir`` (and with it
+    ``capacity`` and ``window``, which without a cold tier raise the JAX
+    package's ``ValueError``), ``shards``, ``metrics``, ``tracer`` and
+    ``watchdog``.  The JAX signature's knobs that only those paths read
+    (the pipelined engine's ``max_in_flight``, ``queue_budget`` and
+    ``slo_s``) and the record fields they fill (``timeouts``,
+    ``aged_rows``) come with their paths.  Times are host-clock seconds
+    around work that ends in ``torch.cuda.synchronize()`` on a card.
     """
     if engine not in ("pipelined", "sync"):
         raise ValueError(f"engine must be 'pipelined' or 'sync', got {engine!r}")
@@ -204,17 +218,14 @@ def serve_fleet(
         _not_ported("serve_fleet(engine='pipelined')", _OBS)
     for name, given, item in (
         ("cold_dir", cold_dir is not None, "the tiered bank, TieredBank (ROADMAP A4)"),
-        ("window", bool(window), "bank downdate / refit_window (ROADMAP A2)"),
         ("shards", bool(shards), "multi-device (ROADMAP A5)"),
-        ("reopt_every", bool(reopt_every),
-         "re-optimizing fleets (ROADMAP A3, on A1's NLML gradient)"),
         ("metrics", metrics is not None, _OBS),
         ("tracer", tracer is not None, _OBS),
         ("watchdog", watchdog is not None, _OBS),
     ):
         if given:
             _not_ported(f"serve_fleet({name}=...)", item)
-    if capacity is not None:
+    if capacity is not None or window:
         raise ValueError("capacity/window need a cold tier; pass cold_dir")
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -247,6 +258,31 @@ def serve_fleet(
         _sync(dev)
         t_ingest = time.perf_counter() - t0
 
+        # -- periodic re-optimization of stale tenants ---------------------
+        t_reopt, n_reopt = 0.0, 0
+        if reopt_every and (r + 1) % reopt_every == 0:
+            stale = router.stale_tenants(reopt_min_rows)
+            if stale:
+                # the row axis padded to the FIXED pool size (masked), as in
+                # the JAX loop, so every round's stale data has one shape
+                n_max = pools[0][0].shape[0]
+                Xo = np.zeros((len(stale), n_max, p), np.float32)
+                yo = np.zeros((len(stale), n_max), np.float32)
+                mo = np.zeros((len(stale), n_max), np.float32)
+                for i, t in enumerate(stale):
+                    X_all, y_all = pools[t]
+                    rows = min(consumed[t], X_all.shape[0])
+                    Xo[i, :rows] = X_all[:rows]
+                    yo[i, :rows] = y_all[:rows]
+                    mo[i, :rows] = 1.0
+                t0 = time.perf_counter()
+                router.reoptimize(stale, torch.from_numpy(Xo), torch.from_numpy(yo),
+                                  mask=torch.from_numpy(mo), restarts=reopt_restarts,
+                                  steps=reopt_steps, seed=seed)
+                _sync(dev)
+                t_reopt = time.perf_counter() - t0
+                n_reopt = len(stale)
+
         # -- queries: mixed-tenant traffic through the router --------------
         q_tenants = rng.integers(0, tenants, queries_per_round)
         Xq = rng.uniform(-1.0, 1.0, size=(queries_per_round, p)).astype(np.float32)
@@ -270,6 +306,8 @@ def serve_fleet(
             "rmse": float(np.sqrt(np.mean((mu - truth) ** 2))),
             "ingest_rounds": router.ingest_rounds - rounds_before,
             "var_finite": bool(np.all(np.isfinite(var))),
+            "reopt_s": t_reopt,
+            "reopt_tenants": n_reopt,
         })
     return {"fit_s": t_fit, "tenants": tenants, "rounds": history,
             "M": bank.n_features, "engine": engine, "device": str(dev),
@@ -291,6 +329,8 @@ def main(argv=None) -> None:
     ap.add_argument("--update-size", type=int, default=64)
     ap.add_argument("--queries", type=int, default=512)
     ap.add_argument("--microbatch", type=int, default=128)
+    ap.add_argument("--reopt-every", type=int, default=0, metavar="K",
+                    help="re-optimize stale tenants every K serving rounds")
     ap.add_argument("--noise", type=float, default=0.05)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -301,15 +341,17 @@ def main(argv=None) -> None:
             queries_per_round=args.queries,
             observations_per_round=args.update_size,
             microbatch=args.microbatch, noise=args.noise, seed=args.seed,
-            engine=args.engine, device=args.device,
+            reopt_every=args.reopt_every, engine=args.engine, device=args.device,
         )
         print(f"fleet of {out['tenants']} fitted in {out['fit_s'] * 1e3:.1f} ms "
               f"(M={out['M']} each; {out['engine']} engine; device={out['device']})")
         for h in out["rounds"]:
+            reopt = (f"; reopt {h['reopt_tenants']} tenants {h['reopt_s'] * 1e3:.1f} ms"
+                     if h["reopt_tenants"] else "")
             print(f"round {h['round']}: ingest {h['rows_absorbed']} rows "
                   f"{h['ingest_s'] * 1e3:.1f} ms; query mean "
                   f"{h['query_mean_s'] * 1e3:.2f} ms/microbatch; "
-                  f"{h['queries_per_s']:.0f} q/s; rmse {h['rmse']:.4f}")
+                  f"{h['queries_per_s']:.0f} q/s; rmse {h['rmse']:.4f}{reopt}")
         out.pop("bank")
         print(json.dumps(out))
         return

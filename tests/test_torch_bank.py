@@ -510,23 +510,25 @@ def test_update_and_fit_refuse_bad_batches():
 
 
 def test_unported_bank_paths_name_their_roadmap_items():
+    """Donated updates still name ROADMAP A4.  What A2 and A3 brought
+    (downdate, refit_window, optimize, a per-slot overlay) is no longer
+    refused (tests/test_torch_downdate.py, tests/test_torch_hetero_bank.py);
+    an overlay must be per-slot ``SEKernelParams``."""
     jb, bank, _, _, _, ts = _fleet(2, 16, 2, 5)
     Xk, yk = torch.zeros(1, 3, 2), torch.zeros(1, 3)
+    with pytest.raises(UnsupportedError, match="does not support") as e:
+        bank._update_at_slots(torch.tensor([0]), Xk, yk, donate=True)
+    assert e.value.layer == "port" and "ROADMAP A4" in str(e.value)
     st = jb.stack
-    for call in (lambda: bank.downdate([0], Xk, yk),
-                 lambda: bank.refit_window([0], Xk, yk),
-                 lambda: bank.optimize(torch.zeros(2, 4, 2), torch.zeros(2, 4)),
-                 lambda: bank._update_at_slots(torch.tensor([0]), Xk, yk, donate=True),
-                 lambda: GPBank(stack=bank.stack, active=bank.active, slots=bank.slots,
+    for call in (lambda: GPBank(stack=bank.stack, active=bank.active, slots=bank.slots,
                                 hypers=object()),
                  lambda: bank_from_numpy(
                      idx=np.asarray(st.idx), lam=np.asarray(st.lam),
                      sqrtlam=np.asarray(st.sqrtlam), chol=np.asarray(st.chol),
                      u=np.asarray(st.u), b=np.asarray(st.b), slots=dict(jb.slots),
                      active=jb.active, spec=ts, hypers=object())):
-        with pytest.raises(UnsupportedError, match="does not support") as e:
+        with pytest.raises(TypeError, match="SEKernelParams|eps, rho and noise"):
             call()
-        assert e.value.layer == "port" and "ROADMAP" in str(e.value)
 
 
 def test_bank_from_numpy_validates_leaves():

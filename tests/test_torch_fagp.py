@@ -209,13 +209,15 @@ def test_gp_facade_session():
 
 
 def test_unported_operations_name_their_slice():
+    """GPBank.optimize is ported (ROADMAP A3); its telemetry (obs, A4) is
+    still refused, naming its slice."""
     from repro_torch.bank import GPBank
 
     X, y = gp_data(40, 2, 1)
     _, ts = specs("hermite", 2, n=4)
     bank = GPBank.fit(tt(X)[None], tt(y)[None], ts)
     with pytest.raises(UnsupportedError, match="does not support") as e:
-        bank.optimize(tt(X)[None], tt(y)[None])
+        bank.optimize(tt(X)[None], tt(y)[None], metrics=object())
     assert e.value.layer == "port" and "slice" in str(e.value)
 
 

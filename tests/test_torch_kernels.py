@@ -490,3 +490,256 @@ def test_cuda_diag_quad_shapes_match_plain(cuda_device, N, M, symmetric, column_
     assert torch.equal(A, A0) and torch.equal(C, C0)
     plan = tdq.diag_quad_plan(N, M, cuda_device)
     assert plan["strips"] == -(-M // 128) and plan["S"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# the downdate sweep, stacked (per-slot) tiles and per-row constants: CPU
+# ---------------------------------------------------------------------------
+
+
+def _absorbed(M, K, seed, scale=0.3):
+    """(L, W) numpy: L the factor of I + R R^T / M + W^T W, so that the K
+    rows of W can be downdated out of it."""
+    rng = np.random.default_rng(seed)
+    R = rng.standard_normal((M, M))
+    W = (rng.standard_normal((K, M)) * scale).astype(np.float32)
+    B = np.eye(M) + R @ R.T / M + W.T.astype(np.float64) @ W
+    return np.linalg.cholesky(B).astype(np.float32), W
+
+
+@pytest.mark.parametrize("M,K", [(16, 1), (125, 8), (40, 5)])
+def test_chol_downdate_matches_jax_sweep(M, K):
+    """The plain downdate against the JAX package's hyperbolic sweep
+    (repro/bank/bank.py::_chol_rank1_downdate, row after row) and against
+    float64 chol(L L^T - W^T W), at the chol gate (tests/test_streaming_fit.py:214)."""
+    from repro.bank.bank import _chol_rank1_downdate
+
+    L, W = _absorbed(M, K, M + K)
+    Lj, okj = jnp.asarray(L), True
+    for w in W:
+        Lj, o = jax.jit(_chol_rank1_downdate)(Lj, jnp.asarray(w))
+        okj = okj and bool(o)
+    got, ok = ops.chol_downdate(tt(L), tt(W))
+    assert bool(ok) and okj
+    np.testing.assert_allclose(nn(got), np.asarray(Lj), rtol=5e-3, atol=1e-3)
+    ref = np.linalg.cholesky(L.astype(np.float64) @ L.T - W.T.astype(np.float64) @ W)
+    np.testing.assert_allclose(nn(got), ref, rtol=5e-3, atol=1e-3)
+    assert np.all(np.triu(nn(got), 1) == 0.0)
+
+
+def test_chol_downdate_flags_a_lost_pivot_as_jax_does():
+    """Rows never absorbed: a pivot is lost in both packages; a batch keeps
+    one flag per system, and the good system's factor does not depend on
+    its neighbour."""
+    from repro.bank.bank import _downdate_arrays
+
+    L, W = _absorbed(24, 3, 7)
+    bogus = np.full((3, 24), 2.0, np.float32)
+    Lb, Wb = np.stack([L, L]), np.stack([W, bogus])
+    got, ok = ops.chol_downdate(tt(Lb), tt(Wb))
+    assert ok.tolist() == [True, False]
+    for g in range(2):
+        _, _, _, okj = _downdate_arrays(jnp.asarray(Lb[g]), jnp.zeros(24), jnp.ones(24),
+                                        jnp.float32(1.0), jnp.asarray(Wb[g]), jnp.zeros(3))
+        assert bool(okj) == bool(ok[g])
+    one, ok1 = ops.chol_downdate(tt(L), tt(W))
+    assert bool(ok1) and torch.equal(got[0], one)
+    # a zero row is an exact identity
+    same, ok0 = ops.chol_downdate(tt(L), torch.zeros(2, 24))
+    assert bool(ok0) and torch.equal(same, tt(L))
+
+
+def test_chol_downdate_undoes_the_update_and_leaves_inputs_untouched():
+    L = tt(_spd_factor(40, 2))
+    W = torch.randn(6, 40, generator=torch.Generator().manual_seed(2)) * 0.5
+    L0, W0 = L.clone(), W.clone()
+    up = ops.chol_update(L, W)
+    back, ok = ops.chol_downdate(up, W)
+    assert bool(ok)
+    np.testing.assert_allclose(nn(back), nn(L), rtol=5e-3, atol=1e-3)
+    assert torch.equal(L, L0) and torch.equal(W, W0)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.chol_downdate(torch.eye(4), torch.ones(2, 5))
+
+
+def _stacked(expansion, p, n, R, C, seed=0):
+    """A port spec, its index table and a stacked tile of C slots under
+    distinct (eps, rho)."""
+    _, ts = specs(expansion, p, n=n, num_features=R)
+    rng = np.random.default_rng(seed)
+    eps = tt(rng.uniform(0.4, 1.6, (C, p)))
+    rho = tt(rng.uniform(1.5, 2.5, (C, p)))
+    exp = texp.get_expansion(expansion)
+    idx = _idx_tensor(ts)
+    return ts, exp.slot_tile_args(ts, idx, eps, rho), eps, rho
+
+
+@pytest.mark.parametrize("expansion", ["hermite", "rff_se"])
+def test_stacked_tile_slots_are_their_specs_tiles(expansion):
+    """Slot s of a stacked tile is the tile of the spec under (eps[s],
+    rho[s]), bitwise; the bank's plain version takes each slot's own."""
+    ts, tile, eps, rho = _stacked(expansion, 3, 4, 16, 5)
+    exp = texp.get_expansion(expansion)
+    assert tile.slots == 5
+    for s in range(5):
+        own = exp.tile_args(ts.replace(eps=eps[s], rho=rho[s]), _idx_tensor(ts))
+        got = thp.slot_tile(tile, s)
+        for f in ("consts", "table", "idx", "coef"):
+            a, b = getattr(got, f), getattr(own, f)
+            assert (a is None and b is None) or torch.equal(a, b), f
+    X, y = _fit_inputs(37, 3, 2)
+    Xb, yb = tt(np.stack([X] * 5)), tt(np.stack([y] * 5))
+    G, b = ops.bank_fused_fit_moments(Xb, yb, tile)
+    for s in (0, 3):
+        Gs, bs = tgram.phi_gram_plain(Xb[s], yb[s], torch.ones(37), thp.slot_tile(tile, s),
+                                      None, 1.0, False)
+        assert torch.equal(G[s], Gs) and torch.equal(b[s], bs)
+
+
+def test_per_row_constants_plain_version():
+    """Row r of the per-row features is the shared version under slot
+    slots[r]'s constants; with every slot's constants equal it is the
+    shared features.  (Bitwise on the card, where elementwise kernels do
+    not depend on the batch; here to 1 ulp-scale.)"""
+    ts, tile, _, _ = _stacked("hermite", 3, 5, None, 4)
+    X = tt(uniform(np.random.default_rng(4), (50, 3)))
+    slots = torch.tensor(np.random.default_rng(5).integers(0, 4, 50), dtype=torch.int32)
+    got = ops.expansion_phi(X, tile, slots)
+    for s in range(4):
+        rows = torch.nonzero(slots == s)[:, 0]
+        want = thp.phi_features_plain(X[rows], thp.slot_tile(tile, s))
+        np.testing.assert_allclose(nn(got[rows]), nn(want), rtol=1e-6, atol=1e-7)
+    shared = texp.get_expansion("hermite").tile_args(ts, _idx_tensor(ts))
+    same = dataclasses.replace(shared, consts=shared.consts.expand(4, 3, 3).contiguous())
+    np.testing.assert_allclose(nn(ops.expansion_phi(X, same, slots)),
+                               nn(ops.expansion_phi(X, shared)), rtol=1e-6, atol=1e-7)
+
+
+def test_stacked_and_per_row_wrappers_validate():
+    ts, tile, _, _ = _stacked("hermite", 2, 4, None, 3)
+    X = torch.zeros(5, 2)
+    with pytest.raises(ValueError, match="stacked tile"):
+        ops.expansion_phi(X, tile)
+    with pytest.raises(ValueError, match="int32"):
+        ops.expansion_phi(X, tile, torch.zeros(5, dtype=torch.long))
+    shared = thp.slot_tile(tile, 0)
+    with pytest.raises(ValueError, match="stacked Hermite"):
+        ops.expansion_phi(X, shared, torch.zeros(5, dtype=torch.int32))
+    with pytest.raises(ValueError, match="stacked tile"):
+        ops.bank_fused_fit_moments(torch.zeros(2, 4, 2), torch.zeros(2, 4), tile)
+    _, rtile, _, _ = _stacked("rff_se", 2, 1, 8, 3)
+    with pytest.raises(ValueError, match="stacked Hermite"):
+        ops.expansion_phi(X, rtile, torch.zeros(5, dtype=torch.int32))
+    # the launch entry checks the same way, then refuses CPU tensors
+    with pytest.raises(ValueError, match="on the CPU"):
+        thp.phi_features_launch(X, tile, torch.empty(5, tile.M), torch.zeros(5, dtype=torch.int32))
+    with pytest.raises(ValueError, match="stacked tile"):
+        thp.phi_features_launch(X, tile, torch.empty(5, tile.M))
+
+
+# ---------------------------------------------------------------------------
+# the downdate sweep, stacked tiles and per-row constants: on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(20, 4), (125, 8), (625, 16), (1000, 16), (96, 400)])
+def test_cuda_chol_downdate_matches_plain_and_refactor(cuda_device, M, K):
+    """The batched downdate kernel against its plain version and the
+    batched refactor at the chol gate, on a G = 3 batch (W in chunks at
+    K = 400); its inputs untouched, zeros above the diagonal, every ok."""
+    Ls, Ws = zip(*(_absorbed(M, K, M + K + g, scale=0.3 if K < 100 else 0.05)
+                   for g in range(3)))
+    L, W = tt(np.stack(Ls)).to(cuda_device), tt(np.stack(Ws)).to(cuda_device)
+    L0, W0 = L.clone(), W.clone()
+    ops.reset_launch_counts()
+    got, ok = ops.chol_downdate(L, W)
+    assert ops.launch_counts()["chol_update"] == {"downdate": 1}
+    assert bool(ok.all())
+    want, okp = tchol.chol_downdate_plain(L, W)
+    assert torch.equal(ok, okp)
+    np.testing.assert_allclose(nn(got), nn(want), rtol=5e-3, atol=1e-3)
+    np.testing.assert_allclose(nn(got), nn(torch.linalg.cholesky(L @ L.mT - W.mT @ W)),
+                               rtol=5e-3, atol=1e-3)
+    assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+    assert torch.equal(L, L0) and torch.equal(W, W0)
+    # a 2-D call is a batch of one, with the batch's bits
+    one, ok1 = ops.chol_downdate(L[1], W[1])
+    assert bool(ok1) and torch.equal(one, got[1])
+
+
+@pytest.mark.cuda
+def test_cuda_chol_downdate_lost_pivot_stays_in_its_system(cuda_device):
+    """A system that loses a pivot reports it and corrupts nothing else:
+    its neighbours' factors are bitwise those of a batch without it."""
+    L, W = _absorbed(125, 8, 3)
+    bogus = np.full((8, 125), 2.0, np.float32)
+    Lb = tt(np.stack([L, L, L])).to(cuda_device)
+    Wb = tt(np.stack([W, bogus, W * 0.5])).to(cuda_device)
+    got, ok = ops.chol_downdate(Lb, Wb)
+    assert ok.tolist() == [True, False, True]
+    assert tchol.chol_downdate_plain(Lb, Wb)[1].tolist() == [True, False, True]
+    clean, okc = ops.chol_downdate(Lb[[0, 2]], Wb[[0, 2]])
+    assert bool(okc.all()) and torch.equal(got[[0, 2]], clean)
+
+
+@pytest.mark.cuda
+def test_cuda_chol_downdate_batch_plan(cuda_device):
+    down = tchol.chol_downdate_batch_plan(625, 16)
+    up = tchol.chol_update_batch_plan(625, 16)
+    assert down["w_chunk"] == up["w_chunk"] == 16 and down["w_in_shared"] == 1
+    assert down["smem_bytes"] == up["smem_bytes"] and down["resident_blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expansion,p", [("hermite", 4), ("hermite", 9), ("rff_se", 3)])
+def test_cuda_bank_fit_with_per_slot_maps(cuda_device, expansion, p):
+    """The bank kernel with a stacked tile: each slot bitwise the shared
+    launch under that slot's own map; with every map equal, bitwise the
+    shared launch; against its plain version at the fit gate."""
+    C, N = 5, 777
+    ts, tile, _, _ = _stacked(expansion, p, 3 if p == 4 else 2, 64, C)
+    tile = _on(tile, cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    Xb = (torch.rand(C, N, p, generator=gen) * 2 - 1).to(cuda_device)
+    yb = torch.randn(C, N, generator=gen).to(cuda_device)
+    mb = (torch.rand(C, N, generator=gen) > 0.2).float().to(cuda_device)
+    ops.reset_launch_counts()
+    G, b = ops.bank_fused_fit_moments(Xb, yb, tile, mb)
+    assert ops.launch_counts()["phi_gram"] == {"bank_slots": 1}
+    for s in range(C):
+        Gs, bs = ops.bank_fused_fit_moments(Xb, yb, thp.slot_tile(tile, s), mb)
+        assert torch.equal(G[s], Gs[s]) and torch.equal(b[s], bs[s])
+    Gp, bp = tgram.bank_phi_gram_plain(Xb, yb, mb, tile)
+    np.testing.assert_allclose(nn(G), nn(Gp), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(nn(b), nn(bp), rtol=1e-3, atol=1e-3)
+    shared = thp.slot_tile(tile, 2)
+    per = shared.consts if expansion == "hermite" else shared.table
+    field = "consts" if expansion == "hermite" else "table"
+    same = dataclasses.replace(shared, **{field: per.expand((C,) + per.shape).contiguous()})
+    assert all(torch.equal(a, c) for a, c in zip(ops.bank_fused_fit_moments(Xb, yb, same, mb),
+                                                 ops.bank_fused_fit_moments(Xb, yb, shared, mb)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,p,n", [(256, 4, 5), (1037, 2, 8), (300, 9, 2)])
+def test_cuda_features_with_per_row_constants(cuda_device, N, p, n):
+    """The features kernel with per-row slots: each row bitwise the plain
+    version under its own slot's tile (C3: the plain version equals the
+    kernel bitwise); with every slot's constants equal, bitwise the shared
+    launch; one launch, counted as variant "slots"."""
+    ts, tile, _, _ = _stacked("hermite", p, n, None, 7)
+    tile = _on(tile, cuda_device)
+    X = tt(uniform(np.random.default_rng(N), (N, p))).to(cuda_device)
+    slots = torch.tensor(np.random.default_rng(p).integers(0, 7, N), dtype=torch.int32,
+                         device=cuda_device)
+    ops.reset_launch_counts()
+    got = ops.expansion_phi(X, tile, slots)
+    assert ops.launch_counts()["phi_features"] == {"slots": 1}
+    assert torch.equal(got, thp.phi_features_plain(X, tile, slots))
+    for s in range(7):
+        rows = torch.nonzero(slots == s)[:, 0]
+        assert torch.equal(got[rows], thp.phi_features_plain(X[rows], thp.slot_tile(tile, s)))
+    shared = thp.slot_tile(tile, 3)
+    same = dataclasses.replace(shared, consts=shared.consts.expand(7, p, 3).contiguous())
+    assert torch.equal(ops.expansion_phi(X, same, slots), ops.expansion_phi(X, shared))

@@ -185,9 +185,7 @@ def test_unported_router_paths_raise():
     for call in (lambda: BankRouter(tb, metrics=object()),
                  lambda: BankRouter(tb, tracer=object()),
                  lambda: BankRouter(tb, donate_updates=True),
-                 lambda: router.rebalance(),
-                 lambda: router.stale_tenants(16),
-                 lambda: router.reoptimize([0], None, None)):
+                 lambda: router.rebalance()):
         with pytest.raises(UnsupportedError, match="does not support") as e:
             call()
         assert e.value.layer == "port" and "ROADMAP" in str(e.value)
@@ -240,10 +238,12 @@ def test_fleet_dataset_is_the_jax_loops_data():
         np.testing.assert_array_equal(yb[t], (np.asarray(y) + want_off[t])[:10])
 
 
+# window and reopt_every are ported (ROADMAP A2, A3): a window with the
+# cold tier, and a capacity with it, are what stays refused
 @pytest.mark.parametrize("option", [
-    {"engine": "pipelined"}, {"cold_dir": "unused"}, {"window": 4}, {"shards": 2},
-    {"reopt_every": 1}, {"metrics": object()}, {"tracer": object()},
-    {"watchdog": object()},
+    {"engine": "pipelined"}, {"cold_dir": "unused"}, {"cold_dir": "unused", "window": 4},
+    {"shards": 2}, {"cold_dir": "unused", "capacity": 8}, {"metrics": object()},
+    {"tracer": object()}, {"watchdog": object()},
 ])
 def test_serve_fleet_refuses_what_is_not_ported(option):
     kw = {"engine": "sync", "device": "cpu", **FLEET, **option}
@@ -257,6 +257,8 @@ def test_serve_fleet_refuses_bad_settings():
         t_serve.serve_fleet(engine="async", device="cpu")
     with pytest.raises(ValueError, match="cold tier"):
         t_serve.serve_fleet(engine="sync", device="cpu", capacity=8)
+    with pytest.raises(ValueError, match="capacity/window need a cold tier; pass cold_dir"):
+        t_serve.serve_fleet(engine="sync", device="cpu", window=4)
 
 
 def test_fleet_cli_runs_on_cpu(capsys):
