@@ -106,7 +106,30 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    downdated bank on mixed-tenant queries, both against a float64 refit for
    8 tenants; a mixed call whose bogus groups report ``ok=False`` and keep
    their slots bitwise; (c) the JAX package's own downdate gate
-   (benchmarks/tenant_churn.py's shape) on both backends.
+   (benchmarks/tenant_churn.py's shape) on both backends;
+9. pipelined fleet serving and the tiered bank (ROADMAP A4) at the fleet's
+   width: (a) ``serve_fleet(engine="pipelined", max_in_flight=4,
+   queue_budget=16384)`` on phase 5's fleet and traffic with a metrics
+   registry, a tracer and a recompile watchdog (``"count"``, armed after
+   every serving shape was warmed on a bank of the same shapes), its
+   launches exact (one bank fit, a features launch per dispatched block and
+   per ingest round, a batched sweep per ingest round), rmse < 0.1, no
+   ticket dropped or timed out, no watchdog growth over rounds 1-3, the
+   trace through ``tools/check_trace.py``; q/s, ``query_mean_s``, the
+   engine's p50/p99 and bucket usage beside phase 5's sync run; then on the
+   fitted bank 4 blocks through ``submit``/``pump`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host-device barrier on
+   the dispatch path), their results against direct ``GPBank.mean_var``
+   (1e-5), the peak bytes with 4 top-rung blocks in flight, a burst under a
+   1 us SLO answered with the timeout sentinel, and an ingest with
+   ``donate_updates=True`` against the plain one (1e-6; written in place,
+   the donor raising on use; both timed); (b) the same data over a cold tier
+   (``cold_dir``, capacity 448, window 10^4, 2 rounds, re-optimizing after
+   round 1 as phase 8a does): 64 cold saves at fit, page-ins paired with
+   evictions, ``aged_rows`` the rows beyond each stale tenant's window (a
+   replay of the fleet's draws), the downdate's ok count and refit
+   fallbacks, a paged-in tenant served as its own checkpoint's session
+   (1e-5), rmse < 0.1; ``TieredBank.fit``, a page-in and ``age`` timed.
 
 Prints the features kernel's times by shape on a ``[features]`` line, one
 JSON line with every kernel's numbers (the features kernel's ``ms`` its
@@ -118,6 +141,7 @@ rate (67 TFLOP/s, 3.35 TB/s at 700 W); the power limit is printed beside.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -208,6 +232,15 @@ REOPT_FLEET = dict(FLEET, rounds=2, reopt_every=2, reopt_min_rows=12, reopt_step
 FORGET = 16
 # benchmarks/tenant_churn.py:48-53, the JAX package's own downdate gate
 CHURN = dict(tenants=16, n_train=40, p=2, n=6, noise=0.1, forget=6)
+# phase 9, ROADMAP A4: phase 5's fleet and traffic through the pipelined
+# engine (queue budget raised past a round's 8,192 queries: submit never
+# harvests, so the default 4,096 refuses the round's second half); then the
+# same data over a cold tier of 64 of the 512 tenants, a window of 10^4
+# rows, aged and re-optimized after round 1 (phase 8a's cuts: 2 rounds, 3
+# steps, 1 restart, 12 rows)
+PIPE = dict(FLEET, max_in_flight=4, queue_budget=16384)
+TIER = dict(PIPE, rounds=2, capacity=448, window=10_000, reopt_every=2, reopt_steps=3,
+            reopt_restarts=1, reopt_min_rows=12)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -229,6 +262,397 @@ def ptxas_functions(log: str):
             out.append((fn, line.split(":", 1)[1].strip(), spill))
             fn, spill = None, ""
     return out
+
+
+def phase9(dev, fspec, fout, compare, Xq16) -> dict:
+    """Phase 9 (ROADMAP A4): pipelined fleet serving and the tiered bank at
+    the fleet's width.  ``fout`` is phase 5's sync run of the same fleet,
+    ``fspec`` its spec, ``Xq16`` its 256 mixed queries.  Returns the numbers
+    it printed on its ``[phase 9]`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bank import BankRouter, FleetEngine, GPBank
+    from repro_torch.checkpoint import gpstate
+    from repro_torch.core.gp import GP
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_gp import fleet_dataset, serve_fleet
+    from repro_torch.obs import MetricsRegistry, RecompileWatchdog, Tracer, serving_watchdog
+
+    P, T = PIPE, TIER
+    B, N, p = P["tenants"], P["n_train"], P["p"]
+    t_phase = time.perf_counter()
+    report: dict = {}
+
+    class RoundWatchdog(RecompileWatchdog):
+        """Stamps each growth with the tracer's clock (microseconds), so
+        growth after round 0 can be told from round 0's."""
+
+        stamps: list
+
+        def check(self, context=""):
+            grew = super().check(context)
+            if grew:
+                self.stamps.append((time.perf_counter_ns() // 1000, sum(grew.values())))
+            return grew
+
+    # (a) warm the serving shapes (every rung of the ladder, one ingest
+    # round of the fleet's bucket) on a bank of the fleet's data, then arm
+    _, Xb_np, yb_np, pools = fleet_dataset(
+        np.random.default_rng(P["seed"]), tenants=B, n_train=N, p=p, rounds=P["rounds"],
+        observations_per_round=P["observations_per_round"], noise=P["noise"], seed=P["seed"])
+    wbank = GPBank.fit(torch.from_numpy(Xb_np), torch.from_numpy(yb_np), fspec)
+    wd = RoundWatchdog(mode="count")
+    wd.stamps = []
+    serving_watchdog(watchdog=wd)
+    weng = FleetEngine(BankRouter(wbank, microbatch=P["microbatch"],
+                                  ingest_chunk=P["ingest_chunk"]), auto_pump=False)
+    call = wbank._serving_entry()
+    for rung in weng.buckets:
+        call(np.zeros(rung, np.int64), np.zeros((rung, p), np.float32))
+    for t in range(B):
+        weng.observe(t, pools[t][0][0], float(pools[t][1][0]))
+    weng.ingest()
+    del weng, wbank, call
+    torch.cuda.synchronize()
+    wd.arm()
+
+    # the pipelined fleet: phase 5's data and traffic through the JAX
+    # package's default engine, with a registry, a tracer and the watchdog
+    reg, tracer = MetricsRegistry(), Tracer()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pout = serve_fleet(engine="pipelined", backend="pallas", device=dev, metrics=reg,
+                       tracer=tracer, watchdog=wd, **P)
+    run_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    run_peak = torch.cuda.max_memory_allocated() - mem0
+    pbank = pout.pop("bank")
+    lat = pout["latency"]
+    blocks = sum(lat["bucket_uses"].values())
+    irounds = sum(h["ingest_rounds"] for h in pout["rounds"])
+    for h, s in zip(pout["rounds"], fout["rounds"]):
+        print(f"[pipelined] round {h['round']}: rows_absorbed={h['rows_absorbed']} "
+              f"ingest_s={h['ingest_s']:.4f} query_s={h['query_s']:.4f} "
+              f"query_mean_s={h['query_mean_s']:.5f} queries_per_s={h['queries_per_s']:.1f} "
+              f"rmse={h['rmse']:.5f} timeouts={h['timeouts']}; phase 5 sync: "
+              f"query_mean_s={s['query_mean_s']:.5f} queries_per_s={s['queries_per_s']:.1f}")
+    o = lat["overall"]
+    print(f"[pipelined] engine p50={o['p50_s'] * 1e3:.3f} ms p99={o['p99_s'] * 1e3:.3f} ms "
+          f"sustained_qps={o['sustained_qps']:.1f} completed={o['completed']} "
+          f"expired={o['expired']} buckets={sorted(lat['bucket_uses'].items())}; "
+          f"serve_fleet {run_s:.2f} s, peak {run_peak / 1e9:.3f} GB above the "
+          f"{mem0 / 1e9:.3f} GB held")
+    # 1 bank fit; per ingest round a features launch and a batched sweep;
+    # per dispatched block a features launch
+    expected = {"phi_features": {"": blocks + irounds}, "phi_gram": {"bank": 1},
+                "diag_quad": {}, "chol_update": {"batched": irounds}, "scaled_gram": {}}
+    print(f"[pipelined] launches={json.dumps(counts)}")
+    check(counts == expected, f"pipelined fleet launches {counts} != expected {expected}")
+    check(all(h["rmse"] < 0.1 and h["var_finite"] for h in pout["rounds"]),
+          "pipelined fleet: rmse >= 0.1 or non-finite variances")
+    check(all(h["timeouts"] == 0 for h in pout["rounds"]) and o["expired"] == 0
+          and o["completed"] == P["rounds"] * P["queries_per_round"],
+          f"pipelined fleet dropped or timed out tickets: {o}")
+    spans = tracer.events()
+    ingests = sorted(e["ts"] for e in spans if e["name"] == "ingest")
+    round1 = ingests[pout["rounds"][0]["ingest_rounds"]]
+    later = sum(n for ts, n in wd.stamps if ts >= round1)
+    print(f"[pipelined] watchdog (count, armed after the warm-up): {wd.recompiles} growths "
+          f"in all, {later} over rounds 1-{P['rounds'] - 1}; events={wd.events}")
+    check(later == 0, f"the serving path grew a shape after round 0: {wd.events}")
+    with tempfile.TemporaryDirectory() as td:
+        path = Path(td) / "trace.jsonl"
+        n_ev = tracer.write_jsonl(path)
+        want = ("bucket_select", "coalesce", "dispatch", "device_wait", "harvest", "ingest")
+        r = subprocess.run([sys.executable, str(ROOT / "tools" / "check_trace.py"), str(path),
+                            "--expect", *want], capture_output=True, text=True)
+    names = sorted({e["name"] for e in spans})
+    print(f"[pipelined] trace: {n_ev} events, spans {names}; tools/check_trace.py rc="
+          f"{r.returncode} {r.stdout.strip()} {r.stderr.strip()}")
+    check(r.returncode == 0, "the pipelined fleet's trace failed tools/check_trace.py")
+    snap = reg.snapshot()["counters"]
+    print(f"[pipelined] registry counters: {json.dumps(snap)}")
+
+    # on the fitted bank: a stream of 4 blocks of the top rung (serve_fleet's
+    # engine, max_coalesce 4: 1,024 rows) through submit / pump under
+    # sync-debug "error" (no host-device barrier on the dispatch path), its
+    # results against direct GPBank.mean_var
+    mb = P["microbatch"]
+    seng = FleetEngine(BankRouter(pbank, microbatch=mb), auto_pump=False, max_in_flight=4)
+    top = seng.buckets[-1]
+    qrng = np.random.default_rng(21)
+    ids9 = qrng.integers(0, B, 4 * top)
+    X9 = qrng.uniform(-1.0, 1.0, (4 * top, p)).astype(np.float32)
+
+    def stream():
+        tks = []
+        for blk in range(4):
+            tks += [seng.submit(int(ids9[i]), X9[i]) for i in range(blk * top, (blk + 1) * top)]
+            seng.pump(max_blocks=1)
+        return tks
+
+    stream()
+    seng.drain()                  # warm: the pinned host blocks, the bank's B^-1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tks = stream()
+        in_flight = seng.in_flight_blocks
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res = seng.drain()
+    stream_buckets = dict(seng.bucket_uses)
+    print(f"[check] 4 blocks of {top} through submit/pump under set_sync_debug_mode('error'): "
+          f"no host-device sync; {in_flight} blocks in flight before the drain; "
+          f"buckets {stream_buckets}")
+    check(in_flight == 4, f"{in_flight} blocks in flight, expected 4")
+    check(stream_buckets == {top: 8}, f"the stream's blocks were {stream_buckets}, "
+          f"expected 8 of {top} rows (warm-up and checked stream)")
+    # the direct calls take the same 1,024-row batches the engine dispatched
+    direct = [pbank.mean_var([int(t) for t in ids9[i:i + top]],
+                             torch.from_numpy(X9[i:i + top]).to(dev))
+              for i in range(0, 4 * top, top)]
+    compare(f"pipelined vs direct GPBank.mean_var (4 x {top} mixed queries)",
+            [torch.tensor([res[t].mu for t in tks]), torch.tensor([res[t].var for t in tks])],
+            [torch.cat([m for m, _ in direct]).cpu(), torch.cat([v for _, v in direct]).cpu()],
+            rtol=0.0, atol=1e-5, why="benchmarks/serve_latency.py gate")
+    del direct
+
+    # peak bytes with max_in_flight blocks of the top rung dispatched, and
+    # the time to dispatch them, for the device to finish them and to
+    # harvest them, 5 times, with the device allocator's cudaMalloc calls
+    # and free-and-retry passes in each and the host's garbage collections
+    # (ms in all, full passes)
+    peng = FleetEngine(BankRouter(pbank, microbatch=mb), auto_pump=False, max_in_flight=4)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch_ms, device_ms, harvest_ms, allocs, gcs = [], [], [], [], []
+    gc_now = {"t": 0.0, "ms": 0.0, "full": 0}
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            gc_now["t"] = time.perf_counter()
+        else:
+            gc_now["ms"] += (time.perf_counter() - gc_now["t"]) * 1e3
+            gc_now["full"] += info["generation"] == 2
+
+    def alloc_stats():
+        st = torch.cuda.memory_stats()
+        return st.get("num_device_alloc", -1), st.get("num_alloc_retries", -1)
+
+    gc.callbacks.append(gc_timer)
+    try:
+        for _ in range(5):
+            for i in range(4 * top):
+                peng.submit(int(ids9[i]), X9[i])
+            torch.cuda.synchronize()
+            a0 = alloc_stats()
+            gc_now.update(ms=0.0, full=0)
+            t0 = time.perf_counter()
+            peng.pump()
+            pumped = peng.in_flight_blocks
+            dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            device_ms.append((time.perf_counter() - t0) * 1e3)
+            peng.drain()
+            harvest_ms.append((time.perf_counter() - t0) * 1e3)
+            allocs.append([b - a for a, b in zip(a0, alloc_stats())])
+            gcs.append([round(gc_now["ms"], 2), gc_now["full"]])
+    finally:
+        gc.callbacks.remove(gc_timer)
+    in_flight_peak = torch.cuda.max_memory_allocated() - held
+    print(f"[pipelined] {pumped} blocks of {top} in flight, 5 times: dispatched in "
+          f"{[round(v, 2) for v in dispatch_ms]} ms, device done after "
+          f"{[round(v, 2) for v in device_ms]} ms, harvested after "
+          f"{[round(v, 2) for v in harvest_ms]} ms; (cudaMalloc calls, allocator retries) "
+          f"{allocs}; (host gc ms, full gc passes) {gcs}; peak "
+          f"{in_flight_peak / 1e9:.3f} GB above the {held / 1e9:.3f} GB held")
+
+    # a burst under a 1 us SLO: every ticket expires before its dispatch
+    teng = FleetEngine(BankRouter(pbank, microbatch=mb), auto_pump=False, default_slo_s=1e-6)
+    ttk = [teng.submit(int(ids9[i]), X9[i]) for i in range(2 * mb)]
+    tres = teng.drain()
+    sentinel = all(tres[t].timed_out and math.isnan(tres[t].mu) and tres[t].var == math.inf
+                   for t in ttk)
+    expired = teng.metrics()["overall"]["expired"]
+    print(f"[check] burst of {len(ttk)} under slo 1e-6 s: {expired} expired, every one the "
+          f"timeout sentinel {sentinel}")
+    check(sentinel and expired == len(ttk), "the SLO burst did not answer with the sentinel")
+
+    # ingest with donate_updates=True against the plain ingest of the same
+    # rows; the donor bank raises on use
+    donor = dataclasses.replace(pbank, stack=dataclasses.replace(
+        pbank.stack, **{f: getattr(pbank.stack, f).clone() for f in ("chol", "u", "b")}))
+    donor._binv                   # the cache is donated with the stack
+    chol_ptr = donor.stack.chol.data_ptr()
+    orng = np.random.default_rng(22)
+    plain_r = BankRouter(pbank, ingest_chunk=P["ingest_chunk"])
+    don_r = BankRouter(donor, ingest_chunk=P["ingest_chunk"], donate_updates=True)
+    for _ in range(P["observations_per_round"]):
+        t = int(orng.integers(0, B))
+        x, yv = pools[t][0][N + 64], float(pools[t][1][N + 64])
+        plain_r.observe(t, x, yv)
+        don_r.observe(t, x, yv)
+    ing = {}
+    for name, router in (("plain", plain_r), ("donated", don_r)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        router.ingest()
+        torch.cuda.synchronize()
+        ing[name] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base)
+    dm = don_r.bank.mean_var([int(t) for t in ids9[:mb]], Xq16)
+    pm = plain_r.bank.mean_var([int(t) for t in ids9[:mb]], Xq16)
+    compare("donated vs plain ingest, mean and variance (256 mixed queries)", list(dm), list(pm),
+            rtol=0.0, atol=1e-6, why="tests/test_serve_engine.py:308-328 gate")
+    try:
+        donor.mean_var([0], Xq16[:1])
+        donor_raises = False
+    except RuntimeError:
+        donor_raises = True
+    print(f"[check] donated ingest wrote in place "
+          f"{don_r.bank.stack.chol.data_ptr() == chol_ptr}, the donor raises on use "
+          f"{donor_raises}; ingest_s plain {ing['plain'][0]:.4f} (peak "
+          f"{ing['plain'][1] / 1e9:.3f} GB), donated {ing['donated'][0]:.4f} (peak "
+          f"{ing['donated'][1] / 1e9:.3f} GB)")
+    check(donor_raises and don_r.bank.stack.chol.data_ptr() == chol_ptr,
+          "the donated ingest did not write in place, or its donor still serves")
+    report["pipelined"] = {
+        "queries_per_s": [h["queries_per_s"] for h in pout["rounds"]],
+        "query_mean_s": [h["query_mean_s"] for h in pout["rounds"]],
+        "sync_queries_per_s": [h["queries_per_s"] for h in fout["rounds"]],
+        "sync_query_mean_s": [h["query_mean_s"] for h in fout["rounds"]],
+        "p50_s": o["p50_s"], "p99_s": o["p99_s"], "sustained_qps": o["sustained_qps"],
+        "bucket_uses": lat["bucket_uses"], "fit_s": pout["fit_s"],
+        "ingest_s": [h["ingest_s"] for h in pout["rounds"]], "run_peak_bytes": run_peak,
+        "in_flight_peak_bytes": in_flight_peak, "in_flight_dispatch_ms": dispatch_ms,
+        "in_flight_device_ms": device_ms, "in_flight_harvest_ms": harvest_ms,
+        "in_flight_allocs": allocs, "in_flight_gc": gcs, "watchdog_growth_after_round0": later,
+        "ingest_plain_s": ing["plain"][0], "ingest_donated_s": ing["donated"][0],
+        "ingest_plain_peak_bytes": ing["plain"][1],
+        "ingest_donated_peak_bytes": ing["donated"][1]}
+    del pbank, donor, plain_r, don_r, seng, peng, teng, dm, pm
+    torch.cuda.empty_cache()
+
+    # (b) the tiered fleet: the same data over a cold tier with capacity for
+    # 448 of the 512 tenants, a window of 10^4 rows, aged and re-optimized
+    # after round 1
+    reg_b, tr_b = MetricsRegistry(), Tracer()
+    with tempfile.TemporaryDirectory() as cold:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tout = serve_fleet(engine="pipelined", backend="pallas", device=dev, cold_dir=cold,
+                           metrics=reg_b, tracer=tr_b, **T)
+        tier_run_s = time.perf_counter() - t0
+        tcounts = ops.launch_counts()
+        tier = tout.pop("tiered")
+        tout.pop("bank")
+        lc = tout["lifecycle"]
+        for h in tout["rounds"]:
+            print(f"[tiered] round {h['round']}: rows_absorbed={h['rows_absorbed']} "
+                  f"ingest_s={h['ingest_s']:.4f} query_mean_s={h['query_mean_s']:.5f} "
+                  f"queries_per_s={h['queries_per_s']:.1f} rmse={h['rmse']:.5f} "
+                  f"timeouts={h['timeouts']} aged_rows={h['aged_rows']} "
+                  f"reopt_tenants={h['reopt_tenants']} reopt_s={h['reopt_s']:.3f}")
+        print(f"[tiered] TieredBank.fit (in fit_s) {tout['fit_s']:.3f} s; lifecycle "
+              f"{json.dumps(lc)}; serve_fleet {tier_run_s:.1f} s")
+        fit_saves = lc["cold_saves"] - lc["evictions"]
+        check(fit_saves == T["tenants"] - T["capacity"],
+              f"{fit_saves} cold saves at fit, expected {T['tenants'] - T['capacity']}")
+        check(lc["warm_restores"] > 0 and lc["evictions"] == lc["warm_restores"],
+              f"page-ins and evictions do not pair up in a full tier: {lc}")
+        check(all(h["rmse"] < 0.1 and h["timeouts"] == 0 for h in tout["rounds"]),
+              "tiered fleet: rmse >= 0.1 or timeouts")
+        # aged rows: replay the fleet's observation draws; a stale tenant
+        # (re-optimized, so aged) keeps exactly its window, every other
+        # observed tenant more, so the aged set is read off the windows
+        rng = np.random.default_rng(T["seed"])
+        rng.uniform(-1.0, 1.0, size=T["tenants"])
+        seen = np.zeros(T["tenants"], np.int64)
+        for _ in range(T["rounds"]):
+            for _ in range(T["observations_per_round"]):
+                seen[int(rng.integers(0, T["tenants"]))] += 1
+            rng.integers(0, T["tenants"], T["queries_per_round"])
+            rng.uniform(-1.0, 1.0, size=(T["queries_per_round"], T["p"]))
+        W = T["window"]
+        aged = [t for t in range(T["tenants"])
+                if seen[t] and len(tier.window_rows(t)[1]) == W]
+        aged_rows = sum(h["aged_rows"] for h in tout["rounds"])
+        reopt_n = sum(h["reopt_tenants"] for h in tout["rounds"])
+        want_rows = int(sum(seen[t] for t in aged))
+        print(f"[check] aged_rows={aged_rows}: the rows beyond each stale tenant's window "
+              f"({len(aged)} tenants at exactly {W} rows, {want_rows} rows; "
+              f"{reopt_n} re-optimized; all had >= {T['reopt_min_rows']} new rows "
+              f"{bool(all(seen[t] >= T['reopt_min_rows'] for t in aged))}); downdate ok "
+              f"for {len(aged) - lc['refit_fallbacks']} of {len(aged)}, "
+              f"{lc['refit_fallbacks']} refit fallbacks")
+        check(aged_rows == want_rows and len(aged) == reopt_n > 0
+              and all(seen[t] >= T["reopt_min_rows"] for t in aged),
+              "aged_rows is not the rows beyond the stale tenants' windows")
+        # launches: the hot bank's fit and the cold chunk's (one bank launch
+        # each); per ingest round (the router's counter: a page-in at full pin
+        # coverage may ingest early) a features launch and a batched sweep;
+        # one downdate of every aged tenant, with its features launch, and a
+        # per-slot refit for its lost pivots; per re-optimized lane a fused fit
+        # a step and one for its final value, and the per-slot refit; per
+        # dispatched block a features launch, per-row once re-optimized (the
+        # blocks dispatched after the reopt span)
+        ev_b = tr_b.events()
+        reopt_ts = min(e["ts"] for e in ev_b if e["name"] == "reopt")
+        dispatched = [e["ts"] for e in ev_b if e["name"] == "dispatch"]
+        pre = sum(ts < reopt_ts for ts in dispatched)
+        irounds_b = reg_b.snapshot()["counters"]["router_ingest_rounds_total"]
+        fallback = 1 if lc["refit_fallbacks"] else 0
+        tier_expected = {
+            "phi_features": {k: v for k, v in (("", pre + irounds_b + 1),
+                                               ("slots", len(dispatched) - pre)) if v},
+            "phi_gram": {"bank": 2, "bank_slots": 1 + fallback,
+                         "moments": reopt_n * T["reopt_restarts"] * (T["reopt_steps"] + 1)},
+            "diag_quad": {},
+            "chol_update": {"batched": irounds_b, "downdate": 1},
+            "scaled_gram": {},
+        }
+        print(f"[tiered] launches={json.dumps(tcounts)} ({len(dispatched)} blocks, {pre} "
+              f"before the reopt; {irounds_b} ingest rounds)")
+        check(tcounts == tier_expected,
+              f"tiered fleet launch counts {tcounts} != expected {tier_expected}")
+        age_ms = [e["dur"] / 1e3 for e in tr_b.events() if e["name"] == "age"]
+        # a page-in: restore (load_state) and insert, evicting the LRU tenant
+        cold_t = tier.cold_tenants[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st_c, _ = gpstate.load_state(tier._cold_path(cold_t), like_spec=tier.spec, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tier.page_in(cold_t)
+        torch.cuda.synchronize()
+        page_in_s = time.perf_counter() - t0
+        m1, v1 = GP.from_state(st_c).mean_var(Xq16)
+        m2, v2 = tier.bank.mean_var([cold_t] * Xq16.shape[0], Xq16)
+        compare(f"paged-in tenant {cold_t} vs its own checkpoint's session", [m2, v2], [m1, v1],
+                rtol=0.0, atol=1e-5, why="tests/test_lifecycle.py:277 gate")
+        print(f"[tiered] page-in of tenant {cold_t}: {page_in_s * 1e3:.2f} ms (restore alone "
+              f"{restore_s * 1e3:.2f} ms; insert and the LRU eviction the rest); age "
+              f"{age_ms} ms (trace)")
+        report["tiered"] = {
+            "fit_s": tout["fit_s"], "lifecycle": lc, "aged_rows": aged_rows,
+            "reopt_tenants": reopt_n, "page_in_s": page_in_s, "restore_s": restore_s,
+            "age_ms": age_ms, "launches": tcounts, "rmse": [h["rmse"] for h in tout["rounds"]],
+            "query_mean_s": [h["query_mean_s"] for h in tout["rounds"]],
+            "reopt_s": [h["reopt_s"] for h in tout["rounds"]], "run_s": tier_run_s}
+        del tier, st_c
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print("[phase 9] " + json.dumps(report))
+    print(f"[phase 9] took {report['seconds']:.1f} s")
+    return report
 
 
 def main() -> int:
@@ -896,13 +1320,16 @@ def main() -> int:
         library_ms=bank_lib_ms, bound=bound(bf_flops, bf_bytes))
 
     # the features kernel (TPU #2) at the fleet's shapes: a query
-    # microbatch (256 rows of mixed tenants) and an ingest round's rows
-    # (every slot's 16-row group, 8,192 rows)
+    # microbatch (256 rows of mixed tenants), the pipelined engine's top
+    # rung (4 coalesced microbatches, 1,024 rows: phase 9's usual block) and
+    # an ingest round's rows (every slot's 16-row group, 8,192 rows)
     K = F["ingest_chunk"]
     Xk = torch.from_numpy(np.stack([pool[0][N:N + K] for pool in pools])).to(dev)
     yk = torch.from_numpy(np.stack([pool[1][N:N + K] for pool in pools])).to(dev)
+    Xq1k = torch.from_numpy(np.random.default_rng(23).uniform(
+        -1.0, 1.0, (4 * F["microbatch"], p)).astype(np.float32)).to(dev)
     tol_fphi = dict(tol_phi, rtol=4e-5 * max(4, F["n"]))
-    for r in (Xq16, Xk.reshape(-1, p)):
+    for r in (Xq16, Xq1k, Xk.reshape(-1, p)):
         compare(f"fleet phi_features ({r.shape[0]}x{FM})", [ops.expansion_phi(r, ftile)],
                 [plain(lambda: kphi.phi_features_plain(r, ftile))], **tol_fphi)
         features_line(r, ftile, F["n"])
@@ -1860,6 +2287,9 @@ def main() -> int:
         "features_per_row": feat8, "bank_per_slot": bank8, "downdate_s": downdate_s,
         "refit_s": refit_s, "downdate_vs_refit": dist, "from_float64": far}))
     print(f"[reopt] phase took {time.perf_counter() - phase8_t0:.1f} s")
+
+    # -- 9. pipelined fleet serving and the tiered bank (ROADMAP A4) -------
+    phase9(dev, fspec, fout, compare, Xq16)
 
     # -- results --------------------------------------------------------------
     kernels = []

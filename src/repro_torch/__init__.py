@@ -1,10 +1,10 @@
 """PyTorch/CUDA port of the FAGP system in ``repro`` (the JAX package).
 
 The layout mirrors ``repro`` (``core/``, ``kernels/``, ``bank/``,
-``optim/``, ``data/``, ``launch/``) so every module has a counterpart
-there, and the JAX package is the reference each module is tested
-against.  The package imports
-``torch`` only: nothing of ``jax`` and nothing of ``repro``.
+``optim/``, ``data/``, ``launch/``, ``checkpoint/``, ``obs/``) so every
+module has a counterpart there, and the JAX package is the reference each
+module is tested against.  The package imports ``torch`` only: nothing of
+``jax`` and nothing of ``repro``.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``; with no
 card it raises instead of carrying on on the CPU (pass ``device="cpu"`` to

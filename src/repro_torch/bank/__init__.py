@@ -1,13 +1,28 @@
-"""Batched multi-tenant GP serving: a bank of sessions and its router.
+"""Batched multi-tenant GP serving: a bank of sessions, its router, the
+pipelined engine and the tiered lifecycle.
 
-Counterpart of ``repro/bank`` for the synchronous fleet path: ``GPBank``
-keeps B fitted sessions on the device as one stacked state and serves,
-fits and updates them with batched calls; ``BankRouter`` coalesces
-per-tenant query and observation queues into the padded batches the bank
-wants.  The pipelined ``FleetEngine``, the tiered lifecycle and the sharded
-bank come with later slices of the port (ROADMAP.md).
+Counterpart of ``repro/bank``: ``GPBank`` keeps B fitted sessions on the
+device as one stacked state and serves, fits and updates them with batched
+calls; ``BankRouter`` coalesces per-tenant query and observation queues
+into the padded batches the bank wants; ``FleetEngine`` serves through the
+router with dispatch-ahead, deadlines and bucket autotuning; ``TieredBank``
+fronts a bank with a cold tier of checkpoints and sliding-window
+forgetting.  The sharded bank comes with a later slice of the port
+(ROADMAP.md).
 """
 from .bank import GPBank
+from .engine import (
+    TIMEOUT_MU,
+    TIMEOUT_VAR,
+    FleetEngine,
+    LatencyStats,
+    QueueFull,
+    TicketResult,
+)
+from .lifecycle import TieredBank
 from .router import BankRouter
 
-__all__ = ["GPBank", "BankRouter"]
+__all__ = [
+    "GPBank", "BankRouter", "FleetEngine", "LatencyStats", "QueueFull",
+    "TicketResult", "TIMEOUT_MU", "TIMEOUT_VAR", "TieredBank",
+]

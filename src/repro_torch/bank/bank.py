@@ -39,9 +39,18 @@ Entry points, each a few batched calls over the whole fleet:
 * :meth:`GPBank.insert` / :meth:`GPBank.evict` membership churn.
 
 A bank is immutable: every mutating method returns a new bank, and the old
-one serves exactly as before.  The port never writes a stack tensor in
-place: a mutation clones the leaves it changes (the JAX package's
-``.at[].set`` does the same).
+one serves exactly as before.  A mutation clones the leaves it changes (the
+JAX package's ``.at[].set`` does the same), with one exception: an update
+with ``donate=True`` (``BankRouter(donate_updates=True)``) writes into the
+old stack's storage, the counterpart of a donated JAX buffer, and the donor
+bank raises on any later use.
+
+The pipelined engine (``bank/engine.py``) serves through
+:meth:`GPBank._serving_entry`: slot map, features function, B^{-1} and
+feature table resolved once per bank object, the block's slots and rows
+staged through pinned memory and copied without a host-device barrier,
+its results copied back the same way behind a CUDA event that
+:meth:`GPBank.result_ready` polls.
 """
 from __future__ import annotations
 
@@ -54,13 +63,13 @@ import torch
 from ..core import fagp
 from ..core.expansions import get_expansion
 from ..core.fagp import FAGPState, GPSpec, _f32
-from ..core.gp import GP, _not_ported
+from ..core.gp import GP
 from ..core.mercer import SEKernelParams
+from ..obs.watchdog import shape_tracked
 
 __all__ = ["GPBank"]
 
 _LEAVES = ("lam", "sqrtlam", "chol", "u", "b")
-_OBS = "pipelined fleet serving with obs and the tiered bank (ROADMAP A4)"
 
 
 def _bank_mean_weights(chol, sqrtlam, b, sig2):
@@ -83,11 +92,24 @@ def _bank_solve(G, b, loglam, sig2):
     return lam, sqrtlam, chol, u
 
 
-def _scatter(stack: torch.Tensor, slots: torch.Tensor, rows: torch.Tensor):
-    """A new stack with ``rows`` written at ``slots`` (distinct)."""
-    out = stack.clone()
+def _scatter(stack: torch.Tensor, slots, rows: torch.Tensor, donate: bool = False):
+    """A new stack with ``rows`` written at ``slots`` (a device index tensor
+    of distinct slots, or one int slot); with ``donate``, ``stack`` itself,
+    written in place."""
+    out = stack if donate else stack.clone()
     out[slots] = rows.to(out.device)
     return out
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without a host-device barrier: on a card,
+    staged through pinned memory and copied with ``non_blocking=True`` (the
+    caching host allocator keeps the staging block until the copy is done);
+    on the CPU, the array's own storage."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _group_noise(noise: torch.Tensor):
@@ -98,15 +120,22 @@ def _group_noise(noise: torch.Tensor):
     return noise[:, None, None], (noise**2)[:, None]
 
 
-def _bank_update_scatter(chol_s, u_s, b_s, sqrtlam_s, noise, slots, Phi_g,
-                         y_g, mask_g, rank_update):
+def _keep_where(flag: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
+    """Per group (leading axis): ``new`` where ``flag``, else ``old``."""
+    return torch.where(flag.reshape(-1, *([1] * (new.ndim - 1))), new, old)
+
+
+def _bank_update_scatter_impl(chol_s, u_s, b_s, sqrtlam_s, noise, slots, Phi_g,
+                              y_g, mask_g, rank_update, donate=False):
     """Gather the slots' states, apply the rank-k update per group, scatter
-    into new stack tensors.  Padded rows (mask 0) zero their feature row,
-    which makes the rank-1 sweep an identity for them.  A *fully*-masked
-    group (the router's group-axis padding) leaves its slot bit-identical:
+    back.  Padded rows (mask 0) zero their feature row, which makes the
+    rank-1 sweep an identity for them.  A *fully*-masked group (the
+    router's group-axis padding) writes its gathered values back verbatim:
     the identity sweep is exact only up to sqrt rounding, and an untouched
     tenant must not drift.  The sweep runs on the gathered copy, never on
-    the stack's storage.  ``noise`` is the bank's or one per group (G,)."""
+    the stack's storage, and nothing here reads a device value on the host.
+    ``noise`` is the bank's or one per group (G,).  ``donate`` writes the
+    results into the stack's own tensors instead of new ones."""
     Phi_g = Phi_g * mask_g[..., None]
     y_g = y_g * mask_g
     chol_g = chol_s[slots]
@@ -115,14 +144,28 @@ def _bank_update_scatter(chol_s, u_s, b_s, sqrtlam_s, noise, slots, Phi_g,
     # B_new = B + sum_k v_k v_k^T,  v_k = D phi_k / sigma
     W = Phi_g * d[:, None, :] / nz
     ch = fagp._rank_k_chol(chol_g, W, rank_update)
-    bb = b_s[slots] + (Phi_g.mT @ y_g[..., None])[..., 0]
+    b_g = b_s[slots]
+    bb = b_g + (Phi_g.mT @ y_g[..., None])[..., 0]
     uu = _bank_mean_weights(ch, d, bb, sig2)
     real = torch.amax(mask_g, dim=1) > 0
-    live = slots[real]
-    return (_scatter(chol_s, live, ch[real]), _scatter(u_s, live, uu[real]),
-            _scatter(b_s, live, bb[real]))
+    return (_scatter(chol_s, slots, _keep_where(real, ch, chol_g), donate),
+            _scatter(u_s, slots, _keep_where(real, uu, u_s[slots]), donate),
+            _scatter(b_s, slots, _keep_where(real, bb, b_g), donate))
 
 
+@shape_tracked
+def _bank_update_scatter(*args):
+    return _bank_update_scatter_impl(*args)
+
+
+@shape_tracked
+def _bank_update_scatter_donated(*args):
+    """:func:`_bank_update_scatter` writing into the old stack's tensors:
+    the caller owns the bank exclusively and drops the donor."""
+    return _bank_update_scatter_impl(*args, donate=True)
+
+
+@shape_tracked
 def _bank_downdate_scatter(chol_s, u_s, b_s, sqrtlam_s, noise, slots, Phi_g,
                            y_g, mask_g, rank_downdate):
     """The downdate mirror of ``_bank_update_scatter``: gather the slots'
@@ -141,13 +184,34 @@ def _bank_downdate_scatter(chol_s, u_s, b_s, sqrtlam_s, noise, slots, Phi_g,
     nz, sig2 = _group_noise(noise)
     W = Phi_g * d[:, None, :] / nz
     ch, ok = rank_downdate(chol_g, W)
-    bb = b_s[slots] - (Phi_g.mT @ y_g[..., None])[..., 0]
+    b_g = b_s[slots]
+    bb = b_g - (Phi_g.mT @ y_g[..., None])[..., 0]
     uu = _bank_mean_weights(ch, d, bb, sig2)
     real = torch.amax(mask_g, dim=1) > 0
     good = ok & real
-    live = slots[good]
-    return (_scatter(chol_s, live, ch[good]), _scatter(u_s, live, uu[good]),
-            _scatter(b_s, live, bb[good]), ok | ~real)
+    return (_scatter(chol_s, slots, _keep_where(good, ch, chol_g)),
+            _scatter(u_s, slots, _keep_where(good, uu, u_s[slots])),
+            _scatter(b_s, slots, _keep_where(good, bb, b_g)), ok | ~real)
+
+
+@shape_tracked
+def _bank_refit_scatter(leaves: dict, slots, fresh: dict, mask_g) -> dict:
+    """New stack leaves with the refit's ``fresh`` per-group leaves written
+    at ``slots``; a fully-masked padding group writes its slot's own values
+    back verbatim."""
+    real = torch.amax(mask_g, dim=1) > 0
+    return {f: _scatter(old, slots, _keep_where(real, fresh[f], old[slots]))
+            for f, old in leaves.items()}
+
+
+@shape_tracked
+def _hetero_gathered_mean_var(stack, binv, slots, Xq, eps_s, rho_s, backend, cache):
+    """Mixed-tenant serving of a heterogeneous bank: each row's features
+    under its slot's (eps, rho) (one launch of the features kernel with
+    per-row constants on the ``pallas`` backend), then the gathered
+    posterior."""
+    Phis = backend.slot_features(Xq, stack.spec, stack.idx, eps_s, rho_s, slots, stack, cache)
+    return fagp._bank_gathered_posterior(binv, stack.u, stack.sqrtlam, slots, Phis)
 
 
 def _bank_hetero_refit(Xb, yb, maskb, eps_b, rho_b, noise_b, spec, idx):
@@ -170,10 +234,11 @@ def _bank_hetero_refit(Xb, yb, maskb, eps_b, rho_b, noise_b, spec, idx):
     return torch.exp(loglam), sqrtlam, chol, u, b
 
 
+@shape_tracked
 def _write_slot(stack: FAGPState, slot: int, values: dict) -> dict:
-    """New leaves with one tenant's values written at ``slot``."""
-    index = torch.tensor([slot], device=stack.chol.device)
-    return {f: _scatter(getattr(stack, f), index, values[f][None]) for f in _LEAVES}
+    """New leaves with one tenant's values written at ``slot`` (a host int:
+    no index tensor to copy to the card)."""
+    return {f: _scatter(getattr(stack, f), slot, values[f]) for f in _LEAVES}
 
 
 def _prior_leaves(loglam: torch.Tensor, count: int) -> dict:
@@ -452,10 +517,20 @@ class GPBank:
                 f"{self.tenants!r})"
             ) from None
 
+    def _check_live(self) -> None:
+        """Raise on a bank whose stack was donated to an update (the
+        counterpart of reading a donated JAX buffer)."""
+        if self.__dict__.get("_donated"):
+            raise RuntimeError(
+                "this GPBank's stack was donated to an update (donate=True) and "
+                "written in place; use the bank that update returned"
+            )
+
     def state(self, tenant: Hashable) -> FAGPState:
         """The tenant's session, unstacked: a normal single-model FAGPState
         usable with every ``fagp``/``GP`` entry point.  In a heterogeneous
         bank its spec carries the tenant's OWN hyperparameters."""
+        self._check_live()
         s = self.slot_of(tenant)
         st = dataclasses.replace(
             self.stack, **{f: getattr(self.stack, f)[s] for f in _LEAVES})
@@ -506,21 +581,25 @@ class GPBank:
         kept on the instance: a bank is immutable, so it never goes stale.
         Mutations that know their slots carry it forward with only those
         rows refreshed (``_carry_binv_into``)."""
+        self._check_live()
         cached = self.__dict__.get("_binv_cache")
         if cached is None:
             cached = fagp._bank_binv(self.stack.chol)
             object.__setattr__(self, "_binv_cache", cached)
         return cached
 
-    def _carry_binv_into(self, new: "GPBank", slots: torch.Tensor) -> None:
+    def _carry_binv_into(self, new: "GPBank", slots, donate: bool = False) -> None:
         """If this bank already paid for the full cache, hand it to ``new``
-        with the rows of ``slots`` refreshed, instead of making the next
-        query recompute B^{-1} for the whole capacity."""
+        with the rows of ``slots`` (a device index tensor, or one int slot)
+        refreshed, instead of making the next query recompute B^{-1} for
+        the whole capacity; with ``donate``, refreshed in place."""
         cached = self.__dict__.get("_binv_cache")
         if cached is not None:
-            slots = torch.atleast_1d(slots)
-            rows = fagp._bank_binv(new.stack.chol[slots])
-            object.__setattr__(new, "_binv_cache", _scatter(cached, slots, rows))
+            if isinstance(slots, int):
+                rows = fagp._bank_binv(new.stack.chol[slots:slots + 1])[0]
+            else:
+                rows = fagp._bank_binv(new.stack.chol[slots])
+            object.__setattr__(new, "_binv_cache", _scatter(cached, slots, rows, donate))
 
     def _slots_for(self, tenant_ids) -> torch.Tensor:
         if isinstance(tenant_ids, (str, bytes)) or not hasattr(tenant_ids, "__iter__"):
@@ -529,14 +608,23 @@ class GPBank:
                 f"(got a scalar {tenant_ids!r}); for a single-tenant batch "
                 "pass [tenant] * len(Xq)"
             )
-        return torch.tensor([self.slot_of(t) for t in tenant_ids],
-                            dtype=torch.long, device=self.spec.device)
+        return _to_device(np.fromiter((self.slot_of(t) for t in tenant_ids), np.int64),
+                          self.spec.device)
 
     def _group_slots(self, slots, G: int, who: str) -> torch.Tensor:
-        slots = torch.as_tensor(slots, dtype=torch.long, device=self.spec.device)
-        if tuple(slots.shape) != (G,) or torch.unique(slots).numel() != G:
-            raise ValueError(f"{who} wants {G} distinct slots, got {slots.tolist()}")
-        return slots
+        """``slots`` as a device index tensor of G distinct slots.  Host
+        slots (a list, an array, a CPU tensor) are checked on the host and
+        copied without a barrier; a device tensor is checked on the device."""
+        if isinstance(slots, torch.Tensor) and slots.device.type != "cpu":
+            if tuple(slots.shape) != (G,) or torch.unique(slots).numel() != G:
+                raise ValueError(f"{who} wants {G} distinct slots, got {slots.tolist()}")
+            return slots.to(torch.long)
+        if isinstance(slots, torch.Tensor):
+            slots = slots.numpy()
+        arr = np.asarray(slots, dtype=np.int64)
+        if arr.shape != (G,) or np.unique(arr).size != G:
+            raise ValueError(f"{who} wants {G} distinct slots, got {arr.tolist()}")
+        return _to_device(arr, self.spec.device)
 
     def _group_features(self, slots: torch.Tensor, Xk: torch.Tensor):
         """(Phi (G, k, M), noise) of the groups ``Xk`` (G, k, p) aimed at
@@ -556,10 +644,64 @@ class GPBank:
 
     # -- the batched pipeline ----------------------------------------------
 
+    @staticmethod
+    def result_ready(*events) -> bool:
+        """Have these dispatched results landed?  The engine polls this with
+        the CUDA event recorded after a block's result copies
+        (``Event.query()``, never a wait) to harvest finished blocks without
+        blocking on an unfinished one.  Anything else (a CPU block's None)
+        reports ready, as the JAX package's arrays without readiness
+        introspection do."""
+        return all(e.query() for e in events if isinstance(e, torch.cuda.Event))
+
+    def _serving_entry(self):
+        """The pipelined engine's lean serving call, resolved once per bank
+        object (kept on the instance): slot map, features function, B^{-1}
+        and feature table are looked up here, not per block, and nothing is
+        validated per row.  Returns ``call(slots, Xq)`` for host ``slots``
+        (Q,) int64 and ``Xq`` (Q, p) float32 arrays, giving ``(mu, var,
+        event)``.  On a card the inputs reach the device by non-blocking
+        copies from pinned memory (:func:`_to_device`), the results come
+        back by non-blocking copies into pinned host tensors, and ``event``
+        is recorded after those copies, so dispatching a block never waits
+        for the device.  On the CPU the results are the computed tensors
+        and ``event`` is None."""
+        call = self.__dict__.get("_serving_cache")
+        if call is not None:
+            return call
+        stack, binv, dev = self.stack, self._binv, self.spec.device
+        backend = fagp._check_backend_support(self.spec)
+        if self.hypers is None:
+            serve = fagp._gathered_bank_mean_var(backend.features)
+
+            def compute(slots, Xq):
+                return serve(stack, binv, slots, Xq)
+        else:
+            eps_s, rho_s, cache = self.hypers.eps, self.hypers.rho, self._slot_maps
+
+            def compute(slots, Xq):
+                return _hetero_gathered_mean_var(stack, binv, slots, Xq, eps_s, rho_s,
+                                                 backend, cache)
+
+        def call(slots, Xq):
+            mu, var = compute(_to_device(slots, dev), _to_device(Xq, dev))
+            if dev.type != "cuda":
+                return mu, var, None
+            # a non-blocking copy to the host lands in pinned memory, which
+            # the caching host allocator keeps until the copy is done
+            hmu, hvar = mu.to("cpu", non_blocking=True), var.to("cpu", non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            return hmu, hvar, event
+
+        object.__setattr__(self, "_serving_cache", call)
+        return call
+
     def mean_var(self, tenant_ids, Xq):
         """Posterior mean and marginal variance for a MIXED-tenant query
         batch: row q of ``Xq`` (Q, p) is answered by ``tenant_ids[q]``'s
         posterior."""
+        self._check_live()
         Xq = _f32(Xq, self.spec.device)
         slots = self._slots_for(tenant_ids)
         if Xq.ndim != 2 or slots.shape[0] != Xq.shape[0]:
@@ -573,10 +715,8 @@ class GPBank:
             serve = fagp._gathered_bank_mean_var(backend.features)
             return serve(self.stack, self._binv, slots, Xq)
         h = self.hypers
-        Phis = backend.slot_features(Xq, self.spec, self.stack.idx, h.eps, h.rho, slots,
-                                     self.stack, self._slot_maps)
-        return fagp._bank_gathered_posterior(self._binv, self.stack.u, self.stack.sqrtlam,
-                                             slots, Phis)
+        return _hetero_gathered_mean_var(self.stack, self._binv, slots, Xq, h.eps, h.rho,
+                                         backend, self._slot_maps)
 
     def update(self, tenant_ids, Xk, yk, mask=None) -> "GPBank":
         """Batched rank-k ingest: group g absorbs (Xk[g], yk[g]) into tenant
@@ -595,9 +735,17 @@ class GPBank:
         """Slot-addressed core of :meth:`update`, and the router's entry: a
         fully-masked group leaves its slot untouched, so the router pads
         the group axis to a power-of-two bucket with masked groups aimed at
-        distinct unused slots.  Slots must be distinct."""
-        if donate:
-            _not_ported("GPBank update with donate=True", _OBS, self.spec)
+        distinct unused slots.  Slots must be distinct.
+
+        ``donate=True`` writes the update into this bank's chol/u/b tensors
+        and its B^{-1} cache in place instead of cloning them (no second
+        800 MB stack at the fleet's width), and this bank then raises on
+        use.  Reserved for serving loops that own their bank exclusively
+        (``BankRouter(donate_updates=True)``).  Blocks dispatched before the
+        update still read the old values: they were queued on the same
+        stream ahead of the in-place writes, which the device runs in
+        order; the port keeps every launch on the current stream."""
+        self._check_live()
         dev = self.spec.device
         Xk, yk = _f32(Xk, dev), _f32(yk, dev)
         G, k, p = Xk.shape
@@ -606,12 +754,15 @@ class GPBank:
         slots = self._group_slots(slots, G, "update")
         backend = fagp._check_backend_support(self.spec)
         Phi_g, noise = self._group_features(slots, Xk)
-        chol, u, b = _bank_update_scatter(
+        scatter = _bank_update_scatter_donated if donate else _bank_update_scatter
+        chol, u, b = scatter(
             self.stack.chol, self.stack.u, self.stack.b, self.stack.sqrtlam,
             noise, slots, Phi_g, yk, mask, backend.rank_update,
         )
         new = self._with(dict(chol=chol, u=u, b=b))
-        self._carry_binv_into(new, slots)
+        self._carry_binv_into(new, slots, donate)
+        if donate:
+            object.__setattr__(self, "_donated", True)
         return new
 
     # -- sliding-window forgetting (rank-k downdate + refit fallback) -------
@@ -637,6 +788,7 @@ class GPBank:
         """Slot-addressed core of :meth:`downdate`, the fixed-shape entry:
         fully-masked padding groups on distinct slots leave their slots
         bit-identical and report ok."""
+        self._check_live()
         dev = self.spec.device
         Xk, yk = _f32(Xk, dev), _f32(yk, dev)
         G, k, p = Xk.shape
@@ -670,6 +822,7 @@ class GPBank:
     def _refit_at_slots(self, slots, Xw, yw, mask=None) -> "GPBank":
         """Slot-addressed core of :meth:`refit_window` (the fixed-shape
         entry; fully-masked padding groups leave their slots untouched)."""
+        self._check_live()
         dev = self.spec.device
         Xw, yw = _f32(Xw, dev), _f32(yw, dev)
         G, W, p = Xw.shape
@@ -679,13 +832,11 @@ class GPBank:
         fagp._check_backend_support(self.spec)
         hyp = self._stacked_hypers()
         spec_r = self.spec.replace(block_rows=min(self.spec.block_rows, max(1, W)))
-        fresh = dict(zip(("lam", "sqrtlam", "chol", "u", "b"), _bank_hetero_refit(
+        fresh = dict(zip(_LEAVES, _bank_hetero_refit(
             Xw, yw, mask, hyp.eps[slots], hyp.rho[slots], hyp.noise[slots], spec_r,
             self.stack.idx)))
-        real = torch.amax(mask, dim=1) > 0
-        live = slots[real]
-        new = self._with({f: _scatter(getattr(self.stack, f), live, v[real])
-                          for f, v in fresh.items()})
+        new = self._with(_bank_refit_scatter(
+            {f: getattr(self.stack, f) for f in _LEAVES}, slots, fresh, mask))
         self._carry_binv_into(new, slots)
         return new
 
@@ -697,6 +848,7 @@ class GPBank:
         bank: its structure, under any hyperparameters), or an ``(X, y)``
         tuple fitted under the bank's spec.  Raises when full or when the
         id is taken."""
+        self._check_live()
         if tenant in self.slots:
             raise ValueError(f"tenant {tenant!r} already in the bank")
         free = np.flatnonzero(~self.active)
@@ -723,13 +875,14 @@ class GPBank:
         active = self.active.copy()
         active[slot] = True
         new = self._with(leaves, active=active, slots={**self.slots, tenant: slot}, **fields)
-        self._carry_binv_into(new, torch.tensor([slot], device=self.spec.device))
+        self._carry_binv_into(new, slot)
         return new
 
     def evict(self, tenant: Hashable) -> "GPBank":
         """Remove a tenant; its slot is reset to the prior state (under the
         bank spec's own hyperparameters) and becomes reusable by the next
         :meth:`insert`."""
+        self._check_live()
         slot = self.slot_of(tenant)
         loglam = get_expansion(self.spec.expansion).log_eigenvalues(
             self.stack.idx, self.spec)
@@ -742,15 +895,14 @@ class GPBank:
         active[slot] = False
         slots = {t: s for t, s in self.slots.items() if t != tenant}
         new = self._with(leaves, active=active, slots=slots, **fields)
-        self._carry_binv_into(new, torch.tensor([slot], device=self.spec.device))
+        self._carry_binv_into(new, slot)
         return new
 
     def _overlay_with(self, slot: int, sp: GPSpec) -> SEKernelParams:
         """The overlay with ``slot`` set to ``sp``'s (eps, rho, noise)."""
-        index = torch.tensor([slot], device=self.spec.device)
         h = self.hypers
         return SEKernelParams(
-            **{f: _scatter(getattr(h, f), index, _f32(getattr(sp, f), self.spec.device)[None])
+            **{f: _scatter(getattr(h, f), slot, _f32(getattr(sp, f), self.spec.device))
                for f in ("eps", "rho", "noise")})
 
     # -- fleet-scale hyperparameter optimization ----------------------------
@@ -791,11 +943,13 @@ class GPBank:
         Returns a new HETEROGENEOUS bank: the optimized slots hold
         factorizations under their own learned hyperparameters, with their
         own eigenvalue rows.  A bank that is already heterogeneous starts
-        from each tenant's current values.  ``metrics`` / ``tracer`` are
-        refused by ``optimize_fleet`` (the port has no obs yet).
+        from each tenant's current values.  ``metrics`` / ``tracer``
+        (``repro_torch.obs``) forward to ``optimize_fleet``'s progress
+        telemetry.
         """
         from ..optim.gp_hyperopt import optimize_fleet
 
+        self._check_live()
         dev = self.spec.device
         Xb, yb = _f32(Xb, dev), _f32(yb, dev)
         if Xb.ndim != 3 or yb.ndim != 2 or tuple(yb.shape) != tuple(Xb.shape[:2]):

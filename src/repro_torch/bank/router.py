@@ -1,6 +1,6 @@
 """BankRouter: per-tenant queues coalesced into fixed-shape fleet batches.
 
-Counterpart of ``repro/bank/router.py``, the synchronous path.  Callers
+Counterpart of ``repro/bank/router.py``.  Callers
 enqueue work addressed to individual tenants; the router coalesces it into
 padded mixed-tenant batches for :class:`~repro_torch.bank.GPBank`:
 
@@ -22,40 +22,66 @@ padded mixed-tenant batches for :class:`~repro_torch.bank.GPBank`:
 
 The router owns the bank reference: :meth:`ingest` and :meth:`reoptimize`
 replace it with the new (immutable) bank, and later :meth:`flush` calls
-serve the new posterior.  Telemetry (``metrics``/``tracer``, with the
-JAX router's ``reopt`` span and counters) and sharded banks are not ported
-yet and raise :class:`~repro_torch.core.approximation.UnsupportedError`.
+serve the new posterior.  The pipelined :class:`~repro_torch.bank.FleetEngine`
+drives the same queues through :meth:`take` / :meth:`requeue`.  Sharded
+banks (``rebalance``) are not ported yet and raise
+:class:`~repro_torch.core.approximation.UnsupportedError`.
 """
 from __future__ import annotations
 
-from typing import Hashable
+from typing import Hashable, Optional
 
 import numpy as np
 import torch
 
 from ..core.gp import _not_ported
+from ..obs import metrics as obs_metrics
+from ..obs.trace import NULL_TRACER
 from .bank import GPBank
 
 __all__ = ["BankRouter"]
-
-_OBS = "pipelined fleet serving with obs (ROADMAP A4)"
 
 
 class BankRouter:
     """See module docstring.  Not thread-safe; one router per serving loop.
 
     ``ingest_rounds`` counts the distinct-tenant update rounds absorbed so
-    far (the JAX router's ``router_ingest_rounds_total`` counter)."""
+    far (what ``router_ingest_rounds_total`` counts in a registry).
+
+    ``metrics=`` / ``tracer=`` (``repro_torch.obs``) light up telemetry:
+    counters for flushed blocks, ingested rows and rounds and reoptimized
+    tenants, and spans around flush, each ingest round and reoptimize,
+    recorded at block or round granularity, never per row.  Both default to
+    no-ops.  ``donate_updates=True`` makes each ingest round write into the
+    bank's own tensors (``GPBank._update_at_slots(donate=True)``): only for
+    a serving loop that owns its bank exclusively, as the pipelined engine
+    does; anything holding an older bank must leave it off."""
 
     def __init__(self, bank: GPBank, *, microbatch: int = 64,
                  ingest_chunk: int = 16, donate_updates: bool = False,
-                 metrics=None, tracer=None):
+                 metrics: Optional[obs_metrics.MetricsRegistry] = None,
+                 tracer=None):
         if microbatch < 1 or ingest_chunk < 1:
             raise ValueError("microbatch and ingest_chunk must be >= 1")
-        if metrics is not None or tracer is not None:
-            _not_ported("BankRouter(metrics=..., tracer=...)", _OBS, bank.spec)
-        if donate_updates:
-            _not_ported("BankRouter(donate_updates=True)", _OBS, bank.spec)
+        reg = obs_metrics.NULL if metrics is None else metrics
+        self.registry = reg
+        self.tracer = NULL_TRACER if tracer is None else tracer
+        self._c_flush_blocks = reg.counter(
+            "router_flush_blocks_total", "padded blocks served by flush")
+        self._c_ingest_rows = reg.counter(
+            "router_ingest_rows_total", "observation rows absorbed")
+        self._c_ingest_rounds = reg.counter(
+            "router_ingest_rounds_total", "distinct-tenant update rounds")
+        self._c_reopt_rounds = reg.counter(
+            "router_reopt_rounds_total", "batched reoptimize calls")
+        self._c_reopt_tenants = reg.counter(
+            "router_reopt_tenants_total", "tenants reoptimized")
+        # registered (never incremented until the sharded bank is ported) so
+        # a scrape shows the JAX router's series
+        self._c_rebalance = reg.counter(
+            "bank_rebalance_total", "cross-shard tenant moves applied by "
+            "rebalance")
+        self.donate_updates = bool(donate_updates)
         self.bank = bank
         self.microbatch = int(microbatch)
         self.ingest_chunk = int(ingest_chunk)
@@ -95,7 +121,14 @@ class BankRouter:
         ids = list(tenant_ids)
         if not ids:
             return
-        self.bank = self.bank.optimize(Xb, yb, tenant_ids=ids, mask=mask, **kw)
+        if self.registry is not obs_metrics.NULL:
+            kw.setdefault("metrics", self.registry)
+        if self.tracer is not NULL_TRACER:
+            kw.setdefault("tracer", self.tracer)
+        with self.tracer.span("reopt", tenants=len(ids)):
+            self.bank = self.bank.optimize(Xb, yb, tenant_ids=ids, mask=mask, **kw)
+        self._c_reopt_rounds.inc()
+        self._c_reopt_tenants.inc(len(ids))
         for t in ids:
             self._since_reopt[t] = 0
 
@@ -159,18 +192,20 @@ class BankRouter:
         todo, self._pending = self._pending, []
         out: dict = {}
         mb = self.microbatch
-        for lo in range(0, len(todo), mb):
-            block = todo[lo:lo + mb]
-            tenants, Xq = self._pack_block(block, mb)
-            try:
-                mu, var = self.bank.mean_var(tenants, torch.from_numpy(Xq))
-            except Exception:
-                self._pending = todo + self._pending
-                raise
-            mu = mu.cpu().numpy()
-            var = var.cpu().numpy()
-            for i, (ticket, _, _) in enumerate(block):
-                out[ticket] = (float(mu[i]), float(var[i]))
+        with self.tracer.span("flush", rows=len(todo)):
+            for lo in range(0, len(todo), mb):
+                block = todo[lo:lo + mb]
+                tenants, Xq = self._pack_block(block, mb)
+                try:
+                    mu, var = self.bank.mean_var(tenants, torch.from_numpy(Xq))
+                except Exception:
+                    self._pending = todo + self._pending
+                    raise
+                mu = mu.cpu().numpy()
+                var = var.cpu().numpy()
+                for i, (ticket, _, _) in enumerate(block):
+                    out[ticket] = (float(mu[i]), float(var[i]))
+                self._c_flush_blocks.inc()
         return out
 
     # -- ingest path --------------------------------------------------------
@@ -202,6 +237,8 @@ class BankRouter:
         while queues:
             slots, Xg, yg, mg = [], [], [], []
             taken: dict = {}
+            round_span = self.tracer.span("ingest", tenants=len(queues))
+            round_span.__enter__()
             try:
                 for t in list(queues):
                     rows, rest = queues[t][:k], queues[t][k:]
@@ -230,9 +267,9 @@ class BankRouter:
                         yg.append(np.zeros((k,), np.float32))
                         mg.append(np.zeros((k,), np.float32))
                 self.bank = self.bank._update_at_slots(
-                    torch.tensor(slots, dtype=torch.long),
+                    np.array(slots, np.int64),
                     torch.from_numpy(np.stack(Xg)), torch.from_numpy(np.stack(yg)),
-                    torch.from_numpy(np.stack(mg)),
+                    torch.from_numpy(np.stack(mg)), donate=self.donate_updates,
                 )
             except Exception:
                 for t, rows in taken.items():
@@ -240,8 +277,13 @@ class BankRouter:
                 for t, rows in queues.items():
                     self._observations[t] = rows + self._observations.get(t, [])
                 raise
-            absorbed += sum(len(rows) for rows in taken.values())
+            finally:
+                round_span.__exit__(None, None, None)
+            round_rows = sum(len(rows) for rows in taken.values())
+            absorbed += round_rows
             self.ingest_rounds += 1
+            self._c_ingest_rounds.inc()
+            self._c_ingest_rows.inc(round_rows)
             for t, rows in taken.items():
                 self._since_reopt[t] = self._since_reopt.get(t, 0) + len(rows)
         return absorbed

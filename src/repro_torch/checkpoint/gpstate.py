@@ -11,9 +11,10 @@ into an incompatible spec raises like ``FAGPState.with_spec`` does.
 
 Layout per version: ``<dir>/step_<version>/{arrays.npz, manifest.json}``
 with the tree ``{"leaves": {lam, sqrtlam, chol, u, b}, "hypers": {eps,
-rho, noise}, "omega"?, "train": {Phi, y}?}``.  ``save_state``
-auto-increments the version.  A JAX checkpoint's ``extra`` arrays, if
-any, are not read.  The manifest records no device:
+rho, noise}, "omega"?, "train": {Phi, y}?, "extra": {...}?}``.
+``save_state`` auto-increments the version; ``extra`` arrays (the cold
+tier's sliding-window buffers) ride beside the session and come back from
+:func:`load_state` as numpy arrays.  The manifest records no device:
 :func:`load_state` places the session on the device it is given.
 """
 from __future__ import annotations
@@ -105,9 +106,12 @@ def save_state(
     state: FAGPState,
     *,
     step: Optional[int] = None,
+    extra: Optional[dict] = None,
 ) -> int:
     """Serialize one fitted session; returns the version written.
-    ``step=None`` auto-increments past the directory's latest version."""
+    ``step=None`` auto-increments past the directory's latest version.
+    ``extra`` is an optional dict of arrays stored beside the state and
+    returned verbatim by :func:`load_state`."""
     spec = state.spec
     ap = get_approximation(spec.approximation)
     if step is None:
@@ -122,13 +126,16 @@ def save_state(
     has_train = getattr(state, "Phi", None) is not None and state.y is not None
     if has_train:
         tree["train"] = {"Phi": state.Phi, "y": state.y}
+    extra = dict(extra or {})
+    if extra:
+        tree["extra"] = extra
     meta = {
         "format": FORMAT,
         "format_version": FORMAT_VERSION,
         "spec": spec_manifest(spec),
         "p": int(spec.p),
         "has_train": bool(has_train),
-        "extra_keys": [],       # the JAX package's load_state reads it
+        "extra_keys": sorted(extra),
         **ap.ckpt_meta(state),
     }
     store.save(ckpt_dir, step, tree, metadata=meta)
@@ -147,16 +154,19 @@ def load_state(
     *,
     step: Optional[int] = None,
     like_spec: Optional[GPSpec] = None,
+    require_hypers_match: bool = False,
     device=None,
 ) -> tuple:
     """Restore one session onto ``device`` (default ``"cuda"``; raises
-    without a card); returns ``(version, state)``.
+    without a card); returns ``(version, state, extra)``, ``extra`` the
+    dict of numpy arrays saved beside the state (empty when none).
 
     The spec is rebuilt from the manifest and the saved hyperparameter
     leaves, omega included: a bit-exact round trip.  ``like_spec``
-    validates the checkpoint's structure against a target spec before any
-    array loads, and its eps/rho/noise/omega leaves against the saved
-    ones after."""
+    validates the checkpoint's structure (omega included) against a target
+    spec before any array loads; ``require_hypers_match=True`` also
+    requires the saved eps/rho/noise to equal the target's (``GP.load``
+    and homogeneous-bank admission; a heterogeneous bank leaves it off)."""
     dev = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     if step is None:
@@ -191,7 +201,11 @@ def load_state(
         like["omega"] = 0
     if meta["has_train"]:
         like["train"] = {"Phi": 0, "y": 0}
-    _, tree = store.restore(ckpt_dir, like, step=step, device=dev)
+    extra_keys = meta.get("extra_keys", [])
+    if extra_keys:
+        like["extra"] = {k: 0 for k in extra_keys}
+    _, tree = store.restore(ckpt_dir, like, step=step, device=dev,
+                            host=("extra",))
 
     hypers = tree["hypers"]
     spec = GPSpec(
@@ -201,7 +215,7 @@ def load_state(
         backend=ms["backend"], expansion=ms["expansion"],
         omega=tree.get("omega"), approximation=ap.name,
     )
-    if like_spec is not None:
+    if like_spec is not None and require_hypers_match:
         for f in fagp._HYPER_FIELDS:
             if not fagp._leaf_equal(getattr(spec, f), getattr(like_spec, f)):
                 raise ValueError(
@@ -211,7 +225,8 @@ def load_state(
                     f"session under it"
                 )
     state = ap.ckpt_rebuild(spec, tree["leaves"], tree.get("train"))
-    return step, state
+    extra = {k: v.numpy() for k, v in tree.get("extra", {}).items()}
+    return step, state, extra
 
 
 def latest_version(ckpt_dir: Union[str, Path]) -> Optional[int]:

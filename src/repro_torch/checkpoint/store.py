@@ -12,8 +12,8 @@ layout, so a checkpoint written by either package restores in the other:
   uint16 view (numpy has no bfloat16);
 * writes go to ``<dir>/tmp.<step>.<pid>`` and are renamed into place with
   ``os.replace``, so a crash mid-write never corrupts a committed step; a
-  dead writer's staging directory is ignored and reaped by the next
-  :func:`latest_step` / :func:`restore`.
+  dead writer's staging directory is ignored and reaped (and counted) by
+  the next :func:`latest_step` / :func:`restore`.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import metrics as obs_metrics
 
 __all__ = ["save", "restore", "latest_step"]
 
@@ -39,7 +40,10 @@ _TMP_RE = re.compile(r"^tmp\.(\d+)\.(\d+)$")
 def _sweep_stale_tmp(ckpt_dir: Path) -> None:
     """Remove ``tmp.<step>.<pid>`` staging directories whose writer died
     mid-write.  Our own pid is skipped, and another pid's directory is
-    removed only when that process is verifiably gone."""
+    removed only when that process is verifiably gone.  Every reaped
+    directory counts into ``checkpoint_stale_tmp_reaped_total`` on the
+    process-default metrics registry (``repro_torch.obs``)."""
+    reaped = 0
     for p in ckpt_dir.iterdir():
         m = _TMP_RE.match(p.name)
         if m is None or not p.is_dir():
@@ -51,8 +55,14 @@ def _sweep_stale_tmp(ckpt_dir: Path) -> None:
             os.kill(pid, 0)          # signal 0: existence probe only
         except ProcessLookupError:
             shutil.rmtree(p, ignore_errors=True)
+            reaped += 1
         except PermissionError:
             pass                     # alive under another user
+    if reaped:
+        obs_metrics.get_default().counter(
+            "checkpoint_stale_tmp_reaped_total",
+            "dead writers' staging dirs reaped",
+        ).inc(reaped)
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -131,11 +141,12 @@ def latest_step(ckpt_dir: Union[str, Path]) -> Optional[int]:
 
 
 def restore(ckpt_dir: Union[str, Path], like: Any, *, step: Optional[int] = None,
-            device=None) -> tuple:
+            device=None, host: tuple = ()) -> tuple:
     """Restore the leaves named by the nested dict ``like`` (its leaves are
     placeholders: shapes come from the file).  Returns ``(step, tree)``
     with every leaf a tensor on ``device`` (default ``"cuda"``; raises
-    without a card)."""
+    without a card), except the subtrees whose top-level keys ``host``
+    names, which stay CPU tensors."""
     dev = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     if step is None:
@@ -154,5 +165,5 @@ def restore(ckpt_dir: Union[str, Path], like: Any, *, step: Optional[int] = None
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            flat[key] = t.to(dev)
+            flat[key] = t if key.split(_SEP, 1)[0] in host else t.to(dev)
     return manifest["step"], _unflatten(flat)

@@ -38,6 +38,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import chol_update as _chol
 from ..kernels import ops
+from ..obs.watchdog import shape_tracked
 from .approximation import (
     Approximation,
     UnsupportedError,
@@ -528,6 +529,7 @@ def _bank_binv(chol_s: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_inverse(chol_s)
 
 
+@shape_tracked
 def _bank_gathered_posterior(binv_s, u_s, sqrtlam_s, slots, Phis):
     """Mixed-tenant posterior from a stacked state: query row q reads slot
     ``slots[q]``.  binv_s (C, M, M), u_s and sqrtlam_s (C, M), slots (Q,),

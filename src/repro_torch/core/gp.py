@@ -171,6 +171,6 @@ class GP:
 
         if device is None and spec is not None:
             device = spec.device
-        _, state = gpstate.load_state(ckpt_dir, step=step, like_spec=spec,
-                                      device=device)
+        _, state, _ = gpstate.load_state(ckpt_dir, step=step, like_spec=spec,
+                                         require_hypers_match=True, device=device)
         return cls(state=state)

@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Optional
 
 __all__ = [
-    "KernelBuildError", "LaunchCounter", "SOURCES", "build_dir",
+    "KernelBuildError", "LaunchCounter", "SOURCES", "build_count", "build_dir",
     "check_launch", "library", "ptr",
 ]
 
@@ -39,6 +39,7 @@ _DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+_BUILDS = [0]      # nvcc runs started by this process (build_count)
 
 
 class KernelBuildError(RuntimeError):
@@ -121,6 +122,7 @@ def _build_all() -> Path:
                str(CSRC / f"{name}.cu")]
         procs.append((name, so, tmp, log,
                       subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+        _BUILDS[0] += 1
     failed = []
     for name, so, tmp, log, proc in procs:
         rc = proc.wait()
@@ -135,6 +137,12 @@ def _build_all() -> Path:
             + "\n".join(f"--- {n}\n{t}" for n, t in failed)
         )
     return out
+
+
+def build_count() -> int:
+    """The ``nvcc`` runs this process has started: what the serving
+    watchdog (``repro_torch.obs.serving_watchdog``) reads as kernel builds."""
+    return _BUILDS[0]
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -6,17 +6,21 @@ Counterpart of ``repro/launch/serve_gp.py``:
   queries while new observations stream in (rank-k ingest).
 * ``serve_fleet`` MANY independent sessions (one per tenant) live in a
   :class:`~repro_torch.bank.GPBank` and traffic flows through a
-  :class:`~repro_torch.bank.BankRouter`: the synchronous loop
-  (``engine="sync"``), optionally re-optimizing stale tenants every few
-  rounds (``reopt_every``).  The pipelined engine, the tiered and sharded
-  fleets and telemetry come with later slices (ROADMAP.md) and raise
+  :class:`~repro_torch.bank.BankRouter`: by default through the pipelined
+  :class:`~repro_torch.bank.FleetEngine` (``engine="pipelined"``), or the
+  synchronous loop (``engine="sync"``); optionally re-optimizing stale
+  tenants every few rounds (``reopt_every``), elastic over a cold tier of
+  checkpoints with sliding-window forgetting (``cold_dir``, ``capacity``,
+  ``window``: :class:`~repro_torch.bank.TieredBank`), with telemetry
+  (``metrics``, ``tracer``, ``watchdog``: ``repro_torch.obs``).  The
+  sharded fleet comes with a later slice (ROADMAP.md) and raises
   ``UnsupportedError``.
 
   python -m repro_torch.launch.serve_gp --backend pallas --device cuda \\
       --n-train 10000 --p 4 --n 11 --rounds 4 --update-size 64 \\
       --queries 1024 --microbatch 128
   python -m repro_torch.launch.serve_gp --backend pallas --device cuda \\
-      --fleet 512 --engine sync --n-train 10000 --p 4 --n 5 --rounds 4 \\
+      --fleet 512 --n-train 10000 --p 4 --n 5 --rounds 4 \\
       --update-size 2048 --queries 8192 --microbatch 256 --reopt-every 2
 
 Times are host-clock seconds around work that ends in
@@ -31,11 +35,20 @@ import time
 import numpy as np
 import torch
 
-from ..bank import BankRouter, GPBank
+from ..bank import BankRouter, FleetEngine, GPBank, TieredBank
 from ..core import fagp
 from ..core.gp import GP, GPSpec, _not_ported
 from ..data import make_gp_dataset
 from ..device import resolve_device
+from ..obs import (
+    NULL,
+    NULL_TRACER,
+    MetricsRegistry,
+    Tracer,
+    serving_watchdog,
+    start_metrics_server,
+)
+from ..obs import metrics as obs_metrics
 
 __all__ = ["serve_gp", "serve_fleet", "fleet_dataset", "microbatched_mean_var"]
 
@@ -148,9 +161,6 @@ def fleet_dataset(rng: np.random.Generator, *, tenants: int, n_train: int,
     return offsets, Xb, yb, pools
 
 
-_OBS = "pipelined fleet serving with obs (ROADMAP A4)"
-
-
 def serve_fleet(
     *,
     backend: str = "jnp",
@@ -170,6 +180,9 @@ def serve_fleet(
     reopt_steps: int = 25,
     reopt_restarts: int = 2,
     engine: str = "pipelined",
+    max_in_flight: int = 4,
+    queue_budget: int = 4096,
+    slo_s=None,
     capacity=None,
     cold_dir=None,
     window: int = 0,
@@ -185,47 +198,63 @@ def serve_fleet(
     (:func:`fleet_dataset`).  Every round, per-tenant observation streams
     are absorbed with batched ``GPBank.update`` rounds, then mixed-tenant
     query traffic (a uniformly random tenant per query) flows through the
-    router in padded microbatches.  Reported per round, as in the JAX
-    package: ingest time, query wall time, its mean per microbatch,
-    fleet-wide queries/s and the RMSE against each tenant's own
-    noise-free target, and the re-optimization's time and tenants
-    (``reopt_s``, ``reopt_tenants``); the port adds ``ingest_rounds``
-    (distinct-tenant update rounds) and ``var_finite``.  The returned dict
-    also carries the final bank under ``"bank"``.
+    serving frontend in padded microbatches.  Reported per round, as in the
+    JAX package: ingest time, query wall time, its mean per microbatch,
+    fleet-wide queries/s, the RMSE against each tenant's own noise-free
+    target, the timeout count, the re-optimization's time and tenants
+    (``reopt_s``, ``reopt_tenants``) and the rows aged out (``aged_rows``);
+    the port adds ``ingest_rounds`` (distinct-tenant update rounds) and
+    ``var_finite``.  The returned dict carries the engine's cumulative
+    latency metrics under ``"latency"`` when ``engine="pipelined"`` (else
+    the registry's snapshot under ``"telemetry"`` when one was passed), the
+    tier's ``"lifecycle"`` stats and the tier itself (``"tiered"``) with
+    ``cold_dir``, and the final bank under ``"bank"``.
+
+    ``engine`` selects the serving frontend: ``"pipelined"`` (default)
+    drives a :class:`~repro_torch.bank.FleetEngine` (``max_in_flight``
+    blocks dispatched ahead while the host packs the next, a
+    ``queue_budget`` on admitted rows, expired tickets (``slo_s``) answered
+    with the timeout sentinel instead of a seat in a padded block, the
+    block size autotuned to the arrival rate); ``"sync"`` is the strict
+    submit-all / flush / block loop.
 
     ``reopt_every > 0`` re-optimizes STALE tenants every that many rounds,
     after the round's ingest: tenants that absorbed >= ``reopt_min_rows``
     observations since their last optimization are re-learned with one
     batched ``GPBank.optimize`` run (``reopt_steps`` steps,
     ``reopt_restarts`` restarts) over their accumulated data, padded to
-    the fixed pool size and masked (``BankRouter.reoptimize``); the bank
+    a fixed row count and masked (``BankRouter.reoptimize``); the bank
     becomes heterogeneous and each tenant serves under its own learned
     hyperparameters.
 
-    Only ``engine="sync"`` is ported (the JAX default, ``"pipelined"``,
-    raises ``UnsupportedError``), and so do ``cold_dir`` (and with it
-    ``capacity`` and ``window``, which without a cold tier raise the JAX
-    package's ``ValueError``), ``shards``, ``metrics``, ``tracer`` and
-    ``watchdog``.  The JAX signature's knobs that only those paths read
-    (the pipelined engine's ``max_in_flight``, ``queue_budget`` and
-    ``slo_s``) and the record fields they fill (``timeouts``,
-    ``aged_rows``) come with their paths.  Times are host-clock seconds
-    around work that ends in ``torch.cuda.synchronize()`` on a card.
+    ``cold_dir`` turns the fleet ELASTIC (pipelined engine only): the bank
+    becomes a :class:`~repro_torch.bank.TieredBank` with ``capacity`` hot
+    slots (default: all tenants resident) fronting versioned per-tenant
+    checkpoints under ``cold_dir``; traffic to cold tenants warm-restores
+    them through the engine, evicting LRU tenants back to disk.
+    ``window > 0`` additionally ages stale tenants before re-optimization:
+    everything older than each stale tenant's newest ``window`` rows is
+    forgotten by the batched rank-k downdate (masked-refit fallback on lost
+    positive definiteness), and the re-optimization learns from the
+    retained window.  Without ``cold_dir``, ``capacity`` and ``window``
+    raise the JAX package's ``ValueError``.
+
+    ``metrics`` / ``tracer`` / ``watchdog`` (``repro_torch.obs``) thread
+    fleet telemetry through the router, the pipelined engine, the tiered
+    lifecycle and the re-optimization.  ``shards`` (the multi-device
+    fleet) is not ported yet and raises ``UnsupportedError``.  Times are
+    host-clock seconds around work that ends in
+    ``torch.cuda.synchronize()`` on a card.
     """
     if engine not in ("pipelined", "sync"):
         raise ValueError(f"engine must be 'pipelined' or 'sync', got {engine!r}")
-    if engine == "pipelined":
-        _not_ported("serve_fleet(engine='pipelined')", _OBS)
-    for name, given, item in (
-        ("cold_dir", cold_dir is not None, "the tiered bank, TieredBank (ROADMAP A4)"),
-        ("shards", bool(shards), "multi-device (ROADMAP A5)"),
-        ("metrics", metrics is not None, _OBS),
-        ("tracer", tracer is not None, _OBS),
-        ("watchdog", watchdog is not None, _OBS),
-    ):
-        if given:
-            _not_ported(f"serve_fleet({name}=...)", item)
-    if capacity is not None or window:
+    if shards:
+        _not_ported("serve_fleet(shards=...)", "multi-device (ROADMAP A5)")
+    if cold_dir is not None and engine != "pipelined":
+        raise ValueError(
+            "a tiered fleet (cold_dir) needs the pipelined engine: the "
+            "sync router fail-fasts on cold tenants instead of paging")
+    if (capacity is not None or window) and cold_dir is None:
         raise ValueError("capacity/window need a cold tier; pass cold_dir")
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -234,14 +263,31 @@ def serve_fleet(
     offsets, Xb, yb, pools = fleet_dataset(
         rng, tenants=tenants, n_train=n_train, p=p, rounds=rounds,
         observations_per_round=observations_per_round, noise=noise, seed=seed)
+    pool_rows = pools[0][0].shape[0]
+    metrics = NULL if metrics is None else metrics
+    tracer = NULL_TRACER if tracer is None else tracer
 
     _sync(dev)
     t0 = time.perf_counter()
-    bank = GPBank.fit(torch.from_numpy(Xb), torch.from_numpy(yb), spec)
+    tiered = None
+    if cold_dir is not None:
+        tiered = TieredBank.fit(torch.from_numpy(Xb), torch.from_numpy(yb), spec,
+                                cold_dir=cold_dir, capacity=capacity, window=window,
+                                metrics=metrics, tracer=tracer)
+        bank = tiered.bank
+    else:
+        bank = GPBank.fit(torch.from_numpy(Xb), torch.from_numpy(yb), spec)
     _sync(dev)
     t_fit = time.perf_counter() - t0
 
-    router = BankRouter(bank, microbatch=microbatch, ingest_chunk=ingest_chunk)
+    router = BankRouter(bank, microbatch=microbatch, ingest_chunk=ingest_chunk,
+                        metrics=metrics, tracer=tracer)
+    eng = None
+    if engine == "pipelined":
+        eng = FleetEngine(router, max_in_flight=max_in_flight, queue_budget=queue_budget,
+                          default_slo_s=slo_s, tiered=tiered, metrics=metrics,
+                          tracer=tracer, watchdog=watchdog)
+    front = eng if eng is not None else router
     consumed = [n_train] * tenants
     history = []
     for r in range(rounds):
@@ -251,30 +297,45 @@ def serve_fleet(
             X_all, y_all = pools[t]
             i = consumed[t] % X_all.shape[0]
             consumed[t] += 1
-            router.observe(t, X_all[i], y_all[i])
+            front.observe(t, X_all[i], y_all[i])
         rounds_before = router.ingest_rounds
         t0 = time.perf_counter()
-        absorbed = router.ingest()
+        absorbed = front.ingest()
         _sync(dev)
         t_ingest = time.perf_counter() - t0
 
         # -- periodic re-optimization of stale tenants ---------------------
-        t_reopt, n_reopt = 0.0, 0
+        t_reopt, n_reopt, n_aged = 0.0, 0, 0
         if reopt_every and (r + 1) % reopt_every == 0:
-            stale = router.stale_tenants(reopt_min_rows)
+            # cold tenants keep their drift counters (retain=): paging a
+            # tenant out for capacity must not reset its staleness
+            stale = (router.stale_tenants(reopt_min_rows, retain=tiered.tenants)
+                     if tiered is not None else router.stale_tenants(reopt_min_rows))
+            aged = tiered is not None and window > 0
+            if stale and aged:
+                # age BEFORE re-optimizing: forget rows outside each stale
+                # tenant's window, so the re-learned hyperparameters fit the
+                # current regime, then re-optimize on the retained window
+                tiered.adopt(router.bank)
+                n_aged = tiered.age(stale)["forgotten_rows"]
+                router.bank = tiered.bank
             if stale:
-                # the row axis padded to the FIXED pool size (masked), as in
-                # the JAX loop, so every round's stale data has one shape
-                n_max = pools[0][0].shape[0]
+                # the row axis padded to a FIXED size (the window, else the
+                # pool) and masked, as in the JAX loop, so every round's
+                # stale data has one shape
+                n_max = window if aged else pool_rows
                 Xo = np.zeros((len(stale), n_max, p), np.float32)
                 yo = np.zeros((len(stale), n_max), np.float32)
                 mo = np.zeros((len(stale), n_max), np.float32)
                 for i, t in enumerate(stale):
-                    X_all, y_all = pools[t]
-                    rows = min(consumed[t], X_all.shape[0])
-                    Xo[i, :rows] = X_all[:rows]
-                    yo[i, :rows] = y_all[:rows]
-                    mo[i, :rows] = 1.0
+                    if aged:
+                        Xw, yw = tiered.window_rows(t)
+                        rows = len(yw)
+                    else:
+                        X_all, y_all = pools[t]
+                        rows = min(consumed[t], X_all.shape[0])
+                        Xw, yw = X_all[:rows], y_all[:rows]
+                    Xo[i, :rows], yo[i, :rows], mo[i, :rows] = Xw, yw, 1.0
                 t0 = time.perf_counter()
                 router.reoptimize(stale, torch.from_numpy(Xo), torch.from_numpy(yo),
                                   mask=torch.from_numpy(mo), restarts=reopt_restarts,
@@ -282,36 +343,64 @@ def serve_fleet(
                 _sync(dev)
                 t_reopt = time.perf_counter() - t0
                 n_reopt = len(stale)
+                if tiered is not None:
+                    tiered.adopt(router.bank)
 
-        # -- queries: mixed-tenant traffic through the router --------------
+        # -- queries: mixed-tenant traffic through the frontend ------------
         q_tenants = rng.integers(0, tenants, queries_per_round)
         Xq = rng.uniform(-1.0, 1.0, size=(queries_per_round, p)).astype(np.float32)
-        tickets = [router.submit(int(t), Xq[i]) for i, t in enumerate(q_tenants)]
-        t0 = time.perf_counter()
-        results = router.flush()
-        t_query = time.perf_counter() - t0
-        mu = np.array([results[tk][0] for tk in tickets])
-        var = np.array([results[tk][1] for tk in tickets])
-        # RMSE of each query against its own tenant's (noise-free) Eq. 21
-        # target sum_j cos(x_j) + offset_t
         truth = np.sum(np.cos(Xq), axis=1) + offsets[q_tenants]
+        timeouts = 0
+        if eng is not None:
+            # pipelined: submission itself dispatches blocks ahead
+            # (auto_pump), drain() overlaps packing with device execution
+            t0 = time.perf_counter()
+            tickets = [eng.submit(int(t), Xq[i]) for i, t in enumerate(q_tenants)]
+            results = eng.drain()
+            t_query = time.perf_counter() - t0
+            served = [i for i, tk in enumerate(tickets) if not results[tk].timed_out]
+            timeouts = len(tickets) - len(served)
+            mu = np.array([results[tickets[i]].mu for i in served])
+            var = np.array([results[tickets[i]].var for i in served])
+            truth = truth[served]
+        else:
+            tickets = [router.submit(int(t), Xq[i]) for i, t in enumerate(q_tenants)]
+            t0 = time.perf_counter()
+            results = router.flush()
+            t_query = time.perf_counter() - t0
+            mu = np.array([results[tk][0] for tk in tickets])
+            var = np.array([results[tk][1] for tk in tickets])
         nb = max(1, (queries_per_round + microbatch - 1) // microbatch)
         history.append({
             "round": r,
             "rows_absorbed": absorbed,
             "ingest_s": t_ingest,
             "query_s": t_query,
+            # one aggregate flush/drain is timed: a per-microbatch MEAN
             "query_mean_s": t_query / nb,
             "queries_per_s": queries_per_round / t_query,
+            # RMSE of each served query against its own tenant's
+            # (noise-free) Eq. 21 target sum_j cos(x_j) + offset_t
             "rmse": float(np.sqrt(np.mean((mu - truth) ** 2))),
+            "timeouts": timeouts,
             "ingest_rounds": router.ingest_rounds - rounds_before,
             "var_finite": bool(np.all(np.isfinite(var))),
             "reopt_s": t_reopt,
             "reopt_tenants": n_reopt,
+            "aged_rows": n_aged,
         })
-    return {"fit_s": t_fit, "tenants": tenants, "rounds": history,
-            "M": bank.n_features, "engine": engine, "device": str(dev),
-            "bank": router.bank}
+    out = {"fit_s": t_fit, "tenants": tenants, "rounds": history,
+           "M": bank.n_features, "engine": engine, "device": str(dev)}
+    if eng is not None:
+        out["latency"] = eng.metrics()
+    elif metrics is not NULL:
+        out["telemetry"] = metrics.snapshot()
+    if tiered is not None:
+        out["lifecycle"] = dict(tiered.stats, capacity=tiered.capacity,
+                                hot=len(tiered.hot_tenants), cold=len(tiered.cold_tenants))
+        out["tiered"] = tiered
+    out["bank"] = router.bank
+    return out
 
 
 def main(argv=None) -> None:
@@ -320,8 +409,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--fleet", type=int, default=0, metavar="B",
                     help="serve a bank of B tenants instead of one session")
-    ap.add_argument("--engine", default="pipelined", choices=["pipelined", "sync"],
-                    help="fleet serving frontend (only 'sync' is ported)")
     ap.add_argument("--n-train", type=int, default=2048)
     ap.add_argument("--p", type=int, default=2)
     ap.add_argument("--n", type=int, default=8)
@@ -331,28 +418,93 @@ def main(argv=None) -> None:
     ap.add_argument("--microbatch", type=int, default=128)
     ap.add_argument("--reopt-every", type=int, default=0, metavar="K",
                     help="re-optimize stale tenants every K serving rounds")
+    ap.add_argument("--engine", default="pipelined", choices=["pipelined", "sync"],
+                    help="fleet serving frontend (pipelined FleetEngine vs the "
+                         "strict synchronous loop)")
+    ap.add_argument("--max-in-flight", type=int, default=4,
+                    help="dispatch-ahead depth of the pipelined engine")
+    ap.add_argument("--slo", type=float, default=None, metavar="SECONDS",
+                    help="per-ticket deadline; expired tickets get the timeout "
+                         "sentinel instead of a device slot")
+    ap.add_argument("--capacity", type=int, default=None, metavar="C",
+                    help="hot slots in a tiered fleet (< --fleet pages the rest "
+                         "to the cold tier); needs --cold-dir")
+    ap.add_argument("--cold-dir", default=None, metavar="DIR",
+                    help="cold-tier checkpoint directory (enables the TieredBank "
+                         "lifecycle; pipelined engine only)")
+    ap.add_argument("--window", type=int, default=0, metavar="W",
+                    help="sliding-window length: before each reopt, forget rows "
+                         "older than each stale tenant's newest W (rank-k "
+                         "downdate); needs --cold-dir")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve Prometheus text at http://127.0.0.1:PORT/metrics "
+                         "while the fleet runs (0 = ephemeral port; fleet mode only)")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="write pipeline spans as Chrome-trace JSONL to FILE on "
+                         "exit (fleet mode only)")
+    ap.add_argument("--watchdog", default=None, choices=["warn", "raise", "count"],
+                    help="arm the recompile watchdog over the serving functions "
+                         "(fleet mode only)")
     ap.add_argument("--noise", type=float, default=0.05)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.fleet:
-        out = serve_fleet(
-            backend=args.backend, tenants=args.fleet, n_train=args.n_train,
-            p=args.p, n=args.n, rounds=args.rounds,
-            queries_per_round=args.queries,
-            observations_per_round=args.update_size,
-            microbatch=args.microbatch, noise=args.noise, seed=args.seed,
-            reopt_every=args.reopt_every, engine=args.engine, device=args.device,
-        )
+        obs_on = args.metrics_port is not None or args.trace_out or args.watchdog
+        reg = MetricsRegistry() if obs_on else None
+        tracer = Tracer() if args.trace_out else None
+        wd = serving_watchdog(mode=args.watchdog, metrics=reg) if args.watchdog else None
+        server = None
+        if reg is not None:
+            # the checkpoint store's counters publish to the process
+            # default: point it here so one scrape sees the whole fleet
+            obs_metrics.set_default(reg)
+        if args.metrics_port is not None:
+            server = start_metrics_server(reg, port=args.metrics_port)
+            print(f"metrics: {server.url}")
+        try:
+            out = serve_fleet(
+                backend=args.backend, tenants=args.fleet, n_train=args.n_train,
+                p=args.p, n=args.n, rounds=args.rounds,
+                queries_per_round=args.queries,
+                observations_per_round=args.update_size,
+                microbatch=args.microbatch, noise=args.noise, seed=args.seed,
+                reopt_every=args.reopt_every, engine=args.engine,
+                max_in_flight=args.max_in_flight, slo_s=args.slo,
+                capacity=args.capacity, cold_dir=args.cold_dir, window=args.window,
+                metrics=reg, tracer=tracer, watchdog=wd, device=args.device,
+            )
+        finally:
+            if tracer is not None:
+                print(f"trace: {tracer.write_jsonl(args.trace_out)} events -> "
+                      f"{args.trace_out}")
+            if server is not None:
+                server.shutdown()
+            if reg is not None:
+                obs_metrics.set_default(NULL)
         print(f"fleet of {out['tenants']} fitted in {out['fit_s'] * 1e3:.1f} ms "
               f"(M={out['M']} each; {out['engine']} engine; device={out['device']})")
         for h in out["rounds"]:
             reopt = (f"; reopt {h['reopt_tenants']} tenants {h['reopt_s'] * 1e3:.1f} ms"
                      if h["reopt_tenants"] else "")
+            tmo = f"; {h['timeouts']} timeouts" if h["timeouts"] else ""
             print(f"round {h['round']}: ingest {h['rows_absorbed']} rows "
                   f"{h['ingest_s'] * 1e3:.1f} ms; query mean "
                   f"{h['query_mean_s'] * 1e3:.2f} ms/microbatch; "
-                  f"{h['queries_per_s']:.0f} q/s; rmse {h['rmse']:.4f}{reopt}")
+                  f"{h['queries_per_s']:.0f} q/s; rmse {h['rmse']:.4f}{tmo}{reopt}")
+        if "latency" in out:
+            o = out["latency"]["overall"]
+            print(f"engine: p50 {o['p50_s'] * 1e3:.2f} ms, p99 {o['p99_s'] * 1e3:.2f} ms "
+                  f"per ticket; sustained {o['sustained_qps']:.0f} q/s; "
+                  f"{o['expired']} expired; buckets "
+                  f"{sorted(out['latency']['bucket_uses'].items())}")
+        if "lifecycle" in out:
+            lc = out["lifecycle"]
+            print(f"lifecycle: {lc['hot']}/{lc['capacity']} hot, {lc['cold']} cold; "
+                  f"{lc['warm_restores']} restores, {lc['evictions']} evictions, "
+                  f"{lc['cold_saves']} saves; {lc['downdated_rows']} rows forgotten "
+                  f"({lc['refit_fallbacks']} refit fallbacks)")
         out.pop("bank")
+        out.pop("tiered", None)
         print(json.dumps(out))
         return
     out = serve_gp(

@@ -45,14 +45,13 @@ import numpy as np
 import torch
 
 from ..core import fagp
-from ..core.gp import _not_ported
+from ..obs.watchdog import shape_tracked
 from . import adamw
 
 __all__ = ["HyperoptResult", "optimize_fleet", "optimize_restarts"]
 
 _FIELDS = ("log_eps", "log_rho", "log_noise")
 _LANE_CLIP = 10.0
-_OBS = "pipelined fleet serving with obs (ROADMAP A4)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +152,7 @@ def _lane(hp, t: int, r: int) -> dict:
     return {f: hp[f][t, r].clone() for f in _FIELDS}
 
 
+@shape_tracked
 def _lane_step(hp, ostate, frozen, prev, data, spec, tol: float, ocfg):
     """One AdamW step over every (tenant, restart) lane; ``data`` holds
     each tenant's (X, y, mask).
@@ -186,6 +186,7 @@ def _lane_step(hp, ostate, frozen, prev, data, spec, tol: float, ocfg):
     return hp, ostate, frozen, prev, vals
 
 
+@shape_tracked
 @torch.no_grad()
 def _lane_values(hp, data, spec):
     """Final per-lane NLML/row at the CURRENT parameters (the best-restart
@@ -242,6 +243,34 @@ def _run_lanes(hp, Xb, yb, mask, spec, *, steps: int, lr: float,
     )
 
 
+def _compose_obs_callback(user_cb, metrics, tracer):
+    """Wrap the optimize_fleet progress-callback contract with telemetry:
+    the observer fires first (round counter, step and best-NLML gauges, a
+    ``hyperopt_progress`` instant event), then the user's callback, with
+    exactly the ``(step, vals, hp)`` arguments the contract specifies."""
+    counter = gauge_step = gauge_best = None
+    if metrics is not None:
+        counter = metrics.counter(
+            "hyperopt_rounds_total", "progress-callback firings")
+        gauge_step = metrics.gauge(
+            "hyperopt_step", "current optimizer step")
+        gauge_best = metrics.gauge(
+            "hyperopt_best_nlml", "best lane NLML/row at the last firing")
+
+    def cb(step, vals, hp):
+        if counter is not None:
+            counter.inc()
+            gauge_step.set(step)
+            gauge_best.set(float(np.min(vals)))
+        if tracer is not None:
+            tracer.instant("hyperopt_progress", step=int(step),
+                           best_nlml=float(np.min(vals)))
+        if user_cb is not None:
+            user_cb(step, vals, hp)
+
+    return cb
+
+
 def optimize_fleet(
     Xb,
     yb,
@@ -267,14 +296,20 @@ def optimize_fleet(
     whose per-step NLML improvement drops below it; the loop exits early
     once every lane froze.  ``callback(step, vals, hp)`` fires every ~10%
     with the (B, R) loss snapshot (numpy) and the log-space lane
-    parameters.  ``metrics`` / ``tracer`` are the JAX package's telemetry
-    hooks; the port has no ``obs`` yet and refuses them.
+    parameters.
+
+    ``metrics`` / ``tracer`` (``repro_torch.obs``) report per-round
+    progress THROUGH that same callback contract: an observer composed in
+    front of any user callback records a round counter, the current step
+    and the best lane NLML as gauges, and a ``hyperopt_progress`` instant
+    trace event per firing.  It reads the ``vals`` snapshot the callback
+    already receives, so the loop pays no extra device read.
 
     Returns a :class:`HyperoptResult` with the best restart per tenant
     selected by final NLML.
     """
     if metrics is not None or tracer is not None:
-        _not_ported("optimize_fleet(metrics=..., tracer=...)", _OBS, spec)
+        callback = _compose_obs_callback(callback, metrics, tracer)
     Xb, yb = fagp._f32(Xb, spec.device), fagp._f32(yb, spec.device)
     if Xb.ndim != 3 or yb.ndim not in (2, 3) or yb.shape[:2] != Xb.shape[:2]:
         raise ValueError(

@@ -29,6 +29,7 @@ from repro_torch.core import fagp as tfagp  # noqa: E402
 from repro_torch.core.approximation import UnsupportedError  # noqa: E402
 from repro_torch.core.gp import GP  # noqa: E402
 from repro_torch.launch import serve_gp as t_serve  # noqa: E402
+from repro_torch.obs import MetricsRegistry, Tracer, serving_watchdog  # noqa: E402
 from repro_torch.optim import gp_hyperopt as tgh  # noqa: E402
 
 ROADMAP = Path(__file__).resolve().parents[1] / "ROADMAP.md"
@@ -182,22 +183,6 @@ def _fleet(**option):
 
 # (refusal, ROADMAP item, a word of that item's heading)
 REFUSALS = {
-    "serve_fleet(engine=pipelined)": (lambda tp: _fleet(engine="pipelined"), "A4", "pipelined"),
-    "serve_fleet(cold_dir)": (lambda tp: _fleet(cold_dir=str(tp)), "A4", "tiered bank"),
-    "serve_fleet(cold_dir, window)": (lambda tp: _fleet(cold_dir=str(tp), window=4), "A4",
-                                      "tiered bank"),
-    "serve_fleet(metrics)": (lambda tp: _fleet(metrics=object()), "A4", "obs"),
-    "optimize_fleet(metrics)": (lambda tp: tgh.optimize_fleet(
-        torch.zeros(1, 4, 2), torch.zeros(1, 4), _bank()[1], metrics=object()), "A4", "obs"),
-    "optimize_fleet(tracer)": (lambda tp: tgh.optimize_fleet(
-        torch.zeros(1, 4, 2), torch.zeros(1, 4), _bank()[1], tracer=object()), "A4", "obs"),
-    "serve_fleet(watchdog)": (lambda tp: _fleet(watchdog=object()), "A4", "obs"),
-    "BankRouter(tracer)": (lambda tp: BankRouter(_bank()[0], tracer=object()), "A4", "obs"),
-    "BankRouter(donate_updates)": (lambda tp: BankRouter(_bank()[0], donate_updates=True),
-                                   "A4", "pipelined"),
-    "GPBank update with donate": (lambda tp: _bank()[0]._update_at_slots(
-        torch.tensor([0]), torch.zeros(1, 2, 2), torch.zeros(1, 2), donate=True),
-        "A4", "pipelined"),
     "BankRouter.rebalance": (lambda tp: BankRouter(_bank()[0]).rebalance(), "A5",
                              "multi-device"),
     "serve_fleet(shards)": (lambda tp: _fleet(shards=2), "A5", "multi-device"),
@@ -222,24 +207,69 @@ def _router_after_ingest():
     return router
 
 
-# the calls ROADMAP A2 and A3 refused until they were ported, and what each
-# now returns
+def _donated_router_kills_its_donor():
+    bank = _bank()[0]
+    router = BankRouter(bank, ingest_chunk=4, donate_updates=True)
+    router.observe(1, np.full(2, 0.1, np.float32), 0.5)
+    router.ingest()
+    with pytest.raises(RuntimeError, match="donated"):
+        bank.mean_var([1], torch.zeros(1, 2))
+    return isinstance(router.bank, GPBank)
+
+
+def _optimize_fleet_telemetry():
+    reg, tracer = MetricsRegistry(), Tracer()
+    tgh.optimize_fleet(tt(gp_data(16, 2, 0)[0][None]), tt(gp_data(16, 2, 0)[1][None]),
+                       _bank()[1], restarts=1, steps=2, metrics=reg, tracer=tracer)
+    return (reg.snapshot()["counters"]["hyperopt_rounds_total"] == 2
+            and {e["name"] for e in tracer.events()} == {"hyperopt_progress"})
+
+
+def _router_flush_span():
+    tracer = Tracer()
+    router = BankRouter(_bank()[0], tracer=tracer)
+    router.submit(0, np.zeros(2, np.float32))
+    router.flush()
+    return [e["name"] for e in tracer.events()] == ["flush"]
+
+
+# the calls ROADMAP A2, A3 and A4 refused until they were ported, and what
+# each now returns
 PORTED = {
-    "GPBank.downdate": lambda: _bank()[0].downdate(
+    "GPBank.downdate": lambda tp: _bank()[0].downdate(
         [0], tt(gp_data(16, 2, 0)[0][None, :2]), tt(gp_data(16, 2, 0)[1][None, :2]))[1].tolist()
     == [True],
-    "GPBank.refit_window": lambda: isinstance(_bank()[0].refit_window(
+    "GPBank.refit_window": lambda tp: isinstance(_bank()[0].refit_window(
         [0], tt(gp_data(8, 2, 0)[0][None]), tt(gp_data(8, 2, 0)[1][None])), GPBank),
-    "GPBank.optimize": lambda: _opt_bank().hypers is not None,
-    "GPBank(hypers)": lambda: GPBank(stack=_opt_bank().stack, active=np.ones(2, bool),
-                                     slots={0: 0, 1: 1}, hypers=_opt_bank().hypers).hypers
+    "GPBank.optimize": lambda tp: _opt_bank().hypers is not None,
+    "GPBank(hypers)": lambda tp: GPBank(stack=_opt_bank().stack, active=np.ones(2, bool),
+                                        slots={0: 0, 1: 1}, hypers=_opt_bank().hypers).hypers
     is not None,
-    "BankRouter.stale_tenants": lambda: _router_after_ingest().stale_tenants(4) == [1],
-    "BankRouter.reoptimize": lambda: BankRouter(_bank()[0]).reoptimize(
+    "BankRouter.stale_tenants": lambda tp: _router_after_ingest().stale_tenants(4) == [1],
+    "BankRouter.reoptimize": lambda tp: BankRouter(_bank()[0]).reoptimize(
         [], torch.zeros(0, 4, 2), torch.zeros(0, 4)) is None,
-    "serve_fleet(reopt_every)": lambda: _fleet_out(reopt_every=1, observations_per_round=16,
-                                                   reopt_min_rows=4)["bank"].hypers is not None,
-    "serve_fleet(window)": lambda: "cold tier" in _value_error(lambda: _fleet(window=4)),
+    "serve_fleet(reopt_every)": lambda tp: _fleet_out(
+        reopt_every=1, observations_per_round=16, reopt_min_rows=4)["bank"].hypers is not None,
+    "serve_fleet(window)": lambda tp: "cold tier" in _value_error(lambda: _fleet(window=4)),
+    # ROADMAP A4
+    "serve_fleet(engine=pipelined)": lambda tp: _fleet_out(
+        engine="pipelined")["latency"]["overall"]["completed"] == 8,
+    "serve_fleet(cold_dir)": lambda tp: _fleet_out(
+        engine="pipelined", cold_dir=str(tp), capacity=1)["lifecycle"]["cold_saves"] >= 1,
+    "serve_fleet(cold_dir, window)": lambda tp: _fleet_out(
+        engine="pipelined", cold_dir=str(tp), window=8, reopt_every=1, reopt_min_rows=1,
+        reopt_steps=1, reopt_restarts=1, observations_per_round=8)["rounds"][0]["aged_rows"] > 0,
+    "serve_fleet(metrics)": lambda tp: _fleet_out(
+        engine="pipelined", metrics=MetricsRegistry())["latency"]["registry"]["counters"][
+        "serve_admitted_total"] == 8,
+    "optimize_fleet(metrics)": lambda tp: _optimize_fleet_telemetry(),
+    "optimize_fleet(tracer)": lambda tp: _optimize_fleet_telemetry(),
+    "serve_fleet(watchdog)": lambda tp: _fleet_out(
+        engine="pipelined", watchdog=serving_watchdog(mode="count"))["engine"] == "pipelined",
+    "BankRouter(tracer)": lambda tp: _router_flush_span(),
+    "BankRouter(donate_updates)": lambda tp: _donated_router_kills_its_donor(),
+    "GPBank update with donate": lambda tp: isinstance(_bank()[0]._update_at_slots(
+        torch.tensor([0]), torch.zeros(1, 2, 2), torch.zeros(1, 2), donate=True), GPBank),
 }
 
 
@@ -257,10 +287,10 @@ def _value_error(call) -> str:
 
 
 @pytest.mark.parametrize("name", sorted(PORTED))
-def test_formerly_refused_call_works(name):
-    """Each call that named ROADMAP A2 or A3 in its refusal now runs (the
-    window without a cold tier raises the JAX package's ValueError)."""
-    assert PORTED[name]()
+def test_formerly_refused_call_works(name, tmp_path):
+    """Each call that named ROADMAP A2, A3 or A4 in its refusal now runs
+    (the window without a cold tier raises the JAX package's ValueError)."""
+    assert PORTED[name](tmp_path)
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))

@@ -21,7 +21,6 @@ from repro.core import fagp as jfagp  # noqa: E402
 from repro_torch.bank import GPBank  # noqa: E402
 from repro_torch.core import expansions as texp  # noqa: E402
 from repro_torch.core import fagp as tfagp  # noqa: E402
-from repro_torch.core.approximation import UnsupportedError  # noqa: E402
 from repro_torch.core.convert import bank_from_numpy  # noqa: E402
 from repro_torch.core.gp import GP  # noqa: E402
 from repro_torch.kernels import chol_update as tchol  # noqa: E402
@@ -510,15 +509,18 @@ def test_update_and_fit_refuse_bad_batches():
 
 
 def test_unported_bank_paths_name_their_roadmap_items():
-    """Donated updates still name ROADMAP A4.  What A2 and A3 brought
-    (downdate, refit_window, optimize, a per-slot overlay) is no longer
-    refused (tests/test_torch_downdate.py, tests/test_torch_hetero_bank.py);
-    an overlay must be per-slot ``SEKernelParams``."""
+    """No bank path is refused any more: what A2 and A3 brought (downdate,
+    refit_window, optimize, a per-slot overlay) runs
+    (tests/test_torch_downdate.py, tests/test_torch_hetero_bank.py), and so
+    does A4's donated update, which writes in place and leaves the donor
+    raising on use (tests/test_torch_engine.py).  An overlay must be
+    per-slot ``SEKernelParams``."""
     jb, bank, _, _, _, ts = _fleet(2, 16, 2, 5)
     Xk, yk = torch.zeros(1, 3, 2), torch.zeros(1, 3)
-    with pytest.raises(UnsupportedError, match="does not support") as e:
-        bank._update_at_slots(torch.tensor([0]), Xk, yk, donate=True)
-    assert e.value.layer == "port" and "ROADMAP A4" in str(e.value)
+    new = bank._update_at_slots(torch.tensor([0]), Xk, yk, donate=True)
+    assert isinstance(new, GPBank) and new.stack.chol is bank.stack.chol
+    with pytest.raises(RuntimeError, match="donated"):
+        bank.mean_var([0], torch.zeros(1, 2))
     st = jb.stack
     for call in (lambda: GPBank(stack=bank.stack, active=bank.active, slots=bank.slots,
                                 hypers=object()),

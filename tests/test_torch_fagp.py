@@ -209,16 +209,20 @@ def test_gp_facade_session():
 
 
 def test_unported_operations_name_their_slice():
-    """GPBank.optimize is ported (ROADMAP A3); its telemetry (obs, A4) is
-    still refused, naming its slice."""
+    """GPBank.optimize is ported (ROADMAP A3) and so is its telemetry (obs,
+    A4): a registry passed to it records the optimizer's progress series,
+    as the JAX package's does."""
     from repro_torch.bank import GPBank
+    from repro_torch.obs import MetricsRegistry
 
     X, y = gp_data(40, 2, 1)
     _, ts = specs("hermite", 2, n=4)
     bank = GPBank.fit(tt(X)[None], tt(y)[None], ts)
-    with pytest.raises(UnsupportedError, match="does not support") as e:
-        bank.optimize(tt(X)[None], tt(y)[None], metrics=object())
-    assert e.value.layer == "port" and "slice" in str(e.value)
+    reg = MetricsRegistry()
+    bank.optimize(tt(X)[None], tt(y)[None], restarts=1, steps=3, metrics=reg)
+    snap = reg.snapshot()
+    assert snap["counters"]["hyperopt_rounds_total"] == 3
+    assert set(snap["gauges"]) == {"hyperopt_step", "hyperopt_best_nlml"}
 
 
 def test_pallas_refuses_deep_hermite():

@@ -22,6 +22,7 @@ from repro_torch.core import fagp as tfagp  # noqa: E402
 from repro_torch.core.approximation import UnsupportedError  # noqa: E402
 from repro_torch.core.convert import bank_from_numpy  # noqa: E402
 from repro_torch.launch import serve_gp as t_serve  # noqa: E402
+from repro_torch.obs import MetricsRegistry, Tracer, serving_watchdog  # noqa: E402
 
 
 def _banks(B, N=16, p=2, n=5, capacity=None):
@@ -180,15 +181,16 @@ def test_router_rejects_unknown_tenants_and_bad_rows():
 
 
 def test_unported_router_paths_raise():
+    """Only the sharded bank's ``rebalance`` (A5) is refused; telemetry and
+    donated updates (A4) construct routers (tests/test_torch_obs.py and
+    tests/test_torch_engine.py hold them against the JAX package)."""
     _, tb = _banks(2)
     router = BankRouter(tb)
-    for call in (lambda: BankRouter(tb, metrics=object()),
-                 lambda: BankRouter(tb, tracer=object()),
-                 lambda: BankRouter(tb, donate_updates=True),
-                 lambda: router.rebalance()):
-        with pytest.raises(UnsupportedError, match="does not support") as e:
-            call()
-        assert e.value.layer == "port" and "ROADMAP" in str(e.value)
+    for kw in ({"metrics": MetricsRegistry()}, {"tracer": Tracer()}, {"donate_updates": True}):
+        assert BankRouter(tb, **kw).bank is tb
+    with pytest.raises(UnsupportedError, match="does not support") as e:
+        router.rebalance()
+    assert e.value.layer == "port" and "ROADMAP A5" in str(e.value)
 
 
 # ---------------------------------------------------------------------------
@@ -238,8 +240,9 @@ def test_fleet_dataset_is_the_jax_loops_data():
         np.testing.assert_array_equal(yb[t], (np.asarray(y) + want_off[t])[:10])
 
 
-# window and reopt_every are ported (ROADMAP A2, A3): a window with the
-# cold tier, and a capacity with it, are what stays refused
+# every fleet option but shards is ported (ROADMAP A2-A4): on the sync
+# loop the cold tier raises the JAX package's ValueError (it pages only
+# through the pipelined engine), shards (A5) stay refused, the rest run
 @pytest.mark.parametrize("option", [
     {"engine": "pipelined"}, {"cold_dir": "unused"}, {"cold_dir": "unused", "window": 4},
     {"shards": 2}, {"cold_dir": "unused", "capacity": 8}, {"metrics": object()},
@@ -247,9 +250,23 @@ def test_fleet_dataset_is_the_jax_loops_data():
 ])
 def test_serve_fleet_refuses_what_is_not_ported(option):
     kw = {"engine": "sync", "device": "cpu", **FLEET, **option}
-    with pytest.raises(UnsupportedError, match="does not support") as e:
-        t_serve.serve_fleet(**kw)
-    assert e.value.layer == "port" and "ROADMAP" in str(e.value)
+    if "shards" in option:
+        with pytest.raises(UnsupportedError, match="does not support") as e:
+            t_serve.serve_fleet(**kw)
+        assert e.value.layer == "port" and "ROADMAP A5" in str(e.value)
+        return
+    if "cold_dir" in option:
+        with pytest.raises(ValueError, match="needs the pipelined engine"):
+            t_serve.serve_fleet(**kw)
+        with pytest.raises(ValueError, match="needs the pipelined engine"):
+            j_serve_fleet(**{k: v for k, v in kw.items() if k != "device"})
+        return
+    # the obs objects themselves, not placeholders
+    real = {"metrics": MetricsRegistry(), "tracer": Tracer(),
+            "watchdog": serving_watchdog(mode="count")}
+    kw.update({k: real[k] for k in option if k in real})
+    out = t_serve.serve_fleet(**kw)
+    assert out["engine"] == kw["engine"] and all(h["rmse"] < 0.1 for h in out["rounds"])
 
 
 def test_serve_fleet_refuses_bad_settings():
