@@ -129,7 +129,20 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    evictions, ``aged_rows`` the rows beyond each stale tenant's window (a
    replay of the fleet's draws), the downdate's ok count and refit
    fallbacks, a paged-in tenant served as its own checkpoint's session
-   (1e-5), rmse < 0.1; ``TieredBank.fit``, a page-in and ``age`` timed.
+   (1e-5), rmse < 0.1; ``TieredBank.fit``, a page-in and ``age`` timed;
+10. the Vecchia family (ROADMAP A6; ``phase10()``) at the JAX package's
+   own benchmark width (clustered 2-D data, k = 32, the se kernel, eps =
+   4.714, noise 0.02), with TF32 checked off: (a) N = 20,000 and 2,000
+   queries: fit + ``mean_var`` (first call and warm), ``nlml``, an
+   ``update`` of the last 256 rows then ``mean_var`` (bitwise the fit on
+   all rows), no kernel launched, the k-NN and the k x k lanes of each
+   timed apart (CUDA events), the peak bytes of ``mean_var`` and ``nlml``
+   under bounds reckoned from the block sizes, the card against the port's
+   CPU run on 256 queries (1e-4); (b) N = 256 at k = 255 against the
+   exact GP for both kernels (1e-4); (c) N = 10^4: Vecchia's rmse against
+   hermite n = 12 and both RFF families (R = 256) on the kernel path (their
+   launches exact), ``global_over_vecchia_rmse`` >= 1, the seconds ratio
+   printed; (d) the ordered NLML at N = 10^5 under the same bound.
 
 Prints the features kernel's times by shape on a ``[features]`` line, one
 JSON line with every kernel's numbers (the features kernel's ``ms`` its
@@ -241,6 +254,22 @@ CHURN = dict(tenants=16, n_train=40, p=2, n=6, noise=0.1, forget=6)
 PIPE = dict(FLEET, max_in_flight=4, queue_budget=16384)
 TIER = dict(PIPE, rounds=2, capacity=448, window=10_000, reopt_every=2, reopt_steps=3,
             reopt_restarts=1, reopt_min_rows=12)
+# phase 10, ROADMAP A6: the Vecchia family at the JAX package's own
+# benchmark width (benchmarks/vecchia.py:40-47, 94-98 with --full): clustered
+# 2-D data, k = 32, the se kernel, eps = 4.714 on both axes, noise 0.02;
+# (a) N = 20,000 (seed 1) with 2,000 queries and an update of 256 rows; (b)
+# N = 256 at k = 255; (c) N = 10^4 (seed 0) against hermite n = 12 and both
+# RFF families at R = 256 on the kernel path; (d) the ordered NLML at 10^5
+VECCHIA = dict(n_train=20_000, k=32, eps=4.714, noise=0.02, update=256, subsample=256,
+               agree_n=256, accuracy_n=10_000, scale_n=100_000, R=256, hermite_n=12)
+VECCHIA_DATA = dict(extent=6.0, length_scale=0.15, noise=0.02, n_bumps=120)
+# the Vecchia path launches none of the kernels; each global baseline of
+# (c) one fused fit, and one features and one diag-quad launch for its
+# 1,000 queries
+NO_LAUNCHES = {"phi_features": {}, "phi_gram": {}, "diag_quad": {}, "chol_update": {},
+               "scaled_gram": {}}
+GLOBAL_EXPECTED = dict(NO_LAUNCHES, phi_features={"": 1}, phi_gram={"scale": 1},
+                       diag_quad={"": 1})
 
 
 def check(ok: bool, msg: str) -> None:
@@ -652,6 +681,272 @@ def phase9(dev, fspec, fout, compare, Xq16) -> dict:
     report["seconds"] = time.perf_counter() - t_phase
     print("[phase 9] " + json.dumps(report))
     print(f"[phase 9] took {report['seconds']:.1f} s")
+    return report
+
+
+def phase10(dev, compare, cuda_ms) -> dict:
+    """Phase 10 (ROADMAP A6): the Vecchia family on the card, at the JAX
+    package's own benchmark width (``VECCHIA``).  (a) The session path
+    (fit, ``mean_var``, ``update``, ``nlml``) at N = 20,000: times, the
+    top-k and the lanes apart, peak bytes against a bound reckoned from the
+    block sizes, no kernel launched, the card against the port's CPU run;
+    (b) the exact GP at full conditioning sets; (c) the clustered accuracy
+    against the global expansions on the kernel path, their launches
+    exact; (d) the ordered NLML at N = 10^5.  Returns the numbers it
+    printed on its ``[phase 10]`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import exact_gp, vecchia
+    from repro_torch.core.gp import GP, GPSpec
+    from repro_torch.data import make_clustered_dataset
+    from repro_torch.kernels import knn, ops
+
+    V = VECCHIA
+    k, eps, noise = V["k"], [V["eps"]] * 2, V["noise"]
+    t_phase = time.perf_counter()
+    report: dict = {}
+
+    # the distances are summed element by element (kernels/knn.py); the
+    # lanes' batched products and the exact GP's must run in full float32
+    prec = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    print(f"[vecchia] float32 matmul precision {prec[0]!r}, allow_tf32 {prec[1]}")
+    check(prec == ("highest", False), f"float32 products would run in TF32: {prec}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def median_s(fn, reps: int = 3) -> float:
+        return statistics.median(timed(fn)[1] for _ in range(reps))
+
+    def peak(fn):
+        """(out, bytes the call held at its peak beyond what was live)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    slack = 32 << 20          # the caching allocator's rounding
+
+    def bounds(Q, N, bq, bt, p=2, T=1):
+        """Peak bytes of mean_var (Q queries) and nlml (N rows), reckoned
+        here from the block sizes and the budgets the modules document, not
+        from their helpers: a k-NN pass takes whole query blocks up to 2^23
+        floats of (rows, bt) distance tile, and holds five such tiles and
+        twelve four-byte words a (rows, k + bt) candidate (distances, int64
+        indices, the sort's outputs and scratch); a lane pass takes whole
+        query blocks up to 2^22 floats of k x k lanes, and holds 3p + 12
+        words a lane element and 4 (p + T) a neighbour.  The two passes
+        never overlap, so the larger one counts, with the (rows, k)
+        neighbour tables; never N x N or Q x N."""
+        knn_rows = max(bq, (1 << 23) // bt // bq * bq)
+        lane_rows = max(bq, (1 << 22) // (k * k) // bq * bq)
+
+        def knn_pass(rows):
+            r = min(rows, knn_rows)
+            return r * (5 * bt + 12 * (k + bt))
+
+        def lane_pass(rows):
+            r = min(rows, lane_rows)
+            return r * (k * k * (3 * p + 12) + 4 * k * (p + T))
+
+        mv = 4 * (max(knn_pass(Q), lane_pass(Q)) + 3 * Q * k + 2 * Q * (T + 1)) + slack
+        nl = 4 * (max(knn_pass(N), lane_pass(N)) + 10 * N * k + 2 * N * (p + T)) + slack
+        return mv, nl
+
+    # -- (a) the session path at N = 20,000 ---------------------------------
+    X, y, Xs, ys = make_clustered_dataset(V["n_train"], seed=1, device=dev, **VECCHIA_DATA)
+    N, Q = X.shape[0], Xs.shape[0]
+    spec = GPSpec.create_vecchia(eps, noise, neighbors=k, device=dev)
+    bq, bt = vecchia._block_q(k), min(spec.block_rows, N)
+    ops.reset_launch_counts()
+    (mu, var), cold_s = timed(lambda: GP.fit(X, y, spec).mean_var(Xs))
+    fit_mv_s = median_s(lambda: GP.fit(X, y, spec).mean_var(Xs))
+    gp = GP.fit(X, y, spec)
+    mv_s = median_s(lambda: gp.mean_var(Xs))
+    nlml, nlml_cold_s = timed(lambda: gp.nlml(X, y))
+    nlml_s = median_s(lambda: gp.nlml(X, y))
+    u = V["update"]
+    up = GP.fit(X[:-u], y[:-u], spec)
+    (upd, up_s) = timed(lambda: up.update(X[-u:], y[-u:]).mean_var(Xs))
+    # a checkpoint round trip onto the card: leaves, spec and answers bitwise
+    with tempfile.TemporaryDirectory() as ckdir:
+        gp.save(ckdir)
+        (ld, ld_mv), load_s = timed(lambda: (lambda g: (g, g.mean_var(Xs)))(
+            GP.load(ckdir, device="cuda")))
+    counts = ops.launch_counts()
+    print(f"[vecchia] N={N} k={k} Q={Q} block_q={bq} block_t={bt}: first fit + mean_var "
+          f"{cold_s:.3f} s; warm fit + mean_var {fit_mv_s * 1e3:.2f} ms, mean_var alone "
+          f"{mv_s * 1e3:.2f} ms; nlml {nlml_s * 1e3:.2f} ms (first {nlml_cold_s:.3f} s); "
+          f"update of {u} rows + mean_var {up_s * 1e3:.2f} ms; GP.load(device='cuda') + "
+          f"mean_var {load_s * 1e3:.2f} ms; launches {json.dumps(counts)}")
+    check(ld.state.X.device.type == "cuda" and torch.equal(ld.state.X, gp.state.X)
+          and torch.equal(ld.state.y, gp.state.y), "the loaded Vecchia leaves differ")
+    check(ld.spec.describe() == gp.spec.describe()
+          and torch.equal(ld.spec.eps, gp.spec.eps) and float(ld.spec.noise) == float(gp.spec.noise),
+          "the loaded Vecchia spec differs")
+    check(torch.equal(ld_mv[0], mu) and torch.equal(ld_mv[1], var),
+          "the loaded Vecchia session answers differently")
+    del ld, ld_mv
+    check(counts == NO_LAUNCHES, f"the Vecchia path launched a kernel: {counts}")
+    check(tuple(mu.shape) == (Q,) and tuple(var.shape) == (Q,), "mean_var shapes")
+    check(bool(torch.isfinite(mu).all() and torch.isfinite(var).all() and (var >= 0).all()),
+          "mean_var not finite")
+    check(bool(torch.isfinite(nlml)), "nlml not finite")
+    check(torch.equal(upd[0], mu) and torch.equal(upd[1], var),
+          "update of the last rows differs from the fit on all of them")
+    rmse = float(torch.sqrt(torch.mean((mu - ys) ** 2)))
+    print(f"[vecchia] rmse {rmse:.5f}, nlml {float(nlml):.2f} ({float(nlml) / N:.4f} a row)")
+
+    # the top-k and the lanes apart (CUDA events, median of 5)
+    se = exact_gp.KERNELS["se"]
+    y2 = y[:, None]
+    _, idx = knn.knn_search(Xs, X, k, block_q=bq, block_t=bt)
+    nbr, msk = knn.ordered_topk(X, k, block_q=bq, block_t=bt)
+    step = vecchia.lane_rows(k)
+    sig2 = spec.noise ** 2
+
+    def mv_lanes():
+        for lo in range(0, Q, step):
+            vecchia._mean_var_lanes(X, y2, Xs[lo:lo + step], idx[lo:lo + step], spec.eps,
+                                    sig2, se)
+
+    def nll_lanes():
+        for lo in range(0, N, step):
+            vecchia._nll_lanes(X, y2, y2[lo:lo + step], X[lo:lo + step], nbr[lo:lo + step],
+                               msk[lo:lo + step], spec.eps, sig2, se)
+
+    parts = {
+        "knn_ms": cuda_ms(lambda: knn.knn_search(Xs, X, k, block_q=bq, block_t=bt), reps=5),
+        "mean_var_lanes_ms": cuda_ms(mv_lanes, reps=5),
+        "ordered_topk_ms": cuda_ms(lambda: knn.ordered_topk(X, k, block_q=bq, block_t=bt),
+                                   reps=5),
+        "nlml_lanes_ms": cuda_ms(nll_lanes, reps=5),
+    }
+    print("[vecchia] parts (CUDA events): " + ", ".join(f"{n} {v:.3f}" for n, v in parts.items()))
+    del idx, nbr, msk
+
+    # peak bytes against the reckoned bounds
+    mv_bound, nl_bound = bounds(Q, N, bq, bt)
+    _, mv_peak = peak(lambda: gp.mean_var(Xs))
+    _, nl_peak = peak(lambda: gp.nlml(X, y))
+    print(f"[vecchia] peak bytes: mean_var {mv_peak:,} (bound {mv_bound:,}), nlml "
+          f"{nl_peak:,} (bound {nl_bound:,}); a dense Q x N float32 {4 * Q * N:,}, "
+          f"N x N {4 * N * N:,}")
+    check(mv_peak <= mv_bound and nl_peak <= nl_bound, "a Vecchia call exceeded its bound")
+    # the bounds have teeth: one dense tile more than was measured breaks them
+    check(mv_peak + 4 * Q * N > mv_bound and nl_peak + 4 * N * N > nl_bound,
+          "a Vecchia bound would admit a dense Q x N or N x N tile")
+
+    # the card against the port's CPU run on a subsample of the queries,
+    # on the rows whose conditioning sets are one set on both devices
+    S = V["subsample"]
+    cspec = GPSpec.create_vecchia(eps, noise, neighbors=k, device="cpu")
+    mu_c, var_c = GP.fit(X.cpu(), y.cpu(), cspec).mean_var(Xs[:S].cpu())
+    _, i_d = knn.knn_search(Xs[:S], X, k, block_q=bq, block_t=bt)
+    _, i_c = knn.knn_search(Xs[:S].cpu(), X.cpu(), k, block_q=bq, block_t=bt)
+    same = torch.tensor([set(a) == set(b) for a, b in zip(i_d.cpu().tolist(), i_c.tolist())])
+    print(f"[vecchia] card vs CPU: {int(same.sum())} of {S} conditioning sets equal")
+    check(int(same.sum()) >= S - 2, "the card's conditioning sets differ from the CPU's")
+    compare("vecchia card vs CPU mean", [mu[:S].cpu()[same]], [mu_c[same]], rtol=0.0,
+            atol=1e-4, why="tests/test_vecchia.py:148-156 gate")
+    compare("vecchia card vs CPU variance", [var[:S].cpu()[same]], [var_c[same]], rtol=0.0,
+            atol=1e-4, why="tests/test_vecchia.py:148-156 gate")
+    report["session"] = {
+        "N": N, "Q": Q, "k": k, "first_fit_mean_var_s": cold_s, "fit_mean_var_s": fit_mv_s,
+        "mean_var_s": mv_s, "load_mean_var_s": load_s, "nlml_s": nlml_s, "update_mean_var_s": up_s, "rmse": rmse, **parts,
+        "mean_var_peak_bytes": mv_peak, "mean_var_bound_bytes": mv_bound,
+        "nlml_peak_bytes": nl_peak, "nlml_bound_bytes": nl_bound}
+    del gp, up, upd, X, y, Xs, ys, mu, var
+
+    # -- (b) the exact GP at full conditioning sets (benchmarks/vecchia.py:140-160)
+    Xa, ya, Xsa, _ = make_clustered_dataset(V["agree_n"], seed=0, device=dev, **VECCHIA_DATA)
+    agree = {}
+    for kernel in ("se", "matern52"):
+        sp = GPSpec.create_vecchia(eps, noise, kernel=kernel, neighbors=V["agree_n"] - 1,
+                                   device=dev)
+        mu_v, var_v = GP.fit(Xa, ya, sp).mean_var(Xsa)
+        mu_e, var_e = exact_gp.mean_var(exact_gp.fit(Xa, ya, sp.eps, sp.noise, kernel), Xsa)
+        agree[kernel] = [
+            compare(f"vecchia k = N - 1 vs exact GP ({kernel}) mean", [mu_v], [mu_e],
+                    rtol=0.0, atol=1e-4, why="benchmarks/vecchia.py:156 gate"),
+            compare(f"vecchia k = N - 1 vs exact GP ({kernel}) variance", [var_v], [var_e],
+                    rtol=0.0, atol=1e-4, why="benchmarks/vecchia.py:157 gate")]
+    report["agreement"] = agree
+
+    # -- (c) the clustered accuracy at N = 10^4 (benchmarks/vecchia.py:98-139)
+    Xc, yc, Xsc, ysc = make_clustered_dataset(V["accuracy_n"], seed=0, device=dev,
+                                              **VECCHIA_DATA)
+
+    def fit_serve(sp):
+        return GP.fit(Xc, yc, sp).mean_var(Xsc)[0]
+
+    def rmse_of(m):
+        return float(torch.sqrt(torch.mean((m - ysc) ** 2)))
+
+    vspec = GPSpec.create_vecchia(eps, noise, neighbors=k, device=dev)
+    ops.reset_launch_counts()
+    r_v = rmse_of(fit_serve(vspec))
+    check(ops.launch_counts() == NO_LAUNCHES, "the Vecchia path launched a kernel")
+    t_v = median_s(lambda: fit_serve(vspec))
+    globals_ = {
+        "hermite": GPSpec.create(V["hermite_n"], eps, noise=noise, backend="pallas",
+                                 device=dev),
+        "rff_se": GPSpec.create_rff(eps, noise=noise, num_features=V["R"], seed=0,
+                                    backend="pallas", device=dev),
+        "rff_matern52": GPSpec.create_rff(eps, noise=noise, kernel="matern52",
+                                          num_features=V["R"], seed=0, backend="pallas",
+                                          device=dev),
+    }
+    g_rmse, g_s, g_counts = {}, {}, {}
+    for name, sp in globals_.items():
+        ops.reset_launch_counts()
+        g_rmse[name] = rmse_of(fit_serve(sp))
+        g_counts[name] = ops.launch_counts()
+        check(g_counts[name] == GLOBAL_EXPECTED,
+              f"{name} launches {g_counts[name]} != {GLOBAL_EXPECTED}")
+        g_s[name] = median_s(lambda: fit_serve(sp))
+    best = min(g_rmse, key=g_rmse.get)
+    accuracy = {
+        "vecchia_rmse": r_v, "vecchia_s": t_v, "global_rmse": g_rmse, "global_s": g_s,
+        "best_global": best, "global_over_vecchia_rmse": g_rmse[best] / r_v,
+        "vecchia_over_best_global_seconds": t_v / g_s[best], "launches": g_counts}
+    print(f"[vecchia accuracy] N={Xc.shape[0]}: vecchia rmse {r_v:.5f} in {t_v * 1e3:.2f} ms; "
+          + "; ".join(f"{n} {g_rmse[n]:.5f} in {g_s[n] * 1e3:.2f} ms" for n in g_rmse)
+          + f"; global_over_vecchia_rmse {accuracy['global_over_vecchia_rmse']:.3f}, "
+          f"vecchia_over_best_global_seconds {accuracy['vecchia_over_best_global_seconds']:.3f}")
+    check(accuracy["global_over_vecchia_rmse"] >= 1.0,
+          "a global expansion beat Vecchia on the clustered data")
+    report["accuracy"] = accuracy
+    del Xc, yc, Xsc, ysc
+
+    # -- (d) the scale point: the ordered NLML at N = 10^5 -------------------
+    Xd, yd, _, _ = make_clustered_dataset(V["scale_n"], seed=2, device=dev, **VECCHIA_DATA)
+    Nd = Xd.shape[0]
+    dspec = GPSpec.create_vecchia(eps, noise, neighbors=k, device=dev)
+    gd = GP.fit(Xd, yd, dspec)
+    ops.reset_launch_counts()
+    (nd, nd_peak), nd_s = timed(lambda: peak(lambda: gd.nlml(Xd, yd)))
+    check(ops.launch_counts() == NO_LAUNCHES, "the Vecchia path launched a kernel")
+    _, nd_bound = bounds(1, Nd, bq, min(dspec.block_rows, Nd))
+    print(f"[vecchia scale] N={Nd}: nlml {float(nd):.1f} ({float(nd) / Nd:.4f} a row) in "
+          f"{nd_s:.3f} s; peak {nd_peak:,} bytes (bound {nd_bound:,}; a dense N x N float32 "
+          f"{4 * Nd * Nd:,})")
+    check(bool(torch.isfinite(nd)), "the N = 10^5 nlml is not finite")
+    check(nd_peak <= nd_bound, "the N = 10^5 nlml exceeded its bound")
+    report["scale"] = {"N": Nd, "nlml_s": nd_s, "nlml_per_row": float(nd) / Nd,
+                       "peak_bytes": nd_peak, "bound_bytes": nd_bound}
+    del gd, Xd, yd
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print("[phase 10] " + json.dumps(report))
+    print(f"[phase 10] took {report['seconds']:.1f} s")
     return report
 
 
@@ -1445,6 +1740,14 @@ def main() -> int:
             why="tests/test_gp_bank.py:90 gate")
     compare("inserted tenant vs its own session, variance", [v2], [v1], rtol=0.0,
             atol=1e-5, why="tests/test_gp_bank.py:91 gate")
+    # the serving cache rode along, its refreshed slots (one slot in each
+    # mutation) bitwise a fresh cache's (fagp._bank_binv)
+    check("_binv_cache" in b1.__dict__ and "_binv_cache" in b2.__dict__,
+          "evict/insert did not carry the B^-1 cache")
+    for name, bk in (("evict", b1), ("insert", b2)):
+        check(torch.equal(bk._binv, fagp._bank_binv(bk.stack.chol)),
+              f"the B^-1 cache carried through {name} differs from a fresh one")
+    print("[fleet] B^-1 cache carried through evict and insert == a fresh cache, bitwise")
     b3 = b2.evict("new")
     check(torch.equal(b3.stack.chol[0], torch.eye(FM, device=dev))
           and not torch.any(b3.stack.u[0]) and "new" not in b3,
@@ -2290,6 +2593,9 @@ def main() -> int:
 
     # -- 9. pipelined fleet serving and the tiered bank (ROADMAP A4) -------
     phase9(dev, fspec, fout, compare, Xq16)
+
+    # -- 10. the Vecchia family (ROADMAP A6) ----------------------------------
+    phase10(dev, compare, cuda_ms)
 
     # -- results --------------------------------------------------------------
     kernels = []

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from ..core import fagp
+from ..core.approximation import get_approximation, require_capability
 from ..core.expansions import get_expansion
 from ..core.fagp import FAGPState, GPSpec, _f32
 from ..core.gp import GP
@@ -273,10 +274,17 @@ def _check_single_task(state: FAGPState, who: str) -> None:
         )
 
 
+def _check_family(state) -> None:
+    """Bank admission is a capability of the state's family ('bank'): a
+    Vecchia session is refused with the structured ``UnsupportedError``."""
+    require_capability(get_approximation(state.spec.approximation), "bank", state.spec)
+
+
 def _check_bankable(state: FAGPState, spec: GPSpec, who: str) -> None:
     """A state can join a homogeneous bank iff it was factorized under the
     bank's shared spec (structure AND hyperparameters, including any RFF
     spectral draws) and is single-output."""
+    _check_family(state)
     fagp._check_spec_regenerates_idx(state, spec)
     try:
         fagp._check_hypers_match(state, spec, who)
@@ -294,6 +302,7 @@ def _check_bankable_hetero(state: FAGPState, spec: GPSpec, who: str) -> None:
     STRUCTURE: eps/rho/noise may differ per slot, but the expansion family,
     truncation and any RFF spectral draws stay bank-wide (they define the
     shared index table and, for RFF, the shared base frequencies)."""
+    _check_family(state)
     for f in fagp._STRUCTURAL_FIELDS:
         if getattr(state.spec, f) != getattr(spec, f):
             raise ValueError(
@@ -596,9 +605,9 @@ class GPBank:
         cached = self.__dict__.get("_binv_cache")
         if cached is not None:
             if isinstance(slots, int):
-                rows = fagp._bank_binv(new.stack.chol[slots:slots + 1])[0]
+                rows = fagp._bank_binv(new.stack.chol, slice(slots, slots + 1))[0]
             else:
-                rows = fagp._bank_binv(new.stack.chol[slots])
+                rows = fagp._bank_binv(new.stack.chol, slots)
             object.__setattr__(new, "_binv_cache", _scatter(cached, slots, rows, donate))
 
     def _slots_for(self, tenant_ids) -> torch.Tensor:

@@ -3,15 +3,19 @@
 Counterpart of ``repro/checkpoint/gpstate.py``, writing the same format
 (``FORMAT``/``FORMAT_VERSION``, manifest keys, leaf names and the omega
 sha256), so a session saved by either package loads in the other with
-bitwise-equal leaves.  A fitted :class:`~repro_torch.core.fagp.FAGPState`
-is written through the atomic store (:mod:`repro_torch.checkpoint.store`)
-with a manifest carrying the spec's structure (approximation family,
-expansion, truncation, a sha256 of any RFF spectral draws), so a restore
-into an incompatible spec raises like ``FAGPState.with_spec`` does.
+bitwise-equal leaves.  A fitted session (an
+:class:`~repro_torch.core.fagp.FAGPState` or a
+:class:`~repro_torch.core.vecchia.VecchiaState`) is written through the
+atomic store (:mod:`repro_torch.checkpoint.store`) with a manifest
+carrying the spec's structure (approximation family, expansion,
+truncation, a sha256 of any RFF spectral draws, the Vecchia kernel and
+neighbour count), so a restore into an incompatible spec raises like
+``with_spec`` does.
 
 Layout per version: ``<dir>/step_<version>/{arrays.npz, manifest.json}``
-with the tree ``{"leaves": {lam, sqrtlam, chol, u, b}, "hypers": {eps,
-rho, noise}, "omega"?, "train": {Phi, y}?, "extra": {...}?}``.
+with the tree ``{"leaves": {...}, "hypers": {eps, rho, noise}, "omega"?,
+"train": {Phi, y}?, "extra": {...}?}``, the leaves each family's own
+(FAGP: lam, sqrtlam, chol, u, b; Vecchia: X, y).
 ``save_state`` auto-increments the version; ``extra`` arrays (the cold
 tier's sliding-window buffers) ride beside the session and come back from
 :func:`load_state` as numpy arrays.  The manifest records no device:
@@ -27,11 +31,7 @@ from typing import Optional, Union
 import numpy as np
 
 from ..core import fagp
-from ..core.approximation import (
-    UnsupportedError,
-    available_approximations,
-    get_approximation,
-)
+from ..core.approximation import get_approximation
 from ..core.fagp import FAGPState, GPSpec
 from ..device import resolve_device
 from . import store
@@ -42,9 +42,9 @@ __all__ = ["save_state", "load_state", "latest_version", "spec_manifest",
 FORMAT = "repro.gpstate"
 FORMAT_VERSION = 1
 
-# manifests written before the approximation protocol lack the
-# "approximation" key and load as this family
-_DEFAULT_APPROXIMATION = "fagp"
+# manifest keys added with the approximation protocol; manifests written
+# before it lack them and load with these defaults (an "fagp" checkpoint)
+_SPEC_MANIFEST_DEFAULTS = {"approximation": "fagp", "kernel": None, "neighbors": None}
 
 
 def omega_hash(omega) -> Optional[str]:
@@ -74,8 +74,8 @@ def spec_manifest(spec: GPSpec) -> dict:
         "store_train": bool(spec.store_train),
         "backend": spec.backend,
         "omega_sha256": omega_hash(spec.omega),
-        "kernel": None,
-        "neighbors": None,
+        "kernel": spec.kernel,
+        "neighbors": None if spec.neighbors is None else int(spec.neighbors),
     }
 
 
@@ -84,7 +84,7 @@ def _check_compatible(meta: dict, spec: GPSpec) -> None:
     the serialized mirror of the ``with_spec`` check."""
     ms = meta["spec"]
     for f in fagp._STRUCTURAL_FIELDS:
-        have = ms.get(f, _DEFAULT_APPROXIMATION) if f == "approximation" else ms[f]
+        have = ms.get(f, _SPEC_MANIFEST_DEFAULTS[f]) if f in _SPEC_MANIFEST_DEFAULTS else ms[f]
         want = getattr(spec, f)
         if have != want:
             raise ValueError(
@@ -180,17 +180,9 @@ def load_state(
             f"(format={meta.get('format')!r})"
         )
     ms = meta["spec"]
-    name = ms.get("approximation", _DEFAULT_APPROXIMATION)
-    if name not in available_approximations():
-        raise UnsupportedError(
-            f"repro_torch does not support loading a {name!r} checkpoint "
-            f"yet: the Vecchia family comes with ROADMAP.md A6 "
-            f"(registered: {available_approximations()})",
-            layer="port", capability=name, spec=like_spec,
-        )
     if like_spec is not None:
         _check_compatible(meta, like_spec)
-    ap = get_approximation(name)
+    ap = get_approximation(ms.get("approximation", _SPEC_MANIFEST_DEFAULTS["approximation"]))
 
     # a like-tree with the manifest's structure; shapes come from the npz
     like: dict = {
@@ -214,6 +206,8 @@ def load_state(
         block_rows=ms["block_rows"], store_train=ms["store_train"],
         backend=ms["backend"], expansion=ms["expansion"],
         omega=tree.get("omega"), approximation=ap.name,
+        kernel=ms.get("kernel", _SPEC_MANIFEST_DEFAULTS["kernel"]),
+        neighbors=ms.get("neighbors", _SPEC_MANIFEST_DEFAULTS["neighbors"]),
     )
     if like_spec is not None and require_hypers_match:
         for f in fagp._HYPER_FIELDS:

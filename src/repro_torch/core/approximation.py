@@ -1,10 +1,12 @@
-"""Approximation registry behind ``GP`` (the ``fagp`` family only).
+"""Approximation registry behind ``GP``: the ``fagp`` and ``vecchia``
+families.
 
-Counterpart of ``repro/core/approximation.py``, cut to what the FAGP
-family needs: the structured refusal :class:`UnsupportedError`, the
-name -> family registry that ``core/gp.py`` dispatches through, and the
-checkpoint hooks that ``checkpoint/gpstate.py`` serializes through.  The
-Vecchia family registers here in a later slice of the port.
+Counterpart of ``repro/core/approximation.py``: the structured refusal
+:class:`UnsupportedError`, the name -> family registry that
+``core/gp.py`` dispatches through, and the checkpoint hooks that
+``checkpoint/gpstate.py`` serializes through.  Each family registers
+itself when its module is imported (``core/fagp.py`` imports
+``core/vecchia.py`` at its bottom).
 """
 from __future__ import annotations
 

@@ -86,7 +86,11 @@ class GPSpec:
         ``predict(mode="paper")``; costs an N x M buffer).
     backend: 'jnp' (plain) or 'pallas' (kernels).
     expansion: 'hermite' | 'rff_se' | 'rff_matern52'.
-    approximation: registered family ('fagp' is the only one ported).
+    approximation: registered family, 'fagp' (default) or 'vecchia'
+        (``core/vecchia.py``).
+    kernel / neighbors: the Vecchia family's structure (the exact
+        reference kernel 'se' | 'matern52', the conditioning-set size k);
+        None on 'fagp' specs, whose structure is the expansion.
 
     The tensors live on one device (``spec.device``), which every fit and
     prediction of the session runs on.
@@ -104,6 +108,8 @@ class GPSpec:
     expansion: str = "hermite"
     omega: Optional[torch.Tensor] = None
     approximation: str = "fagp"
+    kernel: Optional[str] = None
+    neighbors: Optional[int] = None
 
     @staticmethod
     def create(
@@ -122,6 +128,8 @@ class GPSpec:
         seed: int = 0,
         omega=None,
         approximation: str = "fagp",
+        kernel: Optional[str] = None,
+        neighbors: Optional[int] = None,
         device=None,
     ) -> "GPSpec":
         """Constructor with scalar broadcasting (``eps`` fixes p).  The RFF
@@ -159,7 +167,8 @@ class GPSpec:
             index_set=index_set, degree=degree, block_rows=block_rows,
             store_train=store_train, backend=backend, expansion=expansion,
             omega=None if omega is None else _f32(omega, dev),
-            approximation=approximation,
+            approximation=approximation, kernel=kernel,
+            neighbors=None if neighbors is None else int(neighbors),
         )
         get_approximation(approximation).validate(spec)
         return spec
@@ -174,6 +183,20 @@ class GPSpec:
             1, eps, rho, noise, block_rows=block_rows,
             store_train=store_train, backend=backend,
             expansion=f"rff_{kernel}", num_features=num_features, seed=seed,
+            device=device,
+        )
+
+    @staticmethod
+    def create_vecchia(eps, noise=1e-2, *, kernel: str = "se", neighbors: int = 32,
+                       rho=2.0, block_rows: int = 4096, backend: str = "jnp",
+                       device=None) -> "GPSpec":
+        """Sugar for the Vecchia nearest-neighbour family
+        (``core/vecchia.py``): ``kernel`` names the exact reference kernel
+        ('se' | 'matern52'), ``neighbors`` is the conditioning-set size k.
+        The expansion fields are inert for this family."""
+        return GPSpec.create(
+            1, eps, rho, noise, block_rows=block_rows, backend=backend,
+            approximation="vecchia", kernel=kernel, neighbors=neighbors,
             device=device,
         )
 
@@ -196,6 +219,13 @@ class GPSpec:
         return dataclasses.replace(self, **overrides)
 
     def describe(self) -> str:
+        if self.approximation != "fagp":
+            return (
+                f"GPSpec(approximation={self.approximation!r}, "
+                f"kernel={self.kernel!r}, neighbors={self.neighbors}, "
+                f"p={self.p}, backend={self.backend!r}, "
+                f"device={str(self.device)!r})"
+            )
         extra = (
             f"n={self.n}, index_set={self.index_set!r}, degree={self.degree}"
             if self.expansion == "hermite"
@@ -208,8 +238,10 @@ class GPSpec:
         )
 
 
-# fields frozen into the factorization: with_spec may not change them
-_STRUCTURAL_FIELDS = ("approximation", "expansion", "n", "index_set", "degree")
+# fields frozen into the factorization: with_spec may not change them (for
+# vecchia the kernel and the neighbour count likewise define the session)
+_STRUCTURAL_FIELDS = ("approximation", "expansion", "n", "index_set", "degree",
+                      "kernel", "neighbors")
 _HYPER_FIELDS = ("eps", "rho", "noise", "omega")
 
 
@@ -522,11 +554,31 @@ def _jnp_mean_var(state, Xs):
 # answers one mixed-tenant query batch by gathering each row's slot state.
 
 
-def _bank_binv(chol_s: torch.Tensor) -> torch.Tensor:
-    """Per-slot B^{-1} (C, M, M) from the stacked Cholesky factors: the
-    bank's serving cache, computed once per bank version (``GPBank``
-    carries it across mutations, refreshing only the slots they touch)."""
-    return torch.cholesky_inverse(chol_s)
+def _bank_binv(chol_s: torch.Tensor, slots=None) -> torch.Tensor:
+    """Per-slot B^{-1} (C, M, M) from the stacked Cholesky factors, of the
+    slots ``slots`` selects (an index tensor or a slice; all by default):
+    the bank's serving cache, computed once per bank version (``GPBank``
+    carries it across mutations, refreshing only the slots they touch).
+
+    A slot's B^{-1} is the same bits whether it is inverted alone, with a
+    few slots or with the whole stack, so a carried cache equals a fresh
+    one.  The batched inversion does not promise that by itself: on the
+    CPU, LAPACK rounds by a matrix's alignment in the batch's column-major
+    copy (matrix k at k M^2 floats), and on the card a batch of one takes
+    another routine than a batch of several.  So each slot is inverted
+    padded with identity rows to a multiple of 8 (matrix k at a 256-byte
+    stride), in a batch of at least two; the cache is a view of the padded
+    result.  A refresh's gathered factors are let go once copied into the
+    padded batch, so it holds at most two batches at once, as before."""
+    src = chol_s if slots is None else chol_s[slots]
+    C, M, _ = src.shape
+    Mp = -(-M // 8) * 8
+    if Mp == M and C >= 2:
+        return torch.cholesky_inverse(src)
+    work = torch.eye(Mp, dtype=src.dtype, device=src.device).repeat(max(C, 2), 1, 1)
+    work[:C, :M, :M] = src
+    del src
+    return torch.cholesky_inverse(work)[:C, :M, :M]
 
 
 @shape_tracked
@@ -1019,6 +1071,13 @@ class _FagpApproximation(Approximation):
     state_type = FAGPState
 
     def validate(self, spec: Any) -> None:
+        if spec.kernel is not None or spec.neighbors is not None:
+            raise ValueError(
+                f"kernel=/neighbors= are vecchia-only spec fields but "
+                f"approximation='fagp'; the FAGP family's structure is its "
+                f"expansion — use GPSpec.create_vecchia for the Vecchia "
+                f"family ({spec.describe()})"
+            )
         get_expansion(spec.expansion).validate(spec)
 
     def fit(self, X, y, spec):
@@ -1078,3 +1137,7 @@ class _FagpApproximation(Approximation):
 
 
 register_approximation(_FagpApproximation())
+
+# importing the sibling family registers it; it comes after this module's
+# definitions (core/vecchia.py reads _STRUCTURAL_FIELDS and friends lazily)
+from . import vecchia as _vecchia  # noqa: E402,F401  (registration import)

@@ -15,8 +15,16 @@ Counterpart of ``repro/core/gp.py``:
     gp = GP.load(ckpt_dir)               # newest version, onto the card
 
 Every method dispatches through the session's registered approximation
-family.  ``predict(mode="paper")`` (the literal Eqs. 11-12 chain) needs a
-spec with ``store_train=True``.  Checkpoints are the JAX package's format:
+family: ``"fagp"`` (the paper's decomposed kernel, the default) or
+``"vecchia"`` (nearest-neighbour conditioning, ``core/vecchia.py``)::
+
+    spec = GPSpec.create_vecchia([2.0, 2.0], 0.1, kernel="matern52", neighbors=32)
+    gp = GP.fit(X, y, spec)              # same facade, local conditioning
+
+An operation a family does not implement (``predict`` and ``optimize`` on
+vecchia) raises the structured ``UnsupportedError``.
+``predict(mode="paper")`` (the literal Eqs. 11-12 chain) needs a spec with
+``store_train=True``.  Checkpoints are the JAX package's format:
 ``GP.save`` here loads with ``repro.core.gp.GP.load`` and back.
 """
 from __future__ import annotations

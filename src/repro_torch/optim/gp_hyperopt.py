@@ -162,7 +162,7 @@ def _lane_step(hp, ostate, frozen, prev, data, spec, tol: float, ocfg):
     since the previous step falls below ``tol``; frozen lanes carry their
     parameters and optimizer moments through unchanged (bitwise)."""
     B, R = frozen.shape
-    vals = torch.empty((B, R), dtype=torch.float32, device=frozen.device)
+    vals = torch.empty((B, R), dtype=hp["log_noise"].dtype, device=frozen.device)
     grads = {f: torch.empty_like(hp[f]) for f in _FIELDS}
     for t, (X, y, mask) in enumerate(data):
         for r in range(R):
@@ -192,7 +192,7 @@ def _lane_values(hp, data, spec):
     """Final per-lane NLML/row at the CURRENT parameters (the best-restart
     selection criterion: ``_lane_step``'s vals lag one update behind)."""
     B, R = hp["log_noise"].shape
-    vals = torch.empty((B, R), dtype=torch.float32, device=hp["log_noise"].device)
+    vals = torch.empty((B, R), dtype=hp["log_noise"].dtype, device=hp["log_noise"].device)
     for t, (X, y, mask) in enumerate(data):
         for r in range(R):
             vals[t, r] = _lane_loss(_lane(hp, t, r), X, y, mask, spec)

@@ -129,13 +129,15 @@ def test_optimize_signatures_match_jax(name):
     assert params[0] == params[1]
 
 
-# names of the reference's core that belong to items still queued
-NOT_PORTED = {"vecchia", "VecchiaState", "FAGPConfig"}
+# names of the reference's core the port leaves out: the legacy config (the
+# Vecchia family's vecchia and VecchiaState are exported since ROADMAP A6)
+NOT_PORTED = {"FAGPConfig"}
 
 
 def test_core_exports_the_references_names():
     """``repro_torch.core`` exports every name ``repro/core/__init__.py``
-    imports, less those of items still queued; and the two eigenvalue
+    imports, ``vecchia`` and ``VecchiaState`` among them, less the legacy
+    ``FAGPConfig``; and the two eigenvalue
     helpers it gained agree with the reference's at rtol 1e-6."""
     tree = ast.parse(Path(jcore.__file__).read_text())
     ref_names = {a.asname or a.name for node in tree.body
@@ -169,10 +171,14 @@ def _bank():
 
 
 def _vecchia_load(tmp_path):
+    """A JAX Vecchia checkpoint loads as a session that serves."""
     X, y = gp_data(40, 2, 1)
     JGP.fit(jnp.asarray(X), jnp.asarray(y),
             JSpec.create_vecchia([0.8, 0.8], 0.05, neighbors=8)).save(tmp_path)
-    GP.load(tmp_path, device="cpu")
+    gp = GP.load(tmp_path, device="cpu")
+    mu, var = gp.mean_var(tt(X[:4]))
+    return gp.spec.approximation == "vecchia" and bool(torch.isfinite(mu).all()
+                                                         and torch.isfinite(var).all())
 
 
 def _fleet(**option):
@@ -186,7 +192,6 @@ REFUSALS = {
     "BankRouter.rebalance": (lambda tp: BankRouter(_bank()[0]).rebalance(), "A5",
                              "multi-device"),
     "serve_fleet(shards)": (lambda tp: _fleet(shards=2), "A5", "multi-device"),
-    "GP.load(vecchia)": (_vecchia_load, "A6", "Vecchia"),
 }
 
 
@@ -233,8 +238,8 @@ def _router_flush_span():
     return [e["name"] for e in tracer.events()] == ["flush"]
 
 
-# the calls ROADMAP A2, A3 and A4 refused until they were ported, and what
-# each now returns
+# the calls ROADMAP A2, A3, A4 and A6 refused until they were ported, and
+# what each now returns
 PORTED = {
     "GPBank.downdate": lambda tp: _bank()[0].downdate(
         [0], tt(gp_data(16, 2, 0)[0][None, :2]), tt(gp_data(16, 2, 0)[1][None, :2]))[1].tolist()
@@ -270,6 +275,8 @@ PORTED = {
     "BankRouter(donate_updates)": lambda tp: _donated_router_kills_its_donor(),
     "GPBank update with donate": lambda tp: isinstance(_bank()[0]._update_at_slots(
         torch.tensor([0]), torch.zeros(1, 2, 2), torch.zeros(1, 2), donate=True), GPBank),
+    # ROADMAP A6
+    "GP.load(vecchia)": _vecchia_load,
 }
 
 
@@ -288,8 +295,9 @@ def _value_error(call) -> str:
 
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_formerly_refused_call_works(name, tmp_path):
-    """Each call that named ROADMAP A2, A3 or A4 in its refusal now runs
-    (the window without a cold tier raises the JAX package's ValueError)."""
+    """Each call that named ROADMAP A2, A3, A4 or A6 in its refusal now
+    runs (the window without a cold tier raises the JAX package's
+    ValueError)."""
     assert PORTED[name](tmp_path)
 
 

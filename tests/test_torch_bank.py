@@ -441,7 +441,9 @@ def test_evicted_tenant_is_gone_and_states_roundtrip():
 def test_incremental_binv_carry_matches_fresh_cache():
     """A bank whose serving cache was carried through update / insert /
     evict answers exactly like one that rebuilds the cache from scratch
-    (tests/test_gp_bank.py:158)."""
+    (tests/test_gp_bank.py:158), the variance too: a slot's B^{-1} is the
+    same chain of operations whether it is refreshed alone or with the
+    whole stack (``fagp._bank_binv``)."""
     _, bank, *_ = _fleet(5, 16, 2, 5, capacity=6)
     Xq, ten = _queries(5, 2, 6)
     bank.mean_var(ten, tt(Xq))  # populate the parent cache
@@ -460,7 +462,7 @@ def test_incremental_binv_carry_matches_fresh_cache():
     m1, v1 = carried.mean_var(q, tt(Xq))
     m2, v2 = fresh.mean_var(q, tt(Xq))
     np.testing.assert_array_equal(nn(m1), nn(m2))
-    np.testing.assert_allclose(nn(v1), nn(v2), rtol=1e-6, atol=1e-9)
+    np.testing.assert_array_equal(nn(v1), nn(v2))
 
 
 @pytest.mark.parametrize("expansion", ["hermite", "rff_se"])
@@ -656,6 +658,60 @@ def _card_factors(G, M, K, seed, device):
     R = torch.randn(G, M, M, generator=gen, device=device)
     L = torch.linalg.cholesky(torch.eye(M, device=device) + R @ R.mT / M)
     return L, torch.randn(G, K, M, generator=gen, device=device) * 0.3
+
+
+def _assert_binv_independent_of_batch(L):
+    """A slot's B^-1 refreshed alone or with a few others (a carried cache)
+    is bitwise the same slot inverted with the whole stack (a fresh
+    cache)."""
+    full = tfagp._bank_binv(L)
+    C = L.shape[0]
+    for sl in ([1, 3], [2], [5, 6, 7], [0, C - 1], list(range(1, C))):
+        assert torch.equal(tfagp._bank_binv(L[sl]), full[sl]), sl
+        idx = torch.tensor(sl, device=L.device)
+        assert torch.equal(tfagp._bank_binv(L, idx), full[sl]), sl
+    assert torch.equal(tfagp._bank_binv(L, slice(4, 5))[0], full[4])
+
+
+# M = 25 (the bank tests' n = 5, p = 2), 32 (no padding), 125
+@pytest.mark.parametrize("M", [25, 32, 125])
+def test_binv_of_a_few_slots_is_bitwise_the_whole_stacks(M):
+    _assert_binv_independent_of_batch(_card_factors(12, M, 1, M, "cpu")[0])
+
+
+# on the card, at the bank tests' M = 25 and the fleet's 625
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [25, 625])
+def test_cuda_binv_of_a_few_slots_is_bitwise_the_whole_stacks(cuda_device, M):
+    _assert_binv_independent_of_batch(_card_factors(64, M, 1, M, cuda_device)[0])
+
+
+@pytest.mark.cuda
+def test_cuda_incremental_binv_carry_matches_fresh_cache(cuda_device):
+    """test_incremental_binv_carry_matches_fresh_cache on the card, through
+    the kernel path: the carried cache answers bitwise like a fresh one."""
+    Xb, yb = _stack(5, 16, 2)
+    ts = tfagp.GPSpec.create(5, np.full(2, 0.8, np.float32), 2.0, 0.05, backend="pallas",
+                             device=cuda_device)
+    bank = GPBank.fit(tt(Xb), tt(yb), ts, capacity=6)
+    Xq, ten = _queries(5, 2, 6)
+    bank.mean_var(ten, tt(Xq))
+    rng = np.random.default_rng(8)
+    Xk, yk = tt(uniform(rng, (2, 4, 2))), tt(rng.standard_normal((2, 4)).astype(np.float32))
+    Xn, yn = map(tt, gp_data(16, 2, 70))
+
+    def mutate(b):
+        return b.update([1, 3], Xk, yk).evict(0).insert("n", (Xn, yn))
+
+    carried = mutate(bank)
+    assert "_binv_cache" in carried.__dict__
+    fresh = mutate(GPBank.from_states(bank.states(), capacity=6))
+    assert "_binv_cache" not in fresh.__dict__
+    assert torch.equal(carried._binv, fresh._binv)
+    q = ["n", 1, 3, 2, "n", 4]
+    m1, v1 = carried.mean_var(q, tt(Xq))
+    m2, v2 = fresh.mean_var(q, tt(Xq))
+    assert torch.equal(m1, m2) and torch.equal(v1, v2)
 
 
 def _assert_batched_sweep(L, W):

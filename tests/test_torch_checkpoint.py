@@ -20,7 +20,6 @@ from repro.checkpoint import gpstate as jgpstate  # noqa: E402
 from repro.core.gp import GP as JGP  # noqa: E402
 from repro.core.gp import GPSpec as JSpec  # noqa: E402
 from repro_torch.checkpoint import gpstate, store  # noqa: E402
-from repro_torch.core.approximation import UnsupportedError  # noqa: E402
 from repro_torch.core.gp import GP  # noqa: E402
 
 EXPANSIONS = ["hermite", "rff_se", "rff_matern52"]
@@ -278,9 +277,24 @@ def test_old_style_jax_manifest_loads_as_fagp(tmp_path):
 
 
 def test_vecchia_checkpoint_is_refused(tmp_path):
+    """A Vecchia checkpoint of the JAX package, refused until the family
+    was ported (ROADMAP A6), now loads as a working session: its leaves
+    (X, y) and spec bitwise, no ``train`` sidecar.  The cross-loads both
+    ways are in tests/test_torch_vecchia.py."""
     X, y = gp_data(40, 2, 1)
-    JGP.fit(jnp.asarray(X), jnp.asarray(y),
-            JSpec.create_vecchia([0.8, 0.8], 0.05, neighbors=8)).save(tmp_path)
-    with pytest.raises(UnsupportedError, match="A6") as e:
-        GP.load(tmp_path, device="cpu")
-    assert e.value.layer == "port" and "does not support" in str(e.value)
+    jg = JGP.fit(jnp.asarray(X), jnp.asarray(y),
+                 JSpec.create_vecchia([0.8, 0.8], 0.05, neighbors=8))
+    jg.save(tmp_path)
+    gp = GP.load(tmp_path, device="cpu")
+    assert type(gp.state).__name__ == "VecchiaState"
+    for f in ("X", "y"):
+        assert _same(getattr(gp.state, f), getattr(jg.state, f)), f
+    for f in SPEC_LEAVES:
+        assert _same(getattr(gp.spec, f), getattr(jg.spec, f)), f
+    for f in ("approximation", "kernel", "neighbors", "block_rows", "backend"):
+        assert getattr(gp.spec, f) == getattr(jg.spec, f), f
+    manifest = json.loads((tmp_path / "step_0000000000" / "manifest.json").read_text())
+    assert not manifest["metadata"]["has_train"]
+    assert gpstate.spec_manifest(gp.spec) == jgpstate.spec_manifest(jg.spec)
+    mu, var = gp.mean_var(tt(X[:5]))
+    assert torch.isfinite(mu).all() and torch.isfinite(var).all()

@@ -142,32 +142,86 @@ def test_port_backends_agree_value_and_grad(expansion, tasks, ragged):
     np.testing.assert_allclose(out["pallas"][1], out["jnp"][1], **GRAD)
 
 
+def _f64_spec_leaves(spec, asarray):
+    """The spec's hyperparameter leaves (and omega) as float64 through
+    ``asarray``, on the jnp backend: the fused-fit kernel of the pallas
+    backend is float32 in both packages, so a float64 evaluation of either
+    backend's NLML is the jnp backend's."""
+    return dict(eps=asarray(spec.eps), rho=asarray(spec.rho), noise=asarray(spec.noise),
+                omega=None if spec.omega is None else asarray(spec.omega), backend="jnp")
+
+
+def _jax_value_grad64(js, X, y, mask, le):
+    with jax.enable_x64(True):
+        f64 = lambda a: jnp.asarray(np.asarray(a, np.float64))  # noqa: E731
+        js64 = dataclasses.replace(js, **_f64_spec_leaves(js, f64))
+
+        def loss(le):
+            return jfagp._nlml_core(f64(X), f64(y), dataclasses.replace(js64, eps=jnp.exp(le)),
+                                    f64(mask))
+
+        v, g = jax.value_and_grad(loss)(f64(le))
+        assert v.dtype == jnp.float64
+        return float(v), np.asarray(g)
+
+
+def _port_value_grad64(ts, X, y, mask, le):
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa: E731
+    le = f64(le).requires_grad_()
+    sp = ts.replace(**_f64_spec_leaves(ts, lambda t: t.detach().double()))
+    v = tfagp._nlml_core(f64(X), f64(y), sp.replace(eps=torch.exp(le)), f64(mask))
+    assert v.dtype == torch.float64
+    g, = torch.autograd.grad(v, le)
+    return float(v.detach()), nn(g)
+
+
+def _in_grad_gates(got, want):
+    """Largest |got - want| in units of the GRAD gate (<= 1 passes)."""
+    return float(np.max(np.abs(got - want) / (GRAD["atol"] + GRAD["rtol"] * np.abs(want))))
+
+
 @pytest.mark.parametrize("expansion", EXPANSIONS)
 @pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("tasks", [None, 2])
 @pytest.mark.parametrize("ragged", [False, True])
 def test_value_and_grad_match_jax(expansion, backend, tasks, ragged):
     """Each backend's NLML and its gradient in log eps against the JAX
-    package's on the same backend and inputs (tests/test_gp_hyperopt.py
-    :108-128's data: N = 200, seed 3, n = 6, at log eps = 0)."""
+    package's on the same inputs (tests/test_gp_hyperopt.py:108-128's
+    data: N = 200, seed 3, n = 6, at log eps = 0).
+
+    Port against JAX in float64 on both sides (jnp backend: the pallas
+    backend's kernel is float32 in both packages), at the NLML gate, the
+    tighter rtol 1e-4 and the gradient gate: in float32 the two packages'
+    gradients sit up to 2.4 gates apart on some CPUs, each package's own
+    float32 rounding, not a difference of the arithmetic.  Then each
+    package's float32 value and gradient, on the backend under test,
+    against that float64 value: the value at the NLML gate (its distance
+    in units of rtol 1e-4 is printed, C5), the gradient at the gradient
+    gate wherever the JAX package's own float32 gradient meets it on these
+    inputs, and printed where it does not."""
     X, y, mask = _problem(tasks=tasks, ragged=ragged)
     js, ts = _specs(expansion, backend)
     if tasks is not None:
         js = js.replace(backend="jnp")       # ROADMAP.md §C, C6
     le = np.zeros(2, np.float32)
+    want64_v, want64_g = _jax_value_grad64(js, X, y, mask, le)
+    got64_v, got64_g = _port_value_grad64(ts, X, y, mask, le)
+    assert abs(got64_v - want64_v) < _nlml_tol(want64_v), (got64_v, want64_v)
+    np.testing.assert_allclose(got64_v, want64_v, rtol=1e-4)
+    np.testing.assert_allclose(got64_g, want64_g, **GRAD)
+
     want_v, want_g = _jax_value_grad(js, X, y, mask, le)
     got_v, got_g = _port_value_grad(ts, X, y, mask, le)
-    # the float64 NLML of the same inputs: how far each package's float32
-    # value sits from it, in units of the rtol 1e-4 gate (C5)
-    sp64 = ts.replace(eps=torch.ones(2, dtype=torch.float64), rho=ts.rho.double(),
-                      noise=ts.noise.double(),
-                      omega=None if ts.omega is None else ts.omega.double())
-    v64 = float(_direct_nlml(*(torch.from_numpy(a).double() for a in (X, y, mask)), sp64))
-    print(f"value / 1e-4 from float64: port {abs(got_v - v64) / (1e-4 * abs(v64)):.2f}, "
-          f"JAX {abs(want_v - v64) / (1e-4 * abs(v64)):.2f}; port from JAX "
-          f"{abs(got_v - want_v) / (1e-4 * abs(want_v)):.2f}")
-    assert abs(got_v - want_v) < _nlml_tol(want_v), (got_v, want_v)
-    np.testing.assert_allclose(got_g, want_g, **GRAD)
+    gates = {"port": _in_grad_gates(got_g, want64_g), "JAX": _in_grad_gates(want_g, want64_g)}
+    print(f"float32 from float64: value / 1e-4: port {abs(got_v - want64_v) / (1e-4 * abs(want64_v)):.2f}, "
+          f"JAX {abs(want_v - want64_v) / (1e-4 * abs(want64_v)):.2f}; gradient / gate: port "
+          f"{gates['port']:.3f}, JAX {gates['JAX']:.3f}; float64 port from JAX: value "
+          f"{abs(got64_v - want64_v) / abs(want64_v):.1e} rel, gradient "
+          f"{_in_grad_gates(got64_g, want64_g):.1e} gates")
+    for v in (got_v, want_v):
+        assert abs(v - want64_v) < _nlml_tol(want64_v), (v, want64_v)
+    if gates["JAX"] <= 1.0:
+        np.testing.assert_allclose(got_g, want64_g, **GRAD)
 
 
 @pytest.mark.parametrize("expansion", EXPANSIONS)
@@ -257,7 +311,8 @@ def test_float64_streamed_backward_equals_direct_autograd(expansion, tasks):
 
 
 class _Numels(TorchDispatchMode):
-    """Records the element count of every operator's output."""
+    """Records the element count (and the shape) of every operator's
+    output."""
 
     def __init__(self):
         super().__init__()
@@ -267,7 +322,7 @@ class _Numels(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         for t in (out if isinstance(out, (tuple, list)) else (out,)):
             if isinstance(t, torch.Tensor):
-                self.numels.append((t.numel(), str(func)))
+                self.numels.append((t.numel(), str(func), tuple(t.shape)))
         return out
 
 
@@ -419,28 +474,111 @@ def test_one_lane_step_matches_jax(backend):
     assert exempt < total
 
 
+def _jax_lanes64(hp, Xb, yb, js, steps):
+    """JAX's lane engine (``_lane_step``, ``_lane_values``) from the lanes
+    ``hp`` with the NLML and its gradient in float64 (AdamW keeps its
+    float32 update in both packages).  Returns (hp, final NLML per row)."""
+    with jax.enable_x64(True):
+        f64 = lambda a: jnp.asarray(np.asarray(a, np.float64))  # noqa: E731
+        js64 = dataclasses.replace(js, **_f64_spec_leaves(js, f64))
+        idx = jnp.asarray(js64.indices(2))
+        hp = {f: f64(v) for f, v in hp.items()}
+        Xb, yb, mask = f64(Xb), f64(yb), jnp.ones(Xb.shape[:2], jnp.float64)
+        ocfg = jadamw.AdamWConfig(lr=5e-2, weight_decay=0.0, clip_norm=None)
+        ostate = jadamw.init(hp, ocfg)
+        frozen = jnp.zeros((B, R), bool)
+        prev = jnp.full((B, R), jnp.inf, jnp.float64)
+        for _ in range(steps):
+            hp, ostate, frozen, prev, _ = jgh._lane_step(
+                hp, ostate, frozen, prev, Xb, yb, mask, js64, idx, jnp.float64(-jnp.inf), ocfg)
+        final = jgh._lane_values(hp, Xb, yb, mask, js64, idx)
+        assert final.dtype == jnp.float64
+        return {f: np.asarray(v) for f, v in hp.items()}, np.asarray(final)
+
+
+def _port_lanes64(hp, Xb, yb, ts, steps):
+    """The port's ``_lane_step`` / ``_lane_values`` as ``_jax_lanes64``."""
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa: E731
+    sp = ts.replace(**_f64_spec_leaves(ts, lambda t: t.detach().double()))
+    hp = {f: f64(v) for f, v in hp.items()}
+    data = [(f64(Xb[t]), f64(yb[t]), torch.ones(Xb.shape[1], dtype=torch.float64))
+            for t in range(Xb.shape[0])]
+    ocfg = tadamw.AdamWConfig(lr=5e-2, weight_decay=0.0, clip_norm=None)
+    ostate = tadamw.init(hp, ocfg)
+    frozen = torch.zeros((B, R), dtype=torch.bool)
+    prev = torch.full((B, R), float("inf"), dtype=torch.float64)
+    for _ in range(steps):
+        hp, ostate, frozen, prev, _ = tgh._lane_step(hp, ostate, frozen, prev, data, sp,
+                                                     float("-inf"), ocfg)
+    final = tgh._lane_values(hp, data, sp)
+    assert final.dtype == torch.float64
+    return {f: nn(v) for f, v in hp.items()}, nn(final)
+
+
+def _best_hypers(hp, final, t):
+    """Tenant t's hyperparameters at its best lane, as float32 numpy."""
+    r = int(np.argmin(final[t]))
+    return {f[4:]: np.exp(np.asarray(hp[f][t, r], np.float64)).astype(np.float32)
+            for f in tgh._FIELDS}
+
+
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_eight_steps_match_jax(backend):
-    """8 steps from JAX's lanes: each lane's final NLML per row (rtol 1e-3,
-    tests/test_gp_hyperopt.py:276-278), and the posterior of each tenant's
-    GP fitted at the two packages' learned hyperparameters (rtol 5e-3,
-    atol 2e-4, :313-316).  The JAX package has no gate on the learned
-    hyperparameters across implementations: their largest gap is printed."""
+    """8 steps from JAX's lanes.  Port against JAX with the NLML and its
+    gradient in float64 on both sides (jnp backend, as
+    ``test_value_and_grad_match_jax``): each lane's final NLML per row
+    (rtol 1e-3, tests/test_gp_hyperopt.py:276-278), and the posterior of
+    each tenant's GP fitted at the two packages' learned hyperparameters
+    (rtol 5e-3, atol 2e-4, :313-316).  Then each package's float32 run on
+    the backend under test against the float64 run, at the same gates
+    wherever the JAX package's own float32 run meets them, printed where it
+    does not.  The JAX package has no gate on the learned hyperparameters
+    across implementations: their largest gap is printed."""
     Xb, yb, js, ts, hp = _lane_setup(backend)
+    jhp64, jfinal64 = _jax_lanes64(hp, Xb, yb, js, 8)
+    thp64, tfinal64 = _port_lanes64(hp, Xb, yb, ts, 8)
+    np.testing.assert_allclose(tfinal64, jfinal64, rtol=1e-3)
+    gap = max(float(np.abs(np.exp(thp64[f]) - np.exp(jhp64[f])).max()) for f in tgh._FIELDS)
+    print(f"float64: largest gap in the learned hyperparameters {gap:.3e}, in the final "
+          f"NLML per row {float(np.abs(tfinal64 / jfinal64 - 1).max()):.1e} rel")
+    Xq = np.random.default_rng(1).uniform(-1, 1, (32, 2)).astype(np.float32)
+
+    def posterior(t, jh, th):
+        jm, jv = JGP.fit(jnp.asarray(Xb[t]), jnp.asarray(yb[t]),
+                         js.replace(**{f: jnp.asarray(v) for f, v in jh.items()})
+                         ).mean_var(jnp.asarray(Xq))
+        tm, tv = GP.fit(tt(Xb[t]), tt(yb[t]), ts.replace(**{f: tt(v) for f, v in th.items()})
+                        ).mean_var(tt(Xq))
+        return (np.asarray(jm), np.asarray(jv)), (nn(tm), nn(tv))
+
+    for t in range(B):
+        (m1, v1), (m2, v2) = posterior(t, _best_hypers(jhp64, jfinal64, t),
+                                       _best_hypers(thp64, tfinal64, t))
+        np.testing.assert_allclose(m2, m1, rtol=5e-3, atol=2e-4)
+        np.testing.assert_allclose(v2, v1, rtol=5e-3, atol=2e-4)
+
     want = jgh.optimize_fleet(jnp.asarray(Xb), jnp.asarray(yb), js, restarts=R, steps=8, seed=0)
     got = tgh._run_lanes({f: np.asarray(v) for f, v in hp.items()}, tt(Xb), tt(yb),
                          torch.ones(B, N_LANE), ts, steps=8, lr=5e-2, tol=None, callback=None)
-    np.testing.assert_allclose(nn(got.lane_nlml), np.asarray(want.lane_nlml), rtol=1e-3)
-    gap = max(float(np.abs(nn(getattr(got, f)) - np.asarray(getattr(want, f))).max())
-              for f in ("eps", "rho", "noise"))
-    print(f"largest gap in the learned hyperparameters: {gap:.3e}")
-    Xq = np.random.default_rng(1).uniform(-1, 1, (32, 2)).astype(np.float32)
+    rel = {"port": np.abs(nn(got.lane_nlml) / jfinal64 - 1).max(),
+           "JAX": np.abs(np.asarray(want.lane_nlml) / jfinal64 - 1).max()}
+    print(f"float32 final NLML per row from float64: port {rel['port']:.1e}, "
+          f"JAX {rel['JAX']:.1e} rel (gate 1e-3)")
+    if rel["JAX"] <= 1e-3:
+        np.testing.assert_allclose(nn(got.lane_nlml), jfinal64, rtol=1e-3)
     for t in range(B):
-        m1, v1 = JGP.fit(jnp.asarray(Xb[t]), jnp.asarray(yb[t]), want.spec_for(js, t)).mean_var(
-            jnp.asarray(Xq))
-        m2, v2 = GP.fit(tt(Xb[t]), tt(yb[t]), got.spec_for(ts, t)).mean_var(tt(Xq))
-        np.testing.assert_allclose(nn(m2), np.asarray(m1), rtol=5e-3, atol=2e-4)
-        np.testing.assert_allclose(nn(v2), np.asarray(v1), rtol=5e-3, atol=2e-4)
+        h32 = {f: nn(getattr(got, f)[t]) for f in ("eps", "rho", "noise")}
+        j32 = {f: np.asarray(getattr(want, f)[t]) for f in ("eps", "rho", "noise")}
+        (jm64, jv64), (tm64, tv64) = posterior(t, _best_hypers(jhp64, jfinal64, t),
+                                               _best_hypers(thp64, tfinal64, t))
+        (jm, jv), (tm, tv) = posterior(t, j32, h32)
+        jax_ok = (np.allclose(jm, jm64, rtol=5e-3, atol=2e-4)
+                  and np.allclose(jv, jv64, rtol=5e-3, atol=2e-4))
+        print(f"tenant {t}: float32 posterior from float64 max |mean| gap: port "
+              f"{np.abs(tm - tm64).max():.1e}, JAX {np.abs(jm - jm64).max():.1e}")
+        if jax_ok:
+            np.testing.assert_allclose(tm, tm64, rtol=5e-3, atol=2e-4)
+            np.testing.assert_allclose(tv, tv64, rtol=5e-3, atol=2e-4)
 
 
 def test_frozen_lanes_stop_moving_bitwise():

@@ -107,12 +107,42 @@ def _sliced_tiles(M):
     return (c, table, fn, n_max), dataclasses.replace(tile, M=M, idx=tile.idx[:M].contiguous())
 
 
+def _gram64(X, y, mask, jtile, d, sig2, scale):
+    """(B or G, b) in float64 from the JAX kernel's float32 features of X,
+    summed in numpy: a reference that owes nothing to the port."""
+    c, table, fn, n_max = jtile
+    Phi = np.asarray(jops.expansion_phi(jnp.asarray(X), c, table, n_max=n_max, tile_fn=fn),
+                     np.float64)
+    m = np.ones(X.shape[0]) if mask is None else mask.astype(np.float64)
+    Phi = Phi * m[:, None]
+    G = Phi.T @ Phi
+    if scale:
+        dd = d.astype(np.float64)
+        G = np.eye(G.shape[0]) + dd[:, None] * G * dd[None, :] / sig2
+    return G, Phi.T @ (y.astype(np.float64) * m)
+
+
+def _gates(got, want, rtol=1e-3, atol=1e-3):
+    """The largest |got - want| in units of the gate (<= 1 passes)."""
+    return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+
+
 # the CUDA kernel's 128-column tile edges, N not a multiple of its 32-row
 # step; the plain version the CPU runs against the JAX kernel
 @pytest.mark.parametrize("M", [127, 129, 257])
 @pytest.mark.parametrize("scale", [True, False])
 def test_fused_fit_matches_jax_kernel_at_tile_edges(M, scale):
-    (c, table, fn, n_max), tile = _sliced_tiles(M)
+    """The port's float32 moments against float64 moments summed in numpy
+    from the JAX kernel's features (interpret mode), at
+    tests/test_streaming_fit.py:55's gate (1e-3 on B and b): a reference
+    that owes nothing to the port, so a wrong feature or a dropped column
+    at a tile edge fails here.  The two packages' float32 moments are
+    printed beside it, each one's distance from that reference and their
+    distance from each other: two float32 sums in different orders sit up
+    to the sum of their own distances apart (on some CPUs 1.16 gates at
+    the masked M = 257, both within 0.76 of the reference)."""
+    jtile, tile = _sliced_tiles(M)
+    c, table, fn, n_max = jtile
     N = 301
     X, y = _fit_inputs(N, 4, M + int(scale))
     d = np.geomspace(1.0, 1e-3, M).astype(np.float32)
@@ -125,9 +155,12 @@ def test_fused_fit_matches_jax_kernel_at_tile_edges(M, scale):
     B, b = ops.fused_fit_moments(tt(X), tt(y), tile, tt(d), sig2,
                                  None if mask is None else tt(mask), scale=scale)
     assert B.shape == (M, M) and b.shape == (M,)
-    # tests/test_streaming_fit.py:55 gate: 1e-3 on B and b
-    np.testing.assert_allclose(nn(B), nn(jB), rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(nn(b), nn(jb), rtol=1e-3, atol=1e-3)
+    B64, b64 = _gram64(X, y, mask, jtile, d, sig2, scale)
+    print(f"M={M}: gates from float64: port {max(_gates(nn(B), B64), _gates(nn(b), b64)):.3f}, "
+          f"JAX {max(_gates(nn(jB), B64), _gates(nn(jb), b64)):.3f}; port from JAX "
+          f"{max(_gates(nn(B), nn(jB)), _gates(nn(b), nn(jb))):.3f}")
+    np.testing.assert_allclose(nn(B), B64, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(nn(b), b64, rtol=1e-3, atol=1e-3)
 
 
 def test_fused_fit_matches_materialized_oracle():

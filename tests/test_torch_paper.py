@@ -4,11 +4,14 @@ appending to them, ``with_spec``'s refusal to turn them on, the literal
 Eqs. 11-12 chain (``predict(mode="paper")``) against the JAX package's and
 against the fused mode, its refusal without stored features, the bank's
 normalization of ``store_train``, and carrying a stored state across."""
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_common import gp_data, nn, specs, tt, uniform  # noqa: E402
@@ -89,18 +92,60 @@ def test_with_spec_cannot_enable_store_train():
     assert "store_train=True" in stored.spec.describe()
 
 
+def _paper_chains64(st_j, Xs):
+    """The JAX package's paper chain (``fagp._predict_paper``) and the
+    port's (``fagp._paper_chain``) in float64 on the same inputs: the JAX
+    state's stored Phi and y, its eigenvalues, the query features of its
+    spec in float64, and B rebuilt and factored in float64."""
+    with jax.enable_x64(True):
+        f64 = lambda a: jnp.asarray(np.asarray(a, np.float64))  # noqa: E731
+        js = st_j.spec
+        js64 = dataclasses.replace(js, eps=f64(js.eps), rho=f64(js.rho), noise=f64(js.noise))
+        Phi, D = np.asarray(st_j.Phi, np.float64), np.asarray(st_j.sqrtlam, np.float64)
+        sig2 = float(np.asarray(js.noise, np.float64)) ** 2
+        chol = np.linalg.cholesky(np.eye(Phi.shape[1]) + D[:, None] * (Phi.T @ Phi) * D[None, :] / sig2)
+        st64 = dataclasses.replace(
+            st_j, Phi=f64(Phi), y=f64(st_j.y), lam=f64(st_j.lam), sqrtlam=f64(D),
+            chol=f64(chol), params=js64.params, spec=js64)
+        Phis = jfagp._features(f64(Xs), st64.idx, js64)
+        mu_j, cov_j = jfagp._predict_paper(st64, f64(Xs))
+        assert mu_j.dtype == cov_j.dtype == jnp.float64
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa: E731
+        mu_t, cov_t = tfagp._paper_chain(t(Phi), t(st_j.y), t(Phis), t(st_j.lam), t(D), t(chol),
+                                         sig2)
+        return (np.asarray(mu_j), np.asarray(cov_j)), (nn(mu_t), nn(cov_t))
+
+
 @pytest.mark.parametrize("backend", ["jnp", "pallas"])
 @pytest.mark.parametrize("T", [None, 2])
 def test_paper_mode_matches_jax_and_fused_mode(backend, T):
+    """What tests/test_fagp.py:57-59 gates, held in the port: its paper
+    mode against its fused mode (atol 5e-3).  Across the packages, the
+    fused modes at the serving gate (rtol 1e-5, atol 1e-5), and the two paper chains
+    in float64 on the same inputs.  The two float32 chains are not held
+    against each other: each cancels in its own way (on some CPUs 7e-3
+    apart at N = 50), which no JAX gate covers."""
     X, y, st_j, st_t = _stored("hermite", backend, N=PAPER_N, n=8, T=T)
     Xs = uniform(np.random.default_rng(3), (17, 2))
     mu_jp, cov_jp = jfagp.predict(st_j, jnp.asarray(Xs), mode="paper")
+    mu_jf, cov_jf = jfagp.predict(st_j, jnp.asarray(Xs), mode="fused")
     mu_p, cov_p = tfagp.predict(st_t, tt(Xs), mode="paper")
     mu_f, cov_f = tfagp.predict(st_t, tt(Xs), mode="fused")
     assert mu_p.shape == ((17,) if T is None else (17, T)) and cov_p.shape == (17, 17)
     # tests/test_fagp.py:57-59 gate
-    for got, want in ((mu_p, mu_jp), (cov_p, cov_jp), (mu_p, mu_f), (cov_p, cov_f)):
+    for got, want in ((mu_p, mu_f), (cov_p, cov_f)):
         np.testing.assert_allclose(nn(got), nn(want), atol=5e-3)
+    for got, want in ((mu_f, mu_jf), (cov_f, cov_jf)):
+        np.testing.assert_allclose(nn(got), nn(want), rtol=1e-5, atol=1e-5)
+    (mu_j64, cov_j64), (mu_t64, cov_t64) = _paper_chains64(st_j, Xs)
+    np.testing.assert_allclose(mu_t64, mu_j64, atol=1e-9)
+    np.testing.assert_allclose(cov_t64, cov_j64, atol=1e-9)
+    gap = lambda a, b: float(np.abs(nn(a) - nn(b)).max())  # noqa: E731
+    print(f"paper chains: float32 port from JAX {gap(mu_p, mu_jp):.1e} (mean), "
+          f"{gap(cov_p, cov_jp):.1e} (cov); float64 {gap(mu_t64, mu_j64):.1e}, "
+          f"{gap(cov_t64, cov_j64):.1e}; float32 from float64: port {gap(mu_p, mu_t64):.1e}, "
+          f"JAX {gap(mu_jp, mu_j64):.1e} (mean); fused port from JAX {gap(mu_f, mu_jf):.1e}, "
+          f"{gap(cov_f, cov_jf):.1e}")
 
 
 def test_paper_chain_in_float64_matches_the_fused_mode_beyond_the_jax_size():
