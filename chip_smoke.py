@@ -142,7 +142,26 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    exact GP for both kernels (1e-4); (c) N = 10^4: Vecchia's rmse against
    hermite n = 12 and both RFF families (R = 256) on the kernel path (their
    launches exact), ``global_over_vecchia_rmse`` >= 1, the seconds ratio
-   printed; (d) the ordered NLML at N = 10^5 under the same bound.
+   printed; (d) the ordered NLML at N = 10^5 under the same bound;
+11. the sharded paths (ROADMAP A5; ``phase11()``), every shard on this
+   card unless more are visible: (a) ``serve_fleet(shards=1)`` on phase
+   9a's fleet and traffic, its final answers against 9a's (1e-5); (b) the
+   same fleet over ``make_bank_mesh(4, devices=[cuda:0] * 4)``:
+   ``ShardedGPBank.fit`` (one bank launch a shard) against ``GPBank.fit``
+   (1e-4) and a (bank 4, data 2) fit (one a cell; its full-width distance
+   and each fit's from a float64 fit printed, ROADMAP.md section C, C9;
+   both held at 1e-4 on the JAX test's own fleet), ``from_bank`` serving
+   (1e-5), a mixed-tenant update, engine drain and ingest parity, the
+   fleet's rounds as ``serve_fleet`` drives them (launches exact, read off
+   the trace's ``shard_dispatch`` / ``shard_ingest`` instants), 4 blocks
+   under sync-debug "error", ``rebalance`` after emptying shard 0, a
+   page-out and page-in onto the least-loaded shard; (c)
+   ``fit_distributed`` / ``predict_distributed`` at MAIN's width over 4
+   row shards (one fused fit, one features and one diag-quad launch a
+   shard) at tests/test_distributed.py's gates, beside a float64 fit, and
+   at that test's own shape; its peak beside the 4 partial G reckoned; (d)
+   with two or more cards, (b) and (c) over distinct cards and
+   tests/test_torch_multicard.py, else one line saying it was skipped.
 
 Prints the features kernel's times by shape on a ``[features]`` line, one
 JSON line with every kernel's numbers (the features kernel's ``ms`` its
@@ -157,6 +176,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -270,6 +290,10 @@ NO_LAUNCHES = {"phi_features": {}, "phi_gram": {}, "diag_quad": {}, "chol_update
                "scaled_gram": {}}
 GLOBAL_EXPECTED = dict(NO_LAUNCHES, phi_features={"": 1}, phi_gram={"scale": 1},
                        diag_quad={"": 1})
+# phase 11, ROADMAP A5: phase 9a's fleet and traffic over 4 shards of this
+# card, and the row-sharded fit at MAIN's width (the Figure 1 point) over 4
+# row shards; nothing cut but the shards sharing one card
+SHARDS = 4
 
 
 def check(ok: bool, msg: str) -> None:
@@ -293,11 +317,13 @@ def ptxas_functions(log: str):
     return out
 
 
-def phase9(dev, fspec, fout, compare, Xq16) -> dict:
+def phase9(dev, fspec, fout, compare, Xq16):
     """Phase 9 (ROADMAP A4): pipelined fleet serving and the tiered bank at
     the fleet's width.  ``fout`` is phase 5's sync run of the same fleet,
     ``fspec`` its spec, ``Xq16`` its 256 mixed queries.  Returns the numbers
-    it printed on its ``[phase 9]`` line."""
+    it printed on its ``[phase 9]`` line, and the pipelined fleet's final
+    answers to 1,024 mixed queries with its rounds (phase 11's
+    reference)."""
     import numpy as np
     import torch
 
@@ -444,10 +470,12 @@ def phase9(dev, fspec, fout, compare, Xq16) -> dict:
     direct = [pbank.mean_var([int(t) for t in ids9[i:i + top]],
                              torch.from_numpy(X9[i:i + top]).to(dev))
               for i in range(0, 4 * top, top)]
+    ref = dict(ids=ids9, X=X9, mu=torch.cat([m for m, _ in direct]).cpu(),
+               var=torch.cat([v for _, v in direct]).cpu(), rounds=pout["rounds"])
     compare(f"pipelined vs direct GPBank.mean_var (4 x {top} mixed queries)",
             [torch.tensor([res[t].mu for t in tks]), torch.tensor([res[t].var for t in tks])],
-            [torch.cat([m for m, _ in direct]).cpu(), torch.cat([v for _, v in direct]).cpu()],
-            rtol=0.0, atol=1e-5, why="benchmarks/serve_latency.py gate")
+            [ref["mu"], ref["var"]], rtol=0.0, atol=1e-5,
+            why="benchmarks/serve_latency.py gate")
     del direct
 
     # peak bytes with max_in_flight blocks of the top rung dispatched, and
@@ -681,7 +709,7 @@ def phase9(dev, fspec, fout, compare, Xq16) -> dict:
     report["seconds"] = time.perf_counter() - t_phase
     print("[phase 9] " + json.dumps(report))
     print(f"[phase 9] took {report['seconds']:.1f} s")
-    return report
+    return report, ref
 
 
 def phase10(dev, compare, cuda_ms) -> dict:
@@ -948,6 +976,474 @@ def phase10(dev, compare, cuda_ms) -> dict:
     print("[phase 10] " + json.dumps(report))
     print(f"[phase 10] took {report['seconds']:.1f} s")
     return report
+
+
+def phase11(dev, fspec, compare, cuda_ms, ref9, main) -> dict:
+    """Phase 11 (ROADMAP A5): the sharded paths on the card.  (a)
+    ``serve_fleet(shards=1)`` on phase 9a's fleet and traffic, its final
+    answers against phase 9a's resident fleet's (``ref9``); (b) the same
+    fleet over 4 shards of this card (``make_bank_mesh(4, devices=[cuda:0]
+    * 4)``) through ``ShardedGPBank``, ``BankRouter`` and ``FleetEngine`` as
+    ``serve_fleet`` drives them; (c) ``fit_distributed`` /
+    ``predict_distributed`` at MAIN's width (``main``: phase 3's data, spec
+    and fit_s) over ``make_local_mesh(data=4, devices=[cuda:0] * 4)``; (d)
+    (b) and (c) over distinct cards, and the launch guard's card tests,
+    where two or more cards are visible.  Launch counts exact throughout.
+    Returns the numbers it printed on its ``[phase 11]`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bank import BankRouter, FleetEngine, GPBank, ShardedGPBank, TieredBank
+    from repro_torch.core import distributed as dgp
+    from repro_torch.core import fagp
+    from repro_torch.core.expansions import get_expansion
+    from repro_torch.core.gp import GP, GPSpec
+    from repro_torch.data import make_gp_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_bank_mesh, make_local_mesh
+    from repro_torch.launch.serve_gp import fleet_dataset, serve_fleet
+    from repro_torch.obs import MetricsRegistry, Tracer
+
+    P, S = PIPE, SHARDS
+    B, N, p = P["tenants"], P["n_train"], P["p"]
+    t_phase = time.perf_counter()
+    report: dict = {}
+    ten9 = [int(t) for t in ref9["ids"]]
+    Xq9 = torch.from_numpy(ref9["X"]).to(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        return out, ops.launch_counts()
+
+    def launches(phi_features=None, phi_gram=None, diag_quad=None, chol_update=None):
+        return {"phi_features": phi_features or {}, "phi_gram": phi_gram or {},
+                "diag_quad": diag_quad or {}, "chol_update": chol_update or {},
+                "scaled_gram": {}}
+
+    def from_trace(events, C_l, phi_gram=None):
+        """A sharded serving run's launches, read off its trace: a features
+        launch per shard touched per dispatched block (``shard_dispatch``)
+        and per ingest round (``shard_ingest``), and per shard touched per
+        round a sweep, batched unless that shard's group bucket is 1."""
+        disp = [e for e in events if e["name"] == "shard_dispatch"]
+        ing = [e for e in events if e["name"] == "shard_ingest"]
+        sweeps: dict = {}
+        for e in ing:
+            g = e["args"]["groups"]
+            v = "batched" if min(C_l, 1 << (g - 1).bit_length()) > 1 else ""
+            sweeps[v] = sweeps.get(v, 0) + 1
+        return launches({"": len(disp) + len(ing)}, phi_gram, None, sweeps)
+
+    # (a) serve_fleet(shards=1): phase 9a's fleet and traffic, one shard
+    tr_a = Tracer()
+    (aout, a_counts), a_s = timed(lambda: counted(lambda: serve_fleet(
+        engine="pipelined", backend="pallas", device=dev, shards=1, tracer=tr_a, **P)))
+    abank = aout.pop("bank")
+    want = from_trace(tr_a.events(), abank.shard_capacity, {"bank": 1})
+    for h, r9 in zip(aout["rounds"], ref9["rounds"]):
+        print(f"[shards=1] round {h['round']}: ingest_s={h['ingest_s']:.4f} "
+              f"query_mean_s={h['query_mean_s']:.5f} queries_per_s={h['queries_per_s']:.1f} "
+              f"rmse={h['rmse']:.5f}; phase 9a resident: query_mean_s="
+              f"{r9['query_mean_s']:.5f} queries_per_s={r9['queries_per_s']:.1f} "
+              f"rmse={r9['rmse']:.5f}")
+    print(f"[shards=1] launches={json.dumps(a_counts)}; occupancy {aout['shard_occupancy']}; "
+          f"serve_fleet {a_s:.2f} s")
+    check(a_counts == want, f"serve_fleet(shards=1) launches {a_counts} != {want}")
+    check(aout["shard_occupancy"] == [B] and all(
+        h["timeouts"] == 0 and h["rmse"] < 0.1 for h in aout["rounds"]),
+        "serve_fleet(shards=1): occupancy, timeouts or rmse")
+    mu_a, var_a = abank.mean_var(ten9, Xq9)
+    compare("serve_fleet(shards=1) vs phase 9a's resident pipelined fleet, final answers "
+            "(1,024 mixed queries)", [mu_a.cpu(), var_a.cpu()], [ref9["mu"], ref9["var"]],
+            rtol=0.0, atol=1e-5, why="tests/test_shard_bank.py:262 gate")
+    report["shards1"] = {
+        "queries_per_s": [h["queries_per_s"] for h in aout["rounds"]],
+        "query_mean_s": [h["query_mean_s"] for h in aout["rounds"]],
+        "ingest_s": [h["ingest_s"] for h in aout["rounds"]], "fit_s": aout["fit_s"],
+        "launches": a_counts}
+    del abank, aout
+    torch.cuda.empty_cache()
+
+    # (b) the fleet over 4 shards of this card
+    rng = np.random.default_rng(P["seed"])
+    offsets, Xb_np, yb_np, pools = fleet_dataset(
+        rng, tenants=B, n_train=N, p=p, rounds=P["rounds"],
+        observations_per_round=P["observations_per_round"], noise=P["noise"], seed=P["seed"])
+    Xb, yb = torch.from_numpy(Xb_np).to(dev), torch.from_numpy(yb_np).to(dev)
+    mesh = make_bank_mesh(S, devices=[dev] * S)
+    mesh2 = make_bank_mesh(S, 2, devices=[dev] * 2 * S)
+    (rb, r_counts), t_res = timed(lambda: counted(lambda: GPBank.fit(Xb, yb, fspec)))
+    (sb, s_counts), t_sh = timed(lambda: counted(lambda: ShardedGPBank.fit(Xb, yb, fspec, mesh)))
+    (s2, s2_counts), t_2d = timed(lambda: counted(
+        lambda: ShardedGPBank.fit(Xb, yb, fspec, mesh2)))
+    print(f"[sharded] fit: resident GPBank.fit {t_res:.4f} s {json.dumps(r_counts)}; "
+          f"ShardedGPBank.fit over {S} shards {t_sh:.4f} s {json.dumps(s_counts)}; "
+          f"(bank {S}, data 2) {t_2d:.4f} s {json.dumps(s2_counts)}")
+    check(s_counts == launches(phi_gram={"bank": S}) and s2_counts == launches(
+        phi_gram={"bank": 2 * S}), "sharded fits: one bank launch per shard (per cell in 2-D)")
+    mu_r, var_r = rb.mean_var(ten9, Xq9)
+    fit_err = {"1-D": compare(
+        "ShardedGPBank.fit vs resident GPBank.fit (1,024 mixed queries)",
+        list(sb.mean_var(ten9, Xq9)), [mu_r, var_r], rtol=0.0, atol=1e-4,
+        why="tests/test_shard_bank.py:93-95 gate")}
+    # the (bank, data) fit sums each tenant's 10^4 rows in two chains of
+    # 5,000 where the fused fit sums one: at this width the two float32
+    # fits differ by more than the JAX test's 1e-4 (ROADMAP.md section C,
+    # C9), so the distance is printed here beside each fit's distance from
+    # a float64 fit of 8 tenants, and the gate is held at the JAX test's
+    # own shape below
+    m2, v2 = s2.mean_var(ten9, Xq9)
+    fit_err["2-D"] = max(float((m2 - mu_r).abs().max()), float((v2 - var_r).abs().max()))
+    eight = sorted(set(ten9))[:8]
+    rows8 = [i for i, t in enumerate(ten9) if t in eight]
+    t8 = [ten9[i] for i in rows8]
+    idx8 = fagp._idx_tensor(fspec)
+    sp64 = dataclasses.replace(fspec, eps=fspec.eps.double(), rho=fspec.rho.double(),
+                               noise=fspec.noise.double())
+    d64 = torch.exp(0.5 * get_expansion("hermite").log_eigenvalues(idx8, sp64))
+    m64 = torch.zeros(len(rows8), dtype=torch.float64, device=dev)
+    for t in eight:
+        Ph = get_expansion("hermite").features(Xb[t].double(), idx8, sp64)
+        L64 = torch.linalg.cholesky(torch.eye(len(idx8), dtype=torch.float64, device=dev)
+                                    + d64[:, None] * (Ph.T @ Ph) * d64[None, :] / sp64.noise**2)
+        u64 = d64 * torch.cholesky_solve((d64 * (Ph.T @ yb[t].double()))[:, None],
+                                         L64)[:, 0] / sp64.noise**2
+        mine = [j for j, tt in enumerate(t8) if tt == t]
+        m64[mine] = get_expansion("hermite").features(Xq9[[rows8[j] for j in mine]].double(),
+                                                      idx8, sp64) @ u64
+    from64 = {name: float((bank.mean_var(t8, Xq9[rows8])[0].double() - m64).abs().max())
+              for name, bank in (("resident", rb), ("1-D", sb), ("2-D", s2))}
+    print(f"[sharded] max |fit - resident fit| on 1,024 mixed queries: 1-D "
+          f"{fit_err['1-D']:.3e}, (bank {S}, data 2) {fit_err['2-D']:.3e} (gate 1e-4 "
+          f"{'holds' if fit_err['2-D'] <= 1e-4 else 'does not hold: ROADMAP.md section C, C9'}; "
+          f"benchmarks/shard_scaling.py:242-243's 5e-5 beside); each mean from a float64 fit "
+          f"(8 tenants, {len(rows8)} queries): {json.dumps(from64)}")
+    del sb, s2, m2, v2
+    # the JAX test's own shape (tests/test_shard_bank.py:32-56, 120-136): 16
+    # tenants of 8 rows, p = 2, n = 8, on (4) and (4, 2) meshes of this card
+    jspec = GPSpec.create(8, eps=np.full(2, 0.8, np.float32), rho=2.0, noise=0.05,
+                          backend="pallas", device=dev)
+    jdata = [make_gp_dataset(8, 2, seed=t, device=dev)[:2] for t in range(16)]
+    jX, jy = torch.stack([x for x, _ in jdata]), torch.stack([y for _, y in jdata])
+    jrng = np.random.default_rng(0)
+    jq = torch.from_numpy(jrng.uniform(-1, 1, size=(64, 2)).astype(np.float32)).to(dev)
+    jt = [int(t) for t in jrng.integers(0, 16, 64)]
+    jres = GPBank.fit(jX, jy, jspec).mean_var(jt, jq)
+    for label, m in (("(bank 4)", mesh), ("(bank 4, data 2)", mesh2)):
+        compare(f"ShardedGPBank.fit {label} vs resident at the JAX test's shape (16 x 8 rows, "
+                f"M = 64)", list(ShardedGPBank.fit(jX, jy, jspec, m).mean_var(jt, jq)),
+                list(jres), rtol=0.0, atol=1e-4,
+                why="tests/test_shard_bank.py:93-95, 134-136 gate")
+    sh, from_s = timed(lambda: ShardedGPBank.from_bank(rb, mesh, pad_capacity=True))
+    (mv_s, mv_counts) = counted(lambda: sh.mean_var(ten9, Xq9))
+    check(mv_counts == launches({"": S}), f"sharded mean_var launches {mv_counts}")
+    compare("ShardedGPBank.from_bank serving the resident states (1,024 mixed queries)",
+            list(mv_s), [mu_r, var_r], rtol=0.0, atol=1e-5,
+            why="tests/test_shard_bank.py:82-84 gate")
+    C_l = sh.shard_capacity
+    urng = np.random.default_rng(31)
+    upd = [0, 1, C_l + 1, 2 * C_l + 2, 3 * C_l + 3]      # shard 0 twice, each other once
+    Xk = torch.from_numpy(urng.uniform(-1, 1, (len(upd), 2, p)).astype(np.float32)).to(dev)
+    yk = torch.from_numpy(urng.normal(size=(len(upd), 2)).astype(np.float32)).to(dev)
+    sh_u, u_counts = counted(lambda: sh.update(upd, Xk, yk))
+    check(u_counts == launches({"": S}, chol_update={"batched": 1, "": S - 1}),
+          f"mixed-tenant sharded update launches {u_counts}")
+    compare("mixed-tenant update, sharded vs resident (mean, 1,024 mixed queries)",
+            [sh_u.mean_var(ten9, Xq9)[0]], [rb.update(upd, Xk, yk).mean_var(ten9, Xq9)[0]],
+            rtol=0.0, atol=1e-4, why="tests/test_shard_bank.py:109-111 gate (pallas)")
+    del sh_u
+
+    # engine drain and ingest parity (tests/test_shard_bank.py:262, 282)
+    deng = FleetEngine(BankRouter(sh, microbatch=P["microbatch"]), queue_budget=P["queue_budget"])
+    dt = [deng.submit(t, ref9["X"][i]) for i, t in enumerate(ten9)]
+    dres = deng.drain()
+    compare("sharded engine drain vs resident mean_var (1,024 mixed queries)",
+            [torch.tensor([dres[t].mu for t in dt])], [mu_r.cpu()], rtol=0.0, atol=1e-5,
+            why="tests/test_shard_bank.py:262 gate")
+    irng = np.random.default_rng(32)
+    ir_s = BankRouter(sh, ingest_chunk=P["ingest_chunk"])
+    ir_r = BankRouter(rb, ingest_chunk=P["ingest_chunk"])
+    for _ in range(P["observations_per_round"]):
+        t = int(irng.integers(0, B))
+        x, yv = pools[t][0][N + 80], float(pools[t][1][N + 80])
+        ir_s.observe(t, x, yv)
+        ir_r.observe(t, x, yv)
+    ir_s.ingest()
+    ir_r.ingest()
+    compare(f"sharded ingest vs resident ingest ({P['observations_per_round']} observations; "
+            "mean, 1,024 mixed queries)", [ir_s.bank.mean_var(ten9, Xq9)[0]],
+            [ir_r.bank.mean_var(ten9, Xq9)[0]], rtol=0.0, atol=1e-4,
+            why="tests/test_shard_bank.py:282 gate")
+    del deng, ir_s, ir_r, rb
+    torch.cuda.empty_cache()
+
+    # the fleet's rounds over the 4 shards, as serve_fleet drives them
+    # (serve_fleet's own mesh takes one card a shard): the same draws
+    reg, tr = MetricsRegistry(), Tracer()
+    router = BankRouter(sh, microbatch=P["microbatch"], ingest_chunk=P["ingest_chunk"],
+                        metrics=reg, tracer=tr)
+    eng = FleetEngine(router, max_in_flight=P["max_in_flight"], queue_budget=P["queue_budget"],
+                      metrics=reg, tracer=tr)
+    consumed = [N] * B
+    rounds = []
+    ops.reset_launch_counts()
+    for r in range(P["rounds"]):
+        for _ in range(P["observations_per_round"]):
+            t = int(rng.integers(0, B))
+            i = consumed[t] % pools[t][0].shape[0]
+            consumed[t] += 1
+            eng.observe(t, pools[t][0][i], pools[t][1][i])
+        _, ingest_s = timed(eng.ingest)
+        q_t = rng.integers(0, B, P["queries_per_round"])
+        Xq = rng.uniform(-1.0, 1.0, size=(P["queries_per_round"], p)).astype(np.float32)
+        truth = np.sum(np.cos(Xq), axis=1) + offsets[q_t]
+        t0 = time.perf_counter()
+        tks = [eng.submit(int(t), Xq[i]) for i, t in enumerate(q_t)]
+        res = eng.drain()
+        query_s = time.perf_counter() - t0
+        mu = np.array([res[t].mu for t in tks])
+        nb = -(-P["queries_per_round"] // P["microbatch"])
+        rounds.append(dict(ingest_s=ingest_s, query_s=query_s, query_mean_s=query_s / nb,
+                           queries_per_s=P["queries_per_round"] / query_s,
+                           rmse=float(np.sqrt(np.mean((mu - truth) ** 2))),
+                           timeouts=sum(res[t].timed_out for t in tks)))
+    loop_counts = ops.launch_counts()
+    for r, (h, r9) in enumerate(zip(rounds, ref9["rounds"])):
+        print(f"[sharded] round {r}: ingest_s={h['ingest_s']:.4f} "
+              f"query_mean_s={h['query_mean_s']:.5f} queries_per_s={h['queries_per_s']:.1f} "
+              f"rmse={h['rmse']:.5f}; phase 9a resident: query_mean_s={r9['query_mean_s']:.5f} "
+              f"queries_per_s={r9['queries_per_s']:.1f} rmse={r9['rmse']:.5f}")
+    want = from_trace(tr.events(), C_l)
+    print(f"[sharded] launches={json.dumps(loop_counts)} (expected from the trace "
+          f"{json.dumps(want)}); buckets {sorted(eng.bucket_uses.items())}")
+    check(loop_counts == want, f"sharded fleet launches {loop_counts} != {want}")
+    check(all(h["timeouts"] == 0 and abs(h["rmse"] - r9["rmse"]) < 1e-4
+              for h, r9 in zip(rounds, ref9["rounds"])),
+          "the sharded fleet's rmse drifts from the resident fleet's, or it timed out")
+    gauges = {k.split("{")[0] for k in reg.snapshot()["gauges"]}
+    check({"bank_shard_occupancy", "bank_shard_backlog"} <= gauges, "per-shard gauges missing")
+    compare("sharded fleet vs phase 9a's resident fleet, final answers (1,024 mixed queries)",
+            list(router.bank.mean_var(ten9, Xq9)), [ref9["mu"].to(dev), ref9["var"].to(dev)],
+            rtol=0.0, atol=1e-4, why="tests/test_shard_bank.py:282 gate")
+
+    # no host-device sync on the sharded dispatch path: 4 top-rung blocks
+    seng = FleetEngine(BankRouter(router.bank, microbatch=P["microbatch"]), auto_pump=False,
+                       max_in_flight=4)
+    top = seng.buckets[-1]
+
+    def stream():
+        tks = []
+        for blk in range(4):
+            tks += [seng.submit(ten9[i], ref9["X"][i]) for i in range(blk * top, (blk + 1) * top)]
+            seng.pump(max_blocks=1)
+        return tks
+
+    stream()
+    seng.drain()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tks = stream()
+        in_flight = seng.in_flight_blocks
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res = seng.drain()
+    print(f"[check] 4 sharded blocks of {top} through submit/pump under "
+          f"set_sync_debug_mode('error'): no host-device sync; {in_flight} in flight")
+    check(in_flight == 4, f"{in_flight} sharded blocks in flight, expected 4")
+    direct = router.bank.mean_var(ten9, Xq9)
+    compare("sharded pipelined vs direct ShardedGPBank.mean_var (1,024 mixed queries)",
+            [torch.tensor([res[t].mu for t in tks]), torch.tensor([res[t].var for t in tks])],
+            [direct[0].cpu(), direct[1].cpu()], rtol=0.0, atol=1e-5,
+            why="benchmarks/serve_latency.py gate")
+    del seng, direct
+
+    # rebalance after emptying shard 0; a page-out and a page-in
+    bb = router.bank
+    for t in [t for t in bb.tenants if bb.shard_of(t) == 0]:
+        bb = bb.evict(t)
+    rrouter = BankRouter(bb, metrics=reg)
+    moves, reb_s = timed(lambda: rrouter.rebalance(threshold=1))
+    occ = rrouter.bank.shard_occupancy()
+    print(f"[sharded] rebalance after emptying shard 0: {moves} moves in {reb_s * 1e3:.1f} ms, "
+          f"occupancy {occ.tolist()}")
+    check(moves > 0 and occ.max() - occ.min() <= 1, f"rebalance left occupancy {occ}")
+    with tempfile.TemporaryDirectory() as cold:
+        tb = TieredBank(rrouter.bank, cold)
+        t_out = tb.hot_tenants[0]
+        before = GP.from_state(tb.bank.state(t_out))
+        tb.evict_to_cold(t_out)
+        least = int(np.argmin(tb.bank.shard_occupancy()))
+        _, page_s = timed(lambda: tb.page_in(t_out))
+        mu_p, var_p = tb.bank.mean_var([t_out] * 256, Xq9[:256])
+        mu_c, var_c = before.mean_var(Xq9[:256])
+        print(f"[sharded] page-in of tenant {t_out}: {page_s * 1e3:.2f} ms, onto shard "
+              f"{tb.bank.shard_of(t_out)} (least loaded: {least})")
+        check(tb.bank.shard_of(t_out) == least, "the page-in missed the least-loaded shard")
+        compare("paged-in tenant vs its session before the page-out", [mu_p, var_p],
+                [mu_c, var_c],
+                rtol=0.0, atol=1e-5, why="tests/test_lifecycle.py:277 gate")
+    report["sharded"] = {
+        "fit_s": t_sh, "fit_2d_s": t_2d, "resident_fit_s": t_res, "from_bank_s": from_s,
+        "fit_err": fit_err, "rounds": rounds, "launches": loop_counts,
+        "rebalance_moves": moves, "rebalance_ms": reb_s * 1e3, "page_in_ms": page_s * 1e3,
+        "bucket_uses": dict(eng.bucket_uses)}
+    del sh, router, eng, bb, rrouter, tb, Xb, yb
+    torch.cuda.empty_cache()
+
+    # (c) fit_distributed / predict_distributed at the Figure 1 point
+    X0, y0, spec, Xq = main["X"], main["y"], main["spec"], main["Xq"]
+    lmesh = make_local_mesh(data=S, devices=[dev] * S)
+    M = fagp._idx_tensor(spec).shape[0]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (dst, d_counts), d_fit_s = timed(lambda: counted(lambda: dgp.fit_distributed(
+        X0, y0, spec, lmesh)))
+    d_peak = torch.cuda.max_memory_allocated() - held
+    reckoned = S * M * M * 4
+    (dmv, p_counts), d_pred_s = timed(lambda: counted(lambda: dgp.predict_distributed(
+        Xq, dst, lmesh)))
+    check(d_counts == launches(phi_gram={"moments": S}),
+          f"fit_distributed launches {d_counts}: one fused fit per row shard")
+    check(p_counts == launches({"": S}, diag_quad={"": S}),
+          f"predict_distributed launches {p_counts}: a features and a diag-quad launch a shard")
+    rst, r_fit_s = timed(lambda: fagp.fit(X0, y0, spec))
+    mu_r, var_r = fagp.predict_mean_var(rst, Xq)
+    backend = fagp.get_backend("pallas")
+    idx = fagp._idx_tensor(spec)
+    N_l = X0.shape[0] // S
+    moments_ms = cuda_ms(lambda: [backend.moments(X0[s * N_l:(s + 1) * N_l],
+                                                  y0[s * N_l:(s + 1) * N_l], spec, idx,
+                                                  N_l // 16, None) for s in range(S)],
+                         reps=3, warmup=1)
+    print(f"[distributed] N={X0.shape[0]} M={M} over {S} row shards: fit_distributed "
+          f"{d_fit_s:.4f} s (its {S} moment launches {moments_ms:.2f} ms, CUDA events); "
+          f"resident fagp.fit {r_fit_s:.4f} s here, phase 3's fit_s {main['fit_s']:.4f} s; "
+          f"predict_distributed {Xq.shape[0]} queries {d_pred_s:.4f} s; peak "
+          f"{d_peak / 1e9:.3f} GB above the {held / 1e9:.3f} GB held ({S} partial G of "
+          f"{M * M * 4 / 1e6:.0f} MB reckoned: {reckoned / 1e9:.3f} GB)")
+    check(d_peak >= reckoned, "fit_distributed's peak is below its partial moments'")
+    compare("fit_distributed u vs resident fit", [dst.u], [rst.u], rtol=5e-3, atol=1e-4,
+            why="tests/test_distributed.py:51 u gate")
+    compare("predict_distributed mean vs resident", [dmv[0]], [mu_r], rtol=1e-3, atol=1e-4,
+            why="tests/test_distributed.py:55 mean gate")
+    compare("predict_distributed variance vs resident", [dmv[1]], [var_r], rtol=5e-3,
+            atol=1e-6, why="tests/test_distributed.py:57 variance gate")
+    # a float64 fit of the same rows: where each float32 fit's u and mean sit
+    sp64 = dataclasses.replace(spec, eps=spec.eps.double(), rho=spec.rho.double(),
+                               noise=spec.noise.double())
+    exp = get_expansion(spec.expansion)
+    d64 = torch.exp(0.5 * exp.log_eigenvalues(idx, sp64))
+    G64 = torch.zeros((M, M), dtype=torch.float64, device=dev)
+    b64 = torch.zeros(M, dtype=torch.float64, device=dev)
+    for lo in range(0, X0.shape[0], 2500):
+        Ph = exp.features(X0[lo:lo + 2500].double(), idx, sp64)
+        G64 += Ph.T @ Ph
+        b64 += Ph.T @ y0[lo:lo + 2500].double()
+        del Ph
+    G64 = torch.eye(M, dtype=torch.float64, device=dev) + d64[:, None] * G64 * d64[None, :] \
+        / sp64.noise**2
+    L64 = torch.linalg.cholesky(G64)
+    del G64
+    u64 = d64 * torch.cholesky_solve((d64 * b64)[:, None], L64)[:, 0] / sp64.noise**2
+    m64 = exp.features(Xq.double(), idx, sp64) @ u64
+    f64 = {name: {"u": float((st.u.double() - u64).abs().max()),
+                  "mean": float((m.double() - m64).abs().max())}
+           for name, st, m in (("resident", rst, mu_r), ("distributed", dst, dmv[0]))}
+    print(f"[distributed] from a float64 fit of the same rows: {json.dumps(f64)}")
+    del L64, u64, m64, b64
+    report["distributed"] = {
+        "fit_s": d_fit_s, "moments_ms": moments_ms, "resident_fit_s": r_fit_s,
+        "phase3_fit_s": main["fit_s"], "predict_s": d_pred_s, "peak_bytes": d_peak,
+        "reckoned_partial_bytes": reckoned, "from_float64": f64}
+    del dst, rst, dmv
+    torch.cuda.empty_cache()
+    # and at tests/test_distributed.py's own shape: N = 512, p = 2, n = 8 over
+    # 8 row shards (a (data 2, model 4) mesh of this card)
+    Xj, yj, Xsj, _ = make_gp_dataset(512, 2, seed=0, device=dev)
+    sj = GPSpec.create(8, eps=np.full(2, 0.8, np.float32), rho=2.0, noise=0.05,
+                       backend="pallas", device=dev)
+    jmesh = make_local_mesh(data=2, model=4, devices=[dev] * 8)
+    stj, dstj = fagp.fit(Xj, yj, sj), dgp.fit_distributed(Xj, yj, sj, jmesh)
+    mj, vj = dgp.predict_distributed(Xsj, dstj, jmesh)
+    mr, vr = fagp.predict_mean_var(stj, Xsj)
+    compare("fit_distributed u vs resident at the JAX test's shape (512 x 2, n = 8, 8 shards)",
+            [dstj.u], [stj.u], rtol=5e-3, atol=1e-4, why="tests/test_distributed.py:51 u gate")
+    compare("predict_distributed mean vs resident at the JAX test's shape", [mj],
+            [mr], rtol=1e-3, atol=1e-4, why="tests/test_distributed.py:55 mean gate")
+    compare("predict_distributed variance vs resident at the JAX test's shape", [vj], [vr],
+            rtol=5e-3, atol=1e-6, why="tests/test_distributed.py:57 variance gate")
+
+    # (d) distinct cards
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[phase 11d] skipped: the shards on distinct cards and the launch guard's "
+              f"card tests need 2 or more cards, {n_cards} visible")
+    else:
+        report["distinct_cards"] = phase11d(dev, fspec, compare, main, n_cards, Xq9, ten9)
+    report["seconds"] = time.perf_counter() - t_phase
+    print("[phase 11] " + json.dumps(report))
+    print(f"[phase 11] took {report['seconds']:.1f} s")
+    return report
+
+
+def phase11d(dev, fspec, compare, main, n_cards, Xq9, ten9) -> dict:
+    """Phase 11 (d): a fleet sharded over min(4, cards) distinct cards
+    serves as over one card (1e-5), the row-sharded fit over them equals
+    the one-card schedule (1e-6), and ``tests/test_torch_multicard.py``
+    (each kernel launched on cuda:1 while cuda:0 is current, bitwise)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bank import GPBank, ShardedGPBank
+    from repro_torch.core import distributed as dgp
+    from repro_torch.launch.mesh import make_bank_mesh, make_local_mesh
+    from repro_torch.launch.serve_gp import fleet_dataset
+
+    S = min(SHARDS, n_cards)
+    P = PIPE
+    _, Xb, yb, _ = fleet_dataset(
+        np.random.default_rng(P["seed"]), tenants=P["tenants"], n_train=P["n_train"],
+        p=P["p"], rounds=P["rounds"], observations_per_round=P["observations_per_round"],
+        noise=P["noise"], seed=P["seed"])
+    rb = GPBank.fit(torch.from_numpy(Xb), torch.from_numpy(yb), fspec)
+    answers = []
+    for mesh in (make_bank_mesh(S), make_bank_mesh(S, devices=[dev] * S)):
+        answers.append([t.cpu() for t in ShardedGPBank.fit(
+            torch.from_numpy(Xb), torch.from_numpy(yb), fspec, mesh).mean_var(ten9, Xq9)])
+    compare(f"ShardedGPBank.fit over {S} cards vs over one card", answers[0], answers[1],
+            rtol=0.0, atol=1e-5, why="tests/test_shard_bank.py:82-84 gate")
+    shd = ShardedGPBank.from_bank(rb, make_bank_mesh(S), pad_capacity=True)
+    compare(f"from_bank over {S} cards vs resident", [t.cpu() for t in shd.mean_var(ten9, Xq9)],
+            [t.cpu() for t in rb.mean_var(ten9, Xq9)], rtol=0.0, atol=1e-5,
+            why="tests/test_shard_bank.py:82-84 gate")
+    del shd, rb
+    fits = []
+    for devices in (None, [dev] * S):
+        mesh = make_local_mesh(data=S, devices=devices)
+        st = dgp.fit_distributed(main["X"], main["y"], main["spec"], mesh)
+        fits.append([st.u.cpu()] + [t.cpu() for t in dgp.predict_distributed(
+            main["Xq"], st, mesh)])
+        del st
+    compare(f"fit_distributed over {S} cards vs over one card (u, mean, variance)",
+            fits[0], fits[1], rtol=0.0, atol=1e-6, why="the same sums in the same order")
+    r = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+                        str(ROOT / "tests" / "test_torch_multicard.py")],
+                       capture_output=True, text=True, cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    print(f"[phase 11d] tests/test_torch_multicard.py rc={r.returncode}: "
+          f"{r.stdout.strip().splitlines()[-1] if r.stdout.strip() else r.stderr[-500:]}")
+    check(r.returncode == 0, "the launch guard's card tests failed:\n" + r.stdout[-3000:])
+    return {"cards": S}
 
 
 def main() -> int:
@@ -1438,6 +1934,7 @@ def main() -> int:
     gp = out.pop("gp")
     nl = float(gp.nlml(X_all, y_all))
     counts = ops.launch_counts()
+    main_fit_s = out["fit_s"]
     print(f"[main] M={out['M']} fit_s={out['fit_s']:.4f}")
     for h in out["rounds"]:
         print(f"[main] round {h['round']}: update_s={h['update_s']:.4f} "
@@ -2592,10 +3089,14 @@ def main() -> int:
     print(f"[reopt] phase took {time.perf_counter() - phase8_t0:.1f} s")
 
     # -- 9. pipelined fleet serving and the tiered bank (ROADMAP A4) -------
-    phase9(dev, fspec, fout, compare, Xq16)
+    _, ref9 = phase9(dev, fspec, fout, compare, Xq16)
 
     # -- 10. the Vecchia family (ROADMAP A6) ----------------------------------
     phase10(dev, compare, cuda_ms)
+
+    # -- 11. the sharded fleet and the row-sharded fit (ROADMAP A5) ----------
+    phase11(dev, fspec, compare, cuda_ms, ref9,
+            dict(X=X0, y=y0, spec=spec, Xq=Xs[:MAIN["queries"]], fit_s=main_fit_s))
 
     # -- results --------------------------------------------------------------
     kernels = []

@@ -7,8 +7,8 @@ calls; ``BankRouter`` coalesces per-tenant query and observation queues
 into the padded batches the bank wants; ``FleetEngine`` serves through the
 router with dispatch-ahead, deadlines and bucket autotuning; ``TieredBank``
 fronts a bank with a cold tier of checkpoints and sliding-window
-forgetting.  The sharded bank comes with a later slice of the port
-(ROADMAP.md).
+forgetting; ``ShardedGPBank`` spreads a bank's slots over the devices of a
+mesh (``launch/mesh.py``).
 """
 from .bank import GPBank
 from .engine import (
@@ -21,8 +21,9 @@ from .engine import (
 )
 from .lifecycle import TieredBank
 from .router import BankRouter
+from .sharded import ShardedGPBank
 
 __all__ = [
     "GPBank", "BankRouter", "FleetEngine", "LatencyStats", "QueueFull",
-    "TicketResult", "TIMEOUT_MU", "TIMEOUT_VAR", "TieredBank",
+    "ShardedGPBank", "TicketResult", "TIMEOUT_MU", "TIMEOUT_VAR", "TieredBank",
 ]

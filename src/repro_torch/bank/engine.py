@@ -57,6 +57,12 @@ per-tick barrier:
   bank's serving entry ONCE per bank version (the cache is keyed on the
   bank's object identity, so ingest/reoptimize swaps invalidate it
   automatically).
+* **Sharded banks** — over a :class:`~repro_torch.bank.ShardedGPBank` a
+  block carries its real rows only (the bank pads each shard to its own
+  rung, so a global pad would only inflate the busiest shard); the results
+  come back in packed per-shard order, one CUDA event per shard touched,
+  and are put back in row order at harvest; with a tracer each dispatch
+  records a ``shard_dispatch`` instant per shard it touches.
 * **Latency observability** — every completed ticket records its
   submit→harvest latency per tenant into a BOUNDED reservoir
   (:class:`LatencyStats`); :meth:`metrics` reports per-tenant and overall
@@ -92,6 +98,7 @@ from collections import Counter, deque
 from typing import Callable, Hashable, Mapping, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from ..obs import metrics as obs_metrics
 from ..obs.trace import NULL_TRACER, NullTracer
@@ -201,15 +208,18 @@ class LatencyStats:
 @dataclasses.dataclass
 class _InFlight:
     """One dispatched block: its tickets, its results (pinned host tensors
-    filled by copies still in flight on a card) and the event recorded after
-    those copies (None on the CPU)."""
+    filled by copies still in flight on a card) and the events recorded
+    after those copies (none on the CPU)."""
 
     entries: list           # [(ticket, tenant, x), ...] — real rows only
-    mu: object              # (bucket,) float32 tensor
-    var: object             # (bucket,) float32 tensor
-    event: object           # torch.cuda.Event, or None
+    mu: object              # (bucket,) float32 tensor; a sharded bank's: one per shard
+    var: object
+    events: tuple           # torch.cuda.Event per device the block ran on
     bucket: int
     t_dispatch: float
+    # sharded dispatch: entry i's result sits at position order[i] of the
+    # shards' packed results concatenated; None for a resident bank
+    order: object = None
 
 
 def _pow2_buckets(microbatch: int, max_coalesce: int = 1) -> tuple:
@@ -540,18 +550,39 @@ class FleetEngine:
             return self._dcache[1], self._dcache[2]
         sm = dict(bank.slots)
         call = bank._serving_entry()
+        if self.router._sharded and self._trace_on:
+            # a sharded bank packs per shard: trace the rows each shard takes
+            entry, tracer = call, self.tracer
+            C_l, S = bank.shard_capacity, bank.n_shards
+
+            def call(slots, Xq):
+                per_shard = np.bincount(slots // C_l, minlength=S)
+                for s in np.flatnonzero(per_shard):
+                    tracer.instant("shard_dispatch", shard_id=int(s),
+                                   rows=int(per_shard[s]))
+                return entry(slots, Xq)
         self._dcache = (bank, sm, call)
         return sm, call
 
     def _dispatch(self, entries: list, bucket: int):
         """Pack ``entries`` into one padded ``bucket``-row block and
-        dispatch it WITHOUT blocking; returns (mu, var, event).
-        Raises (e.g. ``KeyError`` for a tenant evicted from a swapped
-        bank) without side effects — the caller requeues."""
+        dispatch it WITHOUT blocking; returns (mu, var, events, order).
+        A sharded bank takes the real rows only: it pads per shard, so
+        padding to the global bucket here would only inflate the busiest
+        shard.  Raises (e.g. ``KeyError`` for a tenant evicted from a
+        swapped bank) without side effects — the caller requeues."""
         sm, call = self._dispatcher()
-        tenants, Xq = self.router._pack_block(entries, bucket)
+        if self.router._sharded:
+            tenants = [t for _, t, _ in entries]
+            Xq = np.stack([x for _, _, x in entries])
+        else:
+            tenants, Xq = self.router._pack_block(entries, bucket)
         slots = np.fromiter((sm[t] for t in tenants), np.int64, len(tenants))
-        return call(slots, Xq)
+        out = call(slots, Xq)
+        if len(out) == 4:
+            return out
+        mu, var, event = out
+        return mu, var, () if event is None else (event,), None
 
     def _expire(self, ticket: int, tenant: Hashable, t_submit: float,
                 now: float) -> None:
@@ -593,12 +624,12 @@ class FleetEngine:
                 continue
             try:
                 with tr.span("dispatch", bucket=bucket, rows=len(entries)):
-                    mu, var, event = self._dispatch(entries, bucket)
+                    mu, var, events, order = self._dispatch(entries, bucket)
             except Exception:
                 self.router.requeue(entries)
                 raise
             self._in_flight.append(
-                _InFlight(entries, mu, var, event, bucket, now)
+                _InFlight(entries, mu, var, events, bucket, now, order)
             )
             self._rows_in_flight += len(entries)
             self.bucket_uses[bucket] += 1
@@ -613,10 +644,14 @@ class FleetEngine:
 
     def _collect(self, blk: _InFlight) -> dict:
         with self.tracer.span("device_wait", bucket=blk.bucket):
-            if blk.event is not None:
-                blk.event.synchronize()   # this block's copies, none behind it
-            mu_l = blk.mu.tolist()      # one bulk conversion, not Q float() calls
-            var_l = blk.var.tolist()
+            for event in blk.events:
+                event.synchronize()       # this block's copies, none behind it
+            mu, var = blk.mu, blk.var
+            if blk.order is not None:     # a sharded block: back to row order
+                order = torch.from_numpy(blk.order)
+                mu, var = torch.cat(mu)[order], torch.cat(var)[order]
+            mu_l = mu.tolist()          # one bulk conversion, not Q float() calls
+            var_l = var.tolist()
         now = self._clock()
         self._t_last_harvest = now
         service = now - blk.t_dispatch
@@ -649,7 +684,7 @@ class FleetEngine:
         while self._in_flight:
             blk = self._in_flight[0]
             if not ((wait and first)
-                    or GPBank.result_ready(blk.event)):
+                    or GPBank.result_ready(*blk.events)):
                 break
             self._in_flight.popleft()
             with self.tracer.span("harvest", bucket=blk.bucket):

@@ -35,6 +35,10 @@ and targets (n,), oldest first), where the JAX package keeps a list of
 ``(x, y)`` tuples: :meth:`age` forgets the same rows in the same order, and
 a cold checkpoint's ``extra`` (``win_x``, ``win_y``) is the same.
 
+The hot tier may be a :class:`~repro_torch.bank.ShardedGPBank`
+(:meth:`adopt` takes either): a page-in then lands on the least-loaded
+shard through its ``insert``, and aging runs per shard.
+
 The bank reference is owned here between external swaps: a serving stack
 that mutates the bank elsewhere (``BankRouter.ingest`` / ``reoptimize``)
 hands the new bank back via :meth:`adopt` — ``FleetEngine`` does this
@@ -418,7 +422,13 @@ class TieredBank:
 
     @staticmethod
     def _promoted(bank: GPBank) -> GPBank:
-        """``bank`` with its shared hyperparameters as a per-slot overlay."""
+        """``bank`` with its shared hyperparameters as a per-slot overlay
+        (a sharded bank, homogeneous-only, refuses as in the JAX package)."""
+        if getattr(bank, "mesh", None) is not None:
+            raise ValueError(
+                "ShardedGPBank is homogeneous-only: a tenant restored under its "
+                "own hyperparameters needs a heterogeneous bank — convert with "
+                "to_bank() first")
         h = bank._stacked_hypers()
         new = bank._with({}, hypers=type(h)(
             **{f: getattr(h, f).contiguous() for f in ("eps", "rho", "noise")}))

@@ -23,9 +23,13 @@ padded mixed-tenant batches for :class:`~repro_torch.bank.GPBank`:
 The router owns the bank reference: :meth:`ingest` and :meth:`reoptimize`
 replace it with the new (immutable) bank, and later :meth:`flush` calls
 serve the new posterior.  The pipelined :class:`~repro_torch.bank.FleetEngine`
-drives the same queues through :meth:`take` / :meth:`requeue`.  Sharded
-banks (``rebalance``) are not ported yet and raise
-:class:`~repro_torch.core.approximation.UnsupportedError`.
+drives the same queues through :meth:`take` / :meth:`requeue`.
+
+* **Shards**: over a :class:`~repro_torch.bank.ShardedGPBank` the router
+  reports per-shard occupancy and backlog (:meth:`shard_backlogs`, the
+  ``bank_shard_occupancy`` / ``bank_shard_backlog`` gauges), evens out
+  occupancy with :meth:`rebalance`, and leaves the group axis of an ingest
+  round to the bank, which pads each shard to its own rung.
 """
 from __future__ import annotations
 
@@ -34,7 +38,6 @@ from typing import Hashable, Optional
 import numpy as np
 import torch
 
-from ..core.gp import _not_ported
 from ..obs import metrics as obs_metrics
 from ..obs.trace import NULL_TRACER
 from .bank import GPBank
@@ -76,11 +79,11 @@ class BankRouter:
             "router_reopt_rounds_total", "batched reoptimize calls")
         self._c_reopt_tenants = reg.counter(
             "router_reopt_tenants_total", "tenants reoptimized")
-        # registered (never incremented until the sharded bank is ported) so
-        # a scrape shows the JAX router's series
         self._c_rebalance = reg.counter(
             "bank_rebalance_total", "cross-shard tenant moves applied by "
             "rebalance")
+        if not isinstance(reg, obs_metrics.NullRegistry):
+            reg.add_collector(self._publish_shards)
         self.donate_updates = bool(donate_updates)
         self.bank = bank
         self.microbatch = int(microbatch)
@@ -91,10 +94,52 @@ class BankRouter:
         self._next_ticket = 0
         self._since_reopt: dict = {}   # tenant -> rows absorbed since its last optimize
 
-    # -- not ported ----------------------------------------------------------
+    # -- shard placement awareness ------------------------------------------
 
-    def rebalance(self, **kwargs) -> int:
-        _not_ported("BankRouter.rebalance", "multi-device (ROADMAP A5)", self.bank.spec)
+    @property
+    def _sharded(self) -> bool:
+        return getattr(self.bank, "mesh", None) is not None
+
+    def shard_backlogs(self) -> np.ndarray:
+        """(S,) pending query rows per shard (empty when the bank is not
+        sharded): the router-side load signal beside the bank's
+        occupancy."""
+        if not self._sharded:
+            return np.zeros(0, np.int64)
+        depth = np.zeros(self.bank.n_shards, np.int64)
+        for _, tenant, _ in self._pending:
+            if tenant in self.bank.slots:
+                depth[self.bank.shard_of(tenant)] += 1
+        return depth
+
+    def _publish_shards(self) -> None:
+        """Scrape-time collector: per-shard occupancy and backlog gauges
+        (published only while the bank is sharded)."""
+        if not self._sharded:
+            return
+        occ = self.bank.shard_occupancy()
+        backlog = self.shard_backlogs()
+        for s in range(self.bank.n_shards):
+            self.registry.gauge("bank_shard_occupancy", "active tenants on this shard",
+                                shard=s).set(int(occ[s]))
+            self.registry.gauge("bank_shard_backlog", "pending query rows bound for "
+                                "this shard", shard=s).set(int(backlog[s]))
+
+    def rebalance(self, *, threshold: int = 2, max_moves: Optional[int] = None) -> int:
+        """Even out per-shard occupancy when the spread reaches
+        ``threshold``: swap in the rebalanced bank
+        (:meth:`~repro_torch.bank.ShardedGPBank.rebalance`) and count the
+        moves.  A no-op on a resident bank and on a balanced fleet; returns
+        the number of tenants moved."""
+        if not self._sharded:
+            return 0
+        occ = self.bank.shard_occupancy()
+        if int(occ.max()) - int(occ.min()) < max(1, int(threshold)):
+            return 0
+        with self.tracer.span("rebalance", spread=int(occ.max() - occ.min())):
+            self.bank, moves = self.bank.rebalance(max_moves=max_moves)
+        self._c_rebalance.inc(moves)
+        return moves
 
     # -- staleness + periodic re-optimization -------------------------------
 
@@ -222,7 +267,9 @@ class BankRouter:
         Each round is a distinct-tenant batch of ``ingest_chunk``-row
         groups (row-masked).  The group axis is padded to a power-of-two
         bucket with fully-masked identity groups aimed at distinct unused
-        slots, so the batch shapes stay within log2(capacity) sizes.
+        slots, so the batch shapes stay within log2(capacity) sizes (a
+        sharded bank pads per shard; each round traces ``shard_ingest``
+        with the groups each shard takes).
 
         If a round fails, its rows and everything still queued are restored
         to the observation queue before the error propagates; earlier
@@ -257,15 +304,24 @@ class BankRouter:
                     yg.append(y)
                     mg.append(m)
                 G = len(slots)
-                bucket = min(self.bank.capacity, 1 << (G - 1).bit_length())
-                if bucket > G:
-                    used = set(slots)
-                    free = (s for s in range(self.bank.capacity) if s not in used)
-                    for _ in range(bucket - G):
-                        slots.append(next(free))
-                        Xg.append(np.zeros((k, p), np.float32))
-                        yg.append(np.zeros((k,), np.float32))
-                        mg.append(np.zeros((k,), np.float32))
+                if self._sharded:
+                    # the sharded bank pads each shard to its own rung:
+                    # global padding would only inflate the busiest shard
+                    per_shard = np.bincount(np.asarray(slots) // self.bank.shard_capacity,
+                                            minlength=self.bank.n_shards)
+                    for s in np.flatnonzero(per_shard):
+                        self.tracer.instant("shard_ingest", shard_id=int(s),
+                                            groups=int(per_shard[s]))
+                else:
+                    bucket = min(self.bank.capacity, 1 << (G - 1).bit_length())
+                    if bucket > G:
+                        used = set(slots)
+                        free = (s for s in range(self.bank.capacity) if s not in used)
+                        for _ in range(bucket - G):
+                            slots.append(next(free))
+                            Xg.append(np.zeros((k, p), np.float32))
+                            yg.append(np.zeros((k,), np.float32))
+                            mg.append(np.zeros((k,), np.float32))
                 self.bank = self.bank._update_at_slots(
                     np.array(slots, np.int64),
                     torch.from_numpy(np.stack(Xg)), torch.from_numpy(np.stack(yg)),

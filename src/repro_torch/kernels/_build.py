@@ -14,6 +14,7 @@ compile, :func:`library` raises :class:`KernelBuildError`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,9 +24,11 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 __all__ = [
     "KernelBuildError", "LaunchCounter", "SOURCES", "build_count", "build_dir",
-    "check_launch", "library", "ptr",
+    "check_launch", "library", "on_device", "ptr",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -38,6 +41,7 @@ NVCC_FLAGS = (
 _DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _LIBS: dict = {}
+_SAME_DEVICE = contextlib.nullcontext()
 _LOCK = threading.Lock()
 _BUILDS = [0]      # nvcc runs started by this process (build_count)
 
@@ -159,6 +163,19 @@ def library(name: str) -> ctypes.CDLL:
                 except OSError as e:
                     raise KernelBuildError(f"cannot load lib{src}.so: {e}") from e
         return _LIBS[name]
+
+
+def on_device(t: torch.Tensor):
+    """The context a launch on ``t`` runs in: ``torch.cuda.device`` of
+    ``t``'s card where another card is current, else a shared null context.
+    A C entry point launches on the current card and reads its per-device
+    plan there (``cudaGetDevice``), so a shard on ``cuda:1`` launched while
+    ``cuda:0`` is current would take another card's plan; on the current
+    card the check is one device query and nothing more."""
+    index = t.get_device()
+    if torch._C._cuda_getDevice() == index:
+        return _SAME_DEVICE
+    return torch.cuda.device(index)
 
 
 def ptr(t) -> Optional[ctypes.c_void_p]:

@@ -179,34 +179,35 @@ def chol_downdate_batch_plan(M: int, K: int) -> dict:
 
 
 def chol_downdate_cuda(L: torch.Tensor, W: torch.Tensor):
-    """Launch ``csrc/chol_update.cu``'s downdate on L's stream: one block
+    """Launch ``csrc/chol_update.cu``'s downdate on L's card and stream: one block
     per system (a 2-D L is a batch of one), each factor read column-major
     from L (no copy where L is already column-major, as the factors of
     ``torch.linalg.cholesky`` are) into a new column-major tensor; W is only
     read.  Returns (factor, ok) with ``ok`` a bool tensor on the card."""
-    one = L.ndim == 2
-    Lb, Wb = (L[None], W[None]) if one else (L, W)
-    G, M, K = Lb.shape[0], Lb.shape[-1], Wb.shape[-2]
-    src = Lb.mT.contiguous()      # each factor column-major: L^T row-major
-    ok = torch.ones((G,), dtype=torch.int32, device=L.device)
-    if G == 0 or M == 0 or K == 0:
-        out = src.clone()
-    else:
-        out = torch.empty_like(src)
-        scratch = torch.empty((G * chol_downdate_batch_plan(M, K)["scratch_floats"],),
-                              dtype=torch.float32, device=L.device)
-        stream = ctypes.c_void_p(torch.cuda.current_stream(L.device).cuda_stream)
-        rc = _lib().repro_chol_downdate_batch(_build.ptr(src), _build.ptr(out), _build.ptr(Wb),
-                                              G, M, K, _build.ptr(scratch), _build.ptr(ok),
-                                              stream)
-        _build.check_launch(rc, "chol_downdate (batch)")
-        COUNTER.add("downdate")
-    out, ok = out.mT, ok.bool()
-    return (out[0], ok[0]) if one else (out, ok)
+    with _build.on_device(L):
+        one = L.ndim == 2
+        Lb, Wb = (L[None], W[None]) if one else (L, W)
+        G, M, K = Lb.shape[0], Lb.shape[-1], Wb.shape[-2]
+        src = Lb.mT.contiguous()      # each factor column-major: L^T row-major
+        ok = torch.ones((G,), dtype=torch.int32, device=L.device)
+        if G == 0 or M == 0 or K == 0:
+            out = src.clone()
+        else:
+            out = torch.empty_like(src)
+            scratch = torch.empty((G * chol_downdate_batch_plan(M, K)["scratch_floats"],),
+                                  dtype=torch.float32, device=L.device)
+            stream = ctypes.c_void_p(torch.cuda.current_stream(L.device).cuda_stream)
+            rc = _lib().repro_chol_downdate_batch(_build.ptr(src), _build.ptr(out), _build.ptr(Wb),
+                                                  G, M, K, _build.ptr(scratch), _build.ptr(ok),
+                                                  stream)
+            _build.check_launch(rc, "chol_downdate (batch)")
+            COUNTER.add("downdate")
+        out, ok = out.mT, ok.bool()
+        return (out[0], ok[0]) if one else (out, ok)
 
 
 def chol_update_cuda(L: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/chol_update.cu`` on L's stream: the cooperative sweep
+    """Launch ``csrc/chol_update.cu`` on L's card and stream: the cooperative sweep
     for one system (L (M, M), or a batch of one) in place on a row-major
     copy of L, made in one pass whatever L's layout; for a batch of G > 1
     one block per system, each factor column-major, read from L (no copy
@@ -215,30 +216,31 @@ def chol_update_cuda(L: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     only read.  The caller's tensors are never written.  A refused launch
     raises.  Counted as variant "" for the cooperative sweep, "batched" for
     the one-block kernel."""
-    G = L.shape[0] if L.ndim == 3 else 1
-    M = L.shape[-1]
-    K = W.shape[-2]
-    lib = _lib()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(L.device).cuda_stream)
-    if G > 1:
-        src = L.mT.contiguous()   # each factor column-major: L^T row-major
-        out = torch.empty_like(src)
-        if M == 0 or K == 0:
-            return src.clone().mT
-        scratch = torch.empty((G * chol_update_batch_plan(M, K)["scratch_floats"],),
-                              dtype=torch.float32, device=L.device)
-        rc = lib.repro_chol_update_batch(_build.ptr(src), _build.ptr(out), _build.ptr(W),
-                                         G, M, K, _build.ptr(scratch), stream)
-        _build.check_launch(rc, "chol_update (batch)")
-        COUNTER.add("batched")
-        return out.mT
-    out = L.clone(memory_format=torch.contiguous_format)
-    if G == 0 or M == 0 or K == 0:
+    with _build.on_device(L):
+        G = L.shape[0] if L.ndim == 3 else 1
+        M = L.shape[-1]
+        K = W.shape[-2]
+        lib = _lib()
+        stream = ctypes.c_void_p(torch.cuda.current_stream(L.device).cuda_stream)
+        if G > 1:
+            src = L.mT.contiguous()   # each factor column-major: L^T row-major
+            out = torch.empty_like(src)
+            if M == 0 or K == 0:
+                return src.clone().mT
+            scratch = torch.empty((G * chol_update_batch_plan(M, K)["scratch_floats"],),
+                                  dtype=torch.float32, device=L.device)
+            rc = lib.repro_chol_update_batch(_build.ptr(src), _build.ptr(out), _build.ptr(W),
+                                             G, M, K, _build.ptr(scratch), stream)
+            _build.check_launch(rc, "chol_update (batch)")
+            COUNTER.add("batched")
+            return out.mT
+        out = L.clone(memory_format=torch.contiguous_format)
+        if G == 0 or M == 0 or K == 0:
+            return out
+        scratch = torch.empty((lib.repro_chol_update_scratch(K),), dtype=torch.float32,
+                              device=L.device)
+        rc = lib.repro_chol_update(_build.ptr(out), _build.ptr(W), G, M, K,
+                                   _build.ptr(scratch), stream)
+        _build.check_launch(rc, "chol_update")
+        COUNTER.add("")
         return out
-    scratch = torch.empty((lib.repro_chol_update_scratch(K),), dtype=torch.float32,
-                          device=L.device)
-    rc = lib.repro_chol_update(_build.ptr(out), _build.ptr(W), G, M, K,
-                               _build.ptr(scratch), stream)
-    _build.check_launch(rc, "chol_update")
-    COUNTER.add("")
-    return out

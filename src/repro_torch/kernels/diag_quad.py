@@ -36,6 +36,7 @@ def diag_quad_plan(N: int, M: int, device=None) -> dict:
     split S of the k axis, 32-deep slices per part, row tiles and the
     resident blocks it was sized for (from the card's occupancy)."""
     dev = torch.device("cuda" if device is None else device)
+    # keyed by the card's index: each card has its own occupancy
     key = (N, M, dev.index if dev.index is not None else torch.cuda.current_device())
     if key not in _PLANS:
         lib = _build.library("diag_quad")
@@ -51,7 +52,7 @@ def diag_quad_plan(N: int, M: int, device=None) -> dict:
 
 
 def diag_quad_cuda(A: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/diag_quad.cu`` on A's stream -> (N,)."""
+    """Launch ``csrc/diag_quad.cu`` on A's card and stream -> (N,)."""
     N, M = A.shape
     out = torch.empty((N,), dtype=torch.float32, device=A.device)
     if N == 0:
@@ -67,9 +68,10 @@ def diag_quad_cuda(A: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p]
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    rc = fn(_build.ptr(A), _build.ptr(C), N, M, plan["S"], plan["slices_per_part"],
-            _build.ptr(partial), _build.ptr(out), ctypes.c_void_p(stream))
+    with _build.on_device(A):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        rc = fn(_build.ptr(A), _build.ptr(C), N, M, plan["S"], plan["slices_per_part"],
+                _build.ptr(partial), _build.ptr(out), ctypes.c_void_p(stream))
     _build.check_launch(rc, "diag_quad")
     COUNTER.add()
     return out

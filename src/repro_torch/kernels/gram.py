@@ -62,7 +62,8 @@ def scaled_gram_plan(N: int, M: int, bf16: bool = False, device=None) -> dict:
 
 
 def scaled_gram_cuda(Phi: torch.Tensor, d: torch.Tensor, sig2: float) -> torch.Tensor:
-    """Launch ``csrc/scaled_gram.cu`` on Phi's stream -> B (M, M) float32."""
+    """Launch ``csrc/scaled_gram.cu`` on Phi's card and stream -> B (M, M)
+    float32."""
     N, M = Phi.shape
     out = torch.empty((M, M), dtype=torch.float32, device=Phi.device)
     if M == 0:
@@ -73,9 +74,10 @@ def scaled_gram_cuda(Phi: torch.Tensor, d: torch.Tensor, sig2: float) -> torch.T
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-    stream = torch.cuda.current_stream(Phi.device).cuda_stream
-    rc = fn(_build.ptr(Phi), N, M, _build.ptr(d), float(sig2), _build.ptr(out),
-            ctypes.c_void_p(stream))
+    with _build.on_device(Phi):
+        stream = torch.cuda.current_stream(Phi.device).cuda_stream
+        rc = fn(_build.ptr(Phi), N, M, _build.ptr(d), float(sig2), _build.ptr(out),
+                ctypes.c_void_p(stream))
     _build.check_launch(rc, "scaled_gram")
     COUNTER.add("bf16" if bf16 else "")
     return out

@@ -203,18 +203,23 @@ def phi_features_launch(X: torch.Tensor, tile: TileArgs, out: torch.Tensor,
 
 def _launch(X: torch.Tensor, tile: TileArgs, out: torch.Tensor,
             slots: Optional[torch.Tensor] = None) -> None:
+    dev = X.get_device()
+    if torch._C._cuda_getDevice() != dev:
+        # the C plan and the launch take the current card (_build.on_device)
+        with torch.cuda.device(dev):
+            return _launch(X, tile, out, slots)
     N, p = X.shape
     rc = _entry("repro_phi_features")(
         X.data_ptr(), N, p, tile.M, KINDS[tile.kind], tile.n_max, _addr(tile.consts),
         _addr(tile.coef), _addr(tile.idx), _addr(tile.table), out.data_ptr(),
-        _current_stream(X.get_device()), _addr(slots))
+        _current_stream(dev), _addr(slots))
     _build.check_launch(rc, "phi_features")
     COUNTER.add("" if slots is None else "slots")
 
 
 def phi_features_cuda(X: torch.Tensor, tile: TileArgs,
                       slots: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch ``csrc/phi_features.cu`` on X's stream: (N, p) -> (N, M);
+    """Launch ``csrc/phi_features.cu`` on X's card and stream: (N, p) -> (N, M);
     with ``slots``, row r under slot ``slots[r]``'s constants."""
     out = torch.empty((X.shape[0], tile.M), dtype=torch.float32, device=X.device)
     if out.numel():

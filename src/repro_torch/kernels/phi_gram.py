@@ -87,7 +87,7 @@ def phi_gram_plan(N: int, M: int, nbank: int = 1, kind: str = "hermite",
 
 
 def phi_gram_cuda(X, y, mask, tile: TileArgs, d, sig2: float, scale: bool):
-    """Launch ``csrc/phi_gram.cu`` on X's stream -> (B or G, b)."""
+    """Launch ``csrc/phi_gram.cu`` on X's card and stream -> (B or G, b)."""
     N, p = X.shape
     M = tile.M
     out = torch.empty((M, M), dtype=torch.float32, device=X.device)
@@ -103,11 +103,12 @@ def phi_gram_cuda(X, y, mask, tile: TileArgs, d, sig2: float, scale: bool):
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = fn(_build.ptr(X), _build.ptr(y), _build.ptr(mask), N, p, M, KINDS[tile.kind],
-            tile.n_max, _build.ptr(tile.consts), _build.ptr(tile.coef), _build.ptr(tile.idx),
-            _build.ptr(tile.table), _build.ptr(d), float(sig2), int(bool(scale)),
-            _build.ptr(out), _build.ptr(b), ctypes.c_void_p(stream))
+    with _build.on_device(X):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = fn(_build.ptr(X), _build.ptr(y), _build.ptr(mask), N, p, M, KINDS[tile.kind],
+                tile.n_max, _build.ptr(tile.consts), _build.ptr(tile.coef),
+                _build.ptr(tile.idx), _build.ptr(tile.table), _build.ptr(d), float(sig2),
+                int(bool(scale)), _build.ptr(out), _build.ptr(b), ctypes.c_void_p(stream))
     _build.check_launch(rc, "phi_gram")
     COUNTER.add("scale" if scale else "moments")
     return out, b
@@ -126,7 +127,7 @@ def bank_phi_gram_plain(Xb, yb, maskb, tile: TileArgs):
 
 
 def bank_phi_gram_cuda(Xb, yb, maskb, tile: TileArgs):
-    """Launch ``csrc/phi_gram.cu``'s bank entry on Xb's stream: one launch
+    """Launch ``csrc/phi_gram.cu``'s bank entry on Xb's card and stream: one launch
     for all B slots -> unscaled (G (B, M, M), b (B, M)); a stacked tile
     gives each slot its own map."""
     B, N, p = Xb.shape
@@ -148,11 +149,12 @@ def bank_phi_gram_cuda(Xb, yb, maskb, tile: TileArgs):
                    ctypes.c_longlong]
     per = tile.consts if tile.kind == "hermite" else tile.table
     stride = 0 if tile.slots is None else per[0].numel()
-    stream = torch.cuda.current_stream(Xb.device).cuda_stream
-    rc = fn(_build.ptr(Xb), _build.ptr(yb), _build.ptr(maskb), B, N, p, M,
-            KINDS[tile.kind], tile.n_max, _build.ptr(tile.consts),
-            _build.ptr(tile.coef), _build.ptr(tile.idx), _build.ptr(tile.table),
-            _build.ptr(G), _build.ptr(b), ctypes.c_void_p(stream), stride)
+    with _build.on_device(Xb):
+        stream = torch.cuda.current_stream(Xb.device).cuda_stream
+        rc = fn(_build.ptr(Xb), _build.ptr(yb), _build.ptr(maskb), B, N, p, M,
+                KINDS[tile.kind], tile.n_max, _build.ptr(tile.consts),
+                _build.ptr(tile.coef), _build.ptr(tile.idx), _build.ptr(tile.table),
+                _build.ptr(G), _build.ptr(b), ctypes.c_void_p(stream), stride)
     _build.check_launch(rc, "phi_gram (bank)")
     COUNTER.add("bank" if tile.slots is None else "bank_slots")
     return G, b

@@ -12,9 +12,9 @@ Counterpart of ``repro/launch/serve_gp.py``:
   tenants every few rounds (``reopt_every``), elastic over a cold tier of
   checkpoints with sliding-window forgetting (``cold_dir``, ``capacity``,
   ``window``: :class:`~repro_torch.bank.TieredBank`), with telemetry
-  (``metrics``, ``tracer``, ``watchdog``: ``repro_torch.obs``).  The
-  sharded fleet comes with a later slice (ROADMAP.md) and raises
-  ``UnsupportedError``.
+  (``metrics``, ``tracer``, ``watchdog``: ``repro_torch.obs``), and
+  sharded over the devices of a mesh (``shards``:
+  :class:`~repro_torch.bank.ShardedGPBank`).
 
   python -m repro_torch.launch.serve_gp --backend pallas --device cuda \\
       --n-train 10000 --p 4 --n 11 --rounds 4 --update-size 64 \\
@@ -35,9 +35,9 @@ import time
 import numpy as np
 import torch
 
-from ..bank import BankRouter, FleetEngine, GPBank, TieredBank
+from ..bank import BankRouter, FleetEngine, GPBank, ShardedGPBank, TieredBank
 from ..core import fagp
-from ..core.gp import GP, GPSpec, _not_ported
+from ..core.gp import GP, GPSpec
 from ..data import make_gp_dataset
 from ..device import resolve_device
 from ..obs import (
@@ -53,9 +53,10 @@ from ..obs import metrics as obs_metrics
 __all__ = ["serve_gp", "serve_fleet", "fleet_dataset", "microbatched_mean_var"]
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(*devices: torch.device) -> None:
+    for device in set(devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def microbatched_mean_var(gp, Xs: torch.Tensor, *, microbatch: int):
@@ -241,15 +242,27 @@ def serve_fleet(
 
     ``metrics`` / ``tracer`` / ``watchdog`` (``repro_torch.obs``) thread
     fleet telemetry through the router, the pipelined engine, the tiered
-    lifecycle and the re-optimization.  ``shards`` (the multi-device
-    fleet) is not ported yet and raises ``UnsupportedError``.  Times are
-    host-clock seconds around work that ends in
-    ``torch.cuda.synchronize()`` on a card.
+    lifecycle and the re-optimization.
+
+    ``shards > 0`` shards the fleet's tenant axis over a ``shards``-way
+    'bank' mesh (:class:`~repro_torch.bank.ShardedGPBank`, made from the
+    fitted bank with ``pad_capacity=True``, or from the tier's): serving and
+    ingest run shard-local, the router tracks per-shard occupancy and
+    backlog, and paged-in tenants land on the least-loaded shard.  The mesh
+    follows ``device``: on "cuda" it takes ``shards`` visible cards and
+    raises with fewer; on "cpu" the shards share the CPU.  A sharded fleet
+    is homogeneous, so ``shards`` with ``reopt_every`` raises the JAX
+    package's ``ValueError``; the records add ``shards`` and
+    ``shard_occupancy``.  Times are host-clock seconds around work that
+    ends in ``torch.cuda.synchronize()`` of every card used.
     """
     if engine not in ("pipelined", "sync"):
         raise ValueError(f"engine must be 'pipelined' or 'sync', got {engine!r}")
-    if shards:
-        _not_ported("serve_fleet(shards=...)", "multi-device (ROADMAP A5)")
+    if shards and reopt_every:
+        raise ValueError(
+            "a sharded fleet is homogeneous-only (one spec across all "
+            "shards); per-tenant re-optimization (reopt_every) needs the "
+            "resident bank")
     if cold_dir is not None and engine != "pipelined":
         raise ValueError(
             "a tiered fleet (cold_dir) needs the pipelined engine: the "
@@ -277,7 +290,16 @@ def serve_fleet(
         bank = tiered.bank
     else:
         bank = GPBank.fit(torch.from_numpy(Xb), torch.from_numpy(yb), spec)
-    _sync(dev)
+    devs = [dev]
+    if shards:
+        from .mesh import make_bank_mesh
+
+        mesh = make_bank_mesh(shards, devices=None if dev.type == "cuda" else [dev] * shards)
+        bank = ShardedGPBank.from_bank(bank, mesh, pad_capacity=True)
+        devs = list(mesh.devices.reshape(-1))
+        if tiered is not None:
+            tiered.adopt(bank)
+    _sync(*devs)
     t_fit = time.perf_counter() - t0
 
     router = BankRouter(bank, microbatch=microbatch, ingest_chunk=ingest_chunk,
@@ -301,7 +323,7 @@ def serve_fleet(
         rounds_before = router.ingest_rounds
         t0 = time.perf_counter()
         absorbed = front.ingest()
-        _sync(dev)
+        _sync(*devs)
         t_ingest = time.perf_counter() - t0
 
         # -- periodic re-optimization of stale tenants ---------------------
@@ -391,6 +413,9 @@ def serve_fleet(
         })
     out = {"fit_s": t_fit, "tenants": tenants, "rounds": history,
            "M": bank.n_features, "engine": engine, "device": str(dev)}
+    if shards:
+        out["shards"] = shards
+        out["shard_occupancy"] = [int(c) for c in router.bank.shard_occupancy()]
     if eng is not None:
         out["latency"] = eng.metrics()
     elif metrics is not NULL:
@@ -436,6 +461,10 @@ def main(argv=None) -> None:
                     help="sliding-window length: before each reopt, forget rows "
                          "older than each stale tenant's newest W (rank-k "
                          "downdate); needs --cold-dir")
+    ap.add_argument("--shards", type=int, default=0, metavar="S",
+                    help="shard the fleet's tenant axis over an S-way 'bank' mesh "
+                         "(needs S visible cards with --device cuda; on the CPU the "
+                         "shards share it)")
     ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
                     help="serve Prometheus text at http://127.0.0.1:PORT/metrics "
                          "while the fleet runs (0 = ephemeral port; fleet mode only)")
@@ -471,7 +500,8 @@ def main(argv=None) -> None:
                 reopt_every=args.reopt_every, engine=args.engine,
                 max_in_flight=args.max_in_flight, slo_s=args.slo,
                 capacity=args.capacity, cold_dir=args.cold_dir, window=args.window,
-                metrics=reg, tracer=tracer, watchdog=wd, device=args.device,
+                shards=args.shards, metrics=reg, tracer=tracer, watchdog=wd,
+                device=args.device,
             )
         finally:
             if tracer is not None:
@@ -497,6 +527,9 @@ def main(argv=None) -> None:
                   f"per ticket; sustained {o['sustained_qps']:.0f} q/s; "
                   f"{o['expired']} expired; buckets "
                   f"{sorted(out['latency']['bucket_uses'].items())}")
+        if "shards" in out:
+            print(f"sharded across {out['shards']} devices; occupancy "
+                  f"{out['shard_occupancy']}")
         if "lifecycle" in out:
             lc = out["lifecycle"]
             print(f"lifecycle: {lc['hot']}/{lc['capacity']} hot, {lc['cold']} cold; "

@@ -154,12 +154,13 @@ def serving_watchdog(*, mode: str = "warn", metrics=None,
                      watchdog: Optional[RecompileWatchdog] = None
                      ) -> RecompileWatchdog:
     """A watchdog pre-registered with every serving-path function the stack
-    dispatches through, under the JAX package's names (its sharded ones come
-    with the multi-device bank): the bank's slot write and scatters, the
-    gathered posteriors, the hyperopt lane step; plus ``kernel_builds``.
-    Imports lazily so ``repro_torch.obs`` itself stays importable without
-    torch."""
+    dispatches through, under the JAX package's names: the bank's slot write
+    and scatters, the gathered posteriors, the hyperopt lane step, the
+    sharded bank's shard-local steps (``bank_shard_*``); plus
+    ``kernel_builds``.  Imports lazily so ``repro_torch.obs`` itself stays
+    importable without torch."""
     from ..bank import bank as bank_mod
+    from ..bank import sharded as sharded_mod
     from ..core import fagp
     from ..kernels import _build
     from ..optim import gp_hyperopt
@@ -181,6 +182,13 @@ def serving_watchdog(*, mode: str = "warn", metrics=None,
         ("bank_refit_scatter", bank_mod._bank_refit_scatter),
         ("hyperopt_lane_step", gp_hyperopt._lane_step),
         ("hyperopt_lane_values", gp_hyperopt._lane_values),
+        ("bank_shard_mean_var", sharded_mod._sh_mean_var),
+        ("bank_shard_update_scatter", sharded_mod._sh_update_scatter),
+        ("bank_shard_downdate_scatter", sharded_mod._sh_downdate_scatter),
+        ("bank_shard_refit_scatter", sharded_mod._sh_refit_scatter),
+        ("bank_shard_write_slot", sharded_mod._sh_write_slot),
+        ("bank_shard_read_slot", sharded_mod._sh_read_slot),
+        ("bank_shard_binv", sharded_mod._sh_binv),
         ("kernel_builds", _KernelBuilds(_build)),
     ):
         wd.register(name, fn)

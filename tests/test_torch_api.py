@@ -25,9 +25,11 @@ from repro.core.gp import GP as JGP  # noqa: E402
 from repro.core.gp import GPSpec as JSpec  # noqa: E402
 from repro.optim import gp_hyperopt as jgh  # noqa: E402
 from repro_torch.bank import BankRouter, GPBank  # noqa: E402
+from repro_torch.core import distributed as t_dist  # noqa: E402
 from repro_torch.core import fagp as tfagp  # noqa: E402
 from repro_torch.core.approximation import UnsupportedError  # noqa: E402
 from repro_torch.core.gp import GP  # noqa: E402
+from repro_torch.launch import mesh as t_mesh  # noqa: E402
 from repro_torch.launch import serve_gp as t_serve  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer, serving_watchdog  # noqa: E402
 from repro_torch.optim import gp_hyperopt as tgh  # noqa: E402
@@ -189,9 +191,11 @@ def _fleet(**option):
 
 # (refusal, ROADMAP item, a word of that item's heading)
 REFUSALS = {
-    "BankRouter.rebalance": (lambda tp: BankRouter(_bank()[0]).rebalance(), "A5",
-                             "multi-device"),
-    "serve_fleet(shards)": (lambda tp: _fleet(shards=2), "A5", "multi-device"),
+    "make_production_mesh": (lambda tp: t_mesh.make_production_mesh(), "A8", "LM"),
+    "lower_fit": (lambda tp: t_dist.lower_fit(None, t_mesh.make_local_mesh(devices=["cpu"])),
+                  "A8", "LM"),
+    "lower_predict": (lambda tp: t_dist.lower_predict(
+        None, t_mesh.make_local_mesh(devices=["cpu"])), "A8", "LM"),
 }
 
 
@@ -238,8 +242,15 @@ def _router_flush_span():
     return [e["name"] for e in tracer.events()] == ["flush"]
 
 
-# the calls ROADMAP A2, A3, A4 and A6 refused until they were ported, and
-# what each now returns
+def _sharded_fleet_matches_unsharded():
+    flat = _fleet_out(rounds=2)
+    out = _fleet_out(rounds=2, shards=2)
+    return out["shard_occupancy"] == [1, 1] and all(
+        abs(h["rmse"] - g["rmse"]) < 1e-5 for h, g in zip(out["rounds"], flat["rounds"]))
+
+
+# the calls ROADMAP A2, A3, A4, A5 and A6 refused until they were ported,
+# and what each now returns
 PORTED = {
     "GPBank.downdate": lambda tp: _bank()[0].downdate(
         [0], tt(gp_data(16, 2, 0)[0][None, :2]), tt(gp_data(16, 2, 0)[1][None, :2]))[1].tolist()
@@ -277,6 +288,9 @@ PORTED = {
         torch.tensor([0]), torch.zeros(1, 2, 2), torch.zeros(1, 2), donate=True), GPBank),
     # ROADMAP A6
     "GP.load(vecchia)": _vecchia_load,
+    # ROADMAP A5: a resident bank has nothing to rebalance, as in JAX
+    "BankRouter.rebalance": lambda tp: BankRouter(_bank()[0]).rebalance() == 0,
+    "serve_fleet(shards)": lambda tp: _sharded_fleet_matches_unsharded(),
 }
 
 
@@ -295,7 +309,7 @@ def _value_error(call) -> str:
 
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_formerly_refused_call_works(name, tmp_path):
-    """Each call that named ROADMAP A2, A3, A4 or A6 in its refusal now
+    """Each call that named ROADMAP A2, A3, A4, A5 or A6 in its refusal now
     runs (the window without a cold tier raises the JAX package's
     ValueError)."""
     assert PORTED[name](tmp_path)
@@ -313,3 +327,27 @@ def test_refusal_names_its_roadmap_item(name, tmp_path):
     assert set(re.findall(r"\bA\d\b", msg)) <= {item, "A1"}, msg
     heading = re.search(rf"^\d+\. \*\*{item}: (.*)$", ROADMAP.read_text(), re.M)
     assert heading and word.lower() in heading.group(1).lower(), (item, word)
+
+
+def test_no_refusal_names_a5():
+    """Multi-device (ROADMAP A5) is ported: no refusal in the port names it."""
+    src = Path(t_dist.__file__).resolve().parents[1]
+    hits = [f"{f.name}:{i}" for f in sorted(src.rglob("*.py"))
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if "_not_ported(" in line and "A5" in line]
+    assert hits == []
+
+
+@pytest.mark.cuda
+def test_bank_mesh_wants_as_many_cards_as_shards():
+    """A mesh over the visible cards never falls back: one shard more than
+    there are cards raises, naming the count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    n = torch.cuda.device_count()
+    assert t_mesh.make_bank_mesh(n).shape == {"bank": n, "data": 1}
+    with pytest.raises(ValueError, match=rf"wants {n + 1} devices; only {n} CUDA"):
+        t_mesh.make_bank_mesh(n + 1)
+    with pytest.raises(ValueError, match=rf"wants {n + 1} devices"):
+        t_serve.serve_fleet(shards=n + 1, device="cuda", tenants=2, n_train=8, p=2, n=4,
+                            rounds=1, queries_per_round=4, observations_per_round=2)

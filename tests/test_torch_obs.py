@@ -344,13 +344,12 @@ def test_register_rejects_untracked():
 
 def test_serving_watchdog_covers_the_serving_path_under_the_jax_names():
     """The port registers every serving-path name of the JAX package's
-    watchdog that it has a function for (the sharded ones come with A5),
-    plus its kernel builds."""
+    watchdog, the sharded bank's ``bank_shard_*`` too, plus its kernel
+    builds."""
     reg = MetricsRegistry()
     wd = serving_watchdog(mode="count", metrics=reg)
     jwd = jobs.serving_watchdog(mode="count")
-    shared = {n for n in jwd.sizes() if not n.startswith("bank_shard_")}
-    assert set(wd.sizes()) == shared | {"kernel_builds"}
+    assert set(wd.sizes()) == set(jwd.sizes()) | {"kernel_builds"}
     assert "serve_recompiles_total" in reg.snapshot()["counters"]
 
 

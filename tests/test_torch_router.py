@@ -19,7 +19,6 @@ from repro.bank import GPBank as JBank  # noqa: E402
 from repro.launch.serve_gp import serve_fleet as j_serve_fleet  # noqa: E402
 from repro_torch.bank import BankRouter, GPBank  # noqa: E402
 from repro_torch.core import fagp as tfagp  # noqa: E402
-from repro_torch.core.approximation import UnsupportedError  # noqa: E402
 from repro_torch.core.convert import bank_from_numpy  # noqa: E402
 from repro_torch.launch import serve_gp as t_serve  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer, serving_watchdog  # noqa: E402
@@ -181,16 +180,17 @@ def test_router_rejects_unknown_tenants_and_bad_rows():
 
 
 def test_unported_router_paths_raise():
-    """Only the sharded bank's ``rebalance`` (A5) is refused; telemetry and
-    donated updates (A4) construct routers (tests/test_torch_obs.py and
-    tests/test_torch_engine.py hold them against the JAX package)."""
+    """No router path is refused any more: telemetry and donated updates
+    (A4) construct routers (tests/test_torch_obs.py and
+    tests/test_torch_engine.py hold them against the JAX package), and
+    ``rebalance`` (A5) on a resident bank moves nothing, as in JAX
+    (tests/test_torch_sharded.py holds the sharded one)."""
     _, tb = _banks(2)
     router = BankRouter(tb)
     for kw in ({"metrics": MetricsRegistry()}, {"tracer": Tracer()}, {"donate_updates": True}):
         assert BankRouter(tb, **kw).bank is tb
-    with pytest.raises(UnsupportedError, match="does not support") as e:
-        router.rebalance()
-    assert e.value.layer == "port" and "ROADMAP A5" in str(e.value)
+    assert router.rebalance() == 0 and router.rebalance(threshold=1) == 0
+    assert router.bank is tb and router.shard_backlogs().shape == (0,)
 
 
 # ---------------------------------------------------------------------------
@@ -240,9 +240,9 @@ def test_fleet_dataset_is_the_jax_loops_data():
         np.testing.assert_array_equal(yb[t], (np.asarray(y) + want_off[t])[:10])
 
 
-# every fleet option but shards is ported (ROADMAP A2-A4): on the sync
-# loop the cold tier raises the JAX package's ValueError (it pages only
-# through the pipelined engine), shards (A5) stay refused, the rest run
+# every fleet option is ported (ROADMAP A2-A5): on the sync loop the cold
+# tier raises the JAX package's ValueError (it pages only through the
+# pipelined engine), the rest run (shards on the CPU share it)
 @pytest.mark.parametrize("option", [
     {"engine": "pipelined"}, {"cold_dir": "unused"}, {"cold_dir": "unused", "window": 4},
     {"shards": 2}, {"cold_dir": "unused", "capacity": 8}, {"metrics": object()},
@@ -251,9 +251,9 @@ def test_fleet_dataset_is_the_jax_loops_data():
 def test_serve_fleet_refuses_what_is_not_ported(option):
     kw = {"engine": "sync", "device": "cpu", **FLEET, **option}
     if "shards" in option:
-        with pytest.raises(UnsupportedError, match="does not support") as e:
-            t_serve.serve_fleet(**kw)
-        assert e.value.layer == "port" and "ROADMAP A5" in str(e.value)
+        out = t_serve.serve_fleet(**kw)
+        assert out["shards"] == 2 and sum(out["shard_occupancy"]) == FLEET["tenants"]
+        assert all(h["rmse"] < 0.1 for h in out["rounds"])
         return
     if "cold_dir" in option:
         with pytest.raises(ValueError, match="needs the pipelined engine"):
