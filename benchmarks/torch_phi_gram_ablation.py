@@ -20,6 +20,9 @@ scaled Gram of the stored Phi (10^4 x 14,641 float32).  The variants:
 * ``lanes_16x16``: a warp's lanes as 16 x 2 threads, each 8 x 8 tile
   split 64 apart (the thread layout of diag_quad.cu), against the kernel's
   4 x 8 lanes;
+* ``strips_256``, ``strips_512``: the two-level row sum folded into the
+  output every 256 rows (the reference kernel's ``block_k``) or 512,
+  against the kernel's 1,024 (the price of a fold);
 * ``sg_l2_slice``: the scaled Gram with every step loading the first 32
   rows of Phi, an L2-resident slice (the same loads and FMAs, no HBM
   traffic after the first step);
@@ -27,7 +30,9 @@ scaled Gram of the stored Phi (10^4 x 14,641 float32).  The variants:
   the FMAs alone (its FMA core with the ring's barriers).
 
 The cut variants compute wrong Grams: they exist to time the phases.
-``lanes_16x16`` computes the same bits, which is checked.
+``lanes_16x16`` computes the same bits, which is checked; the strip
+variants round otherwise, and their largest distance from the kernel's
+(G, b), over the largest |entry|, is printed.
 
 The features kernel is timed at the six shapes its paths give it (p = 4):
 a phase-3 query microbatch (128 x 14,641) and update (64 x 14,641), a
@@ -80,7 +85,14 @@ VARIANTS = {
         ("fj + r * kT + 32 + q0)", "fj + r * kT + 64 + q0)"),
         ("r0 + (u / 4) * 16 + u % 4", "r0 + (u / 4) * 64 + u % 4"),
         ("q0 + (v / 4) * 32 + v % 4", "q0 + (v / 4) * 64 + v % 4"),
+        # the strips' fold and join in expansion.cuh walk the same tile
+        ("((u0 + h) / 4) * 16 + (u0 + h) % 4", "((u0 + h) / 4) * 64 + (u0 + h) % 4"),
+        ("i0 + (u / 4) * 16 + u % 4", "i0 + (u / 4) * 64 + u % 4"),
+        ("j0 + (v / 4) * 32 + v % 4", "j0 + (v / 4) * 64 + v % 4"),
     ]),
+    **{f"strips_{rows}": ("phi_gram", [(
+        "constexpr int kStripSteps = repro::kGramStrip / kK;",
+        f"constexpr int kStripSteps = {rows} / kK;")]) for rows in (256, 512)},
     "sg_kernel": ("scaled_gram", []),
     "sg_l2_slice": ("scaled_gram", [("const int row0 = s * kK + q * kQuarter + r;",
                                      "const int row0 = (s & 0) * kK + q * kQuarter + r;")]),
@@ -126,7 +138,10 @@ PEAK_BYTES = 3.35e12  # B/s, H100 SXM HBM3
 
 def build(out_dir: Path, other: Path = None) -> dict:
     """One shared library per variant, compiled in parallel; ``other``, a
-    checkout's root, adds its phi_features.cu as ``src``."""
+    checkout's root, adds its phi_features.cu as ``src``.  Each variant's
+    source sits in a folder of its own beside its copy of ``expansion.cuh``
+    (which the source includes by a quoted name, so the copy is the one
+    found); an edit applies to whichever of the two holds its statement."""
     from repro_torch.kernels import _build
 
     nvcc = _build.find_nvcc()
@@ -138,13 +153,19 @@ def build(out_dir: Path, other: Path = None) -> dict:
         jobs["src"] = (other / "src" / "repro_torch" / "kernels" / "csrc", "phi_features", [])
     procs = {}
     for name, (csrc, source, edits) in jobs.items():
-        text = (csrc / f"{source}.cu").read_text()
+        texts = {f"{source}.cu": (csrc / f"{source}.cu").read_text(),
+                 "expansion.cuh": (csrc / "expansion.cuh").read_text()}
         for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"{name}: {source}.cu no longer contains {old!r}")
-            text = text.replace(old, new)
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
+            held = [f for f, text in texts.items() if old in text]
+            if not held:
+                raise SystemExit(f"{name}: {source}.cu and expansion.cuh no longer "
+                                 f"contain {old!r}")
+            for f in held:
+                texts[f] = texts[f].replace(old, new)
+        (out_dir / name).mkdir(exist_ok=True)
+        for f, text in texts.items():
+            (out_dir / name / f).write_text(text)
+        cu = out_dir / name / f"{source}.cu"
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
              str(out_dir / f"lib{name}.so"), str(cu)],
@@ -304,10 +325,13 @@ def main() -> int:
         ref = call(libs["kernel"], args)
         same = all(torch.equal(a, c) for a, c in zip(ref, call(libs["lanes_16x16"], args)))
         ok &= same
+        strips = {name: max(float((a - c).abs().max() / c.abs().max())
+                            for a, c in zip(call(libs[name], args), ref))
+                  for name in fused if name.startswith("strips_")}
         del ref
         ms = {name: cuda_ms(lambda: call(lib, args)) for name, lib in fused.items()}
         print(json.dumps({"shape": shape, "card": card, "ms": ms,
-                          "lanes_16x16_bitwise_equal": same}))
+                          "lanes_16x16_bitwise_equal": same, "strips_rel_diff": strips}))
     del Xb, yb, onesb
     Phi = ops.expansion_phi(X, main_t[0])
     ms = {name: cuda_ms(lambda: scaled(lib, main_t)) for name, lib in sgram.items()}

@@ -148,9 +148,10 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    9a's fleet and traffic, its final answers against 9a's (1e-5); (b) the
    same fleet over ``make_bank_mesh(4, devices=[cuda:0] * 4)``:
    ``ShardedGPBank.fit`` (one bank launch a shard) against ``GPBank.fit``
-   (1e-4) and a (bank 4, data 2) fit (one a cell; its full-width distance
-   and each fit's from a float64 fit printed, ROADMAP.md section C, C9;
-   both held at 1e-4 on the JAX test's own fleet), ``from_bank`` serving
+   (1e-4) and a (bank 4, data 2) fit (one a cell) held at the same 1e-4 at
+   the fleet's width (the fused fit's 1,024-row strips, ROADMAP.md section
+   C, C9), each fit's distance from a float64 fit printed, both also held
+   at 1e-4 on the JAX test's own fleet, ``from_bank`` serving
    (1e-5), a mixed-tenant update, engine drain and ingest parity, the
    fleet's rounds as ``serve_fleet`` drives them (launches exact, read off
    the trace's ``shard_dispatch`` / ``shard_ingest`` instants), 4 blocks
@@ -161,7 +162,21 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    shard) at tests/test_distributed.py's gates, beside a float64 fit, and
    at that test's own shape; its peak beside the 4 partial G reckoned; (d)
    with two or more cards, (b) and (c) over distinct cards and
-   tests/test_torch_multicard.py, else one line saying it was skipped.
+   tests/test_torch_multicard.py, else one line saying it was skipped;
+12. the LM half's dense serving path (ROADMAP A8; ``phase12()``) at
+   qwen2-1.5b's full width, random weights from a seed: (a) cut to 2
+   layers, the card against the port's CPU run (prefill logits and 8
+   decode steps fed the CPU's greedy tokens; gate twice the CPU's own
+   bfloat16-vs-float32 distance); (b) the 28 layers through
+   ``repro_torch.launch.serve.serve`` at batch 4, prompt 64, 32 tokens:
+   prefill ms (first and warm), decode ms a token, tok/s and peak bytes
+   beside the bounds (parameter bytes at 3.35 TB/s, prefill FLOPs at 989
+   TFLOP/s bf16), prefill(S) + decode(S) = prefill(S + 1) at
+   tests/test_arch_smoke.py's 0.15, finite logits; (c) a 4,096-token
+   prompt through the flash route in every layer (counted), layer 0's
+   flash attention against the simple route in float32 (2e-4 / 2e-5).
+   No kernel of this repository runs there: the LM half reaches no
+   ``pallas_call``.
 
 Prints the features kernel's times by shape on a ``[features]`` line, one
 JSON line with every kernel's numbers (the features kernel's ``ms`` its
@@ -1094,14 +1109,16 @@ def phase11(dev, fspec, compare, cuda_ms, ref9, main) -> dict:
         "ShardedGPBank.fit vs resident GPBank.fit (1,024 mixed queries)",
         list(sb.mean_var(ten9, Xq9)), [mu_r, var_r], rtol=0.0, atol=1e-4,
         why="tests/test_shard_bank.py:93-95 gate")}
-    # the (bank, data) fit sums each tenant's 10^4 rows in two chains of
-    # 5,000 where the fused fit sums one: at this width the two float32
-    # fits differ by more than the JAX test's 1e-4 (ROADMAP.md section C,
-    # C9), so the distance is printed here beside each fit's distance from
-    # a float64 fit of 8 tenants, and the gate is held at the JAX test's
-    # own shape below
+    # the (bank, data) fit sums each tenant's rows in two halves of 5,000
+    # and the resident fit in one, each in strips of 1,024 rows added in
+    # order, the reference kernel's two-level sum (ROADMAP.md section C,
+    # C9): the JAX test's 1e-4 holds at this width, and each fit's distance
+    # from a float64 fit of 8 tenants is printed beside it
     m2, v2 = s2.mean_var(ten9, Xq9)
-    fit_err["2-D"] = max(float((m2 - mu_r).abs().max()), float((v2 - var_r).abs().max()))
+    fit_err["2-D"] = compare(
+        f"ShardedGPBank.fit (bank {S}, data 2) vs resident GPBank.fit (1,024 mixed queries)",
+        [m2, v2], [mu_r, var_r], rtol=0.0, atol=1e-4,
+        why="tests/test_shard_bank.py:134-136 gate")
     eight = sorted(set(ten9))[:8]
     rows8 = [i for i, t in enumerate(ten9) if t in eight]
     t8 = [ten9[i] for i in rows8]
@@ -1122,10 +1139,10 @@ def phase11(dev, fspec, compare, cuda_ms, ref9, main) -> dict:
     from64 = {name: float((bank.mean_var(t8, Xq9[rows8])[0].double() - m64).abs().max())
               for name, bank in (("resident", rb), ("1-D", sb), ("2-D", s2))}
     print(f"[sharded] max |fit - resident fit| on 1,024 mixed queries: 1-D "
-          f"{fit_err['1-D']:.3e}, (bank {S}, data 2) {fit_err['2-D']:.3e} (gate 1e-4 "
-          f"{'holds' if fit_err['2-D'] <= 1e-4 else 'does not hold: ROADMAP.md section C, C9'}; "
+          f"{fit_err['1-D']:.3e}, (bank {S}, data 2) {fit_err['2-D']:.3e} (gate 1e-4; "
           f"benchmarks/shard_scaling.py:242-243's 5e-5 beside); each mean from a float64 fit "
-          f"(8 tenants, {len(rows8)} queries): {json.dumps(from64)}")
+          f"(8 tenants, {len(rows8)} queries): "
+          f"{json.dumps(from64)}")
     del sb, s2, m2, v2
     # the JAX test's own shape (tests/test_shard_bank.py:32-56, 120-136): 16
     # tenants of 8 rows, p = 2, n = 8, on (4) and (4, 2) meshes of this card
@@ -1293,7 +1310,8 @@ def phase11(dev, fspec, compare, cuda_ms, ref9, main) -> dict:
                 rtol=0.0, atol=1e-5, why="tests/test_lifecycle.py:277 gate")
     report["sharded"] = {
         "fit_s": t_sh, "fit_2d_s": t_2d, "resident_fit_s": t_res, "from_bank_s": from_s,
-        "fit_err": fit_err, "rounds": rounds, "launches": loop_counts,
+        "fit_err": fit_err, "from_float64": from64, "rounds": rounds,
+        "launches": loop_counts,
         "rebalance_moves": moves, "rebalance_ms": reb_s * 1e3, "page_in_ms": page_s * 1e3,
         "bucket_uses": dict(eng.bucket_uses)}
     del sh, router, eng, bb, rrouter, tb, Xb, yb
@@ -1444,6 +1462,270 @@ def phase11d(dev, fspec, compare, main, n_cards, Xq9, ten9) -> dict:
           f"{r.stdout.strip().splitlines()[-1] if r.stdout.strip() else r.stderr[-500:]}")
     check(r.returncode == 0, "the launch guard's card tests failed:\n" + r.stdout[-3000:])
     return {"cards": S}
+
+
+# phase 12, ROADMAP A8 (dense serving): qwen2-1.5b at full width
+# (repro_torch/configs/qwen2_1p5b.py: 28 layers, d_model 1,536, 12/2 heads
+# of 128, d_ff 8,960, vocab 151,936, bfloat16, tied embeddings), random
+# weights from a seed; (a) cut to 2 layers for the card-against-CPU check,
+# (b) whole at the reference serve.py's defaults, (c) a 4,096-token prompt
+LM = dict(arch="qwen2-1.5b", cpu_layers=2, cpu_batch=2, cpu_prompt=64, cpu_steps=8,
+          batch=4, prompt_len=64, gen=32, long_prompt=4096, seed=0)
+PEAK_BF16 = 989e12    # FLOP/s, H100 SXM bfloat16 tensor cores, dense
+
+
+def phase12(dev, smi, compare) -> dict:
+    """The LM half's dense serving path on the card: (a) card against the
+    port's CPU run at full width cut to 2 layers (prefill logits and 8
+    decode steps on the CPU's greedy tokens; gate: twice the CPU's own
+    bfloat16-vs-float32 distance); (b) the 28-layer model through
+    ``serve`` (prefill ms first and warm, decode ms a token, tok/s, peak
+    bytes beside the bounds), the reference test's prefill/decode
+    consistency (rtol = atol = 0.15) and finite logits; (c) a 4,096-token
+    prompt through the chunked (flash) attention route in every layer, one
+    layer's flash output against the simple route in float32
+    (tests/test_layers.py's 2e-4 / 2e-5), the long prefill timed."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as tl
+    from repro_torch.models import lm as tlm
+
+    t_phase = time.perf_counter()
+    cfg = ARCHS[LM["arch"]].CONFIG
+    check(cfg.n_layers == 28 and cfg.d_model == 1536 and cfg.vocab == 151936
+          and cfg.dtype == "bfloat16", "phase 12 runs qwen2-1.5b's full configuration")
+    report = {"card": smi}
+    print(f"[phase 12] {smi}: {cfg.arch_id}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}")
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    @torch.no_grad()
+    def device_ms(fn, replays: int = 5) -> float:
+        """The device's time for ``fn``'s work without the host between its
+        launches: one call captured in a CUDA graph (after two warm calls on
+        a side stream), the replays timed with CUDA events, median."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        g.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(replays):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        del g
+        return statistics.median(times)
+
+    # -- (a) the card against the port's CPU run, 2 layers at full width --------
+    cfg2 = dataclasses.replace(cfg, n_layers=LM["cpu_layers"])
+    m2, m2_32 = get_model(cfg2), get_model(dataclasses.replace(cfg2, dtype="float32"))
+    cpu_p = m2.init_params(torch.Generator().manual_seed(LM["seed"]))
+    cpu_p32 = copy.deepcopy(cpu_p).float()          # the same values in float32
+    card_p = copy.deepcopy(cpu_p).to(dev)
+    rng = np.random.default_rng(LM["seed"])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(LM["cpu_batch"],
+                                                             LM["cpu_prompt"])))
+    cap = LM["cpu_prompt"] + LM["cpu_steps"]
+
+    @torch.no_grad()
+    def run(model, params, feed):
+        """Prefill, then one decode step per token of ``feed`` (None: the
+        run's own greedy tokens); returns (logits per step, tokens fed)."""
+        d = params.device
+        logits, cache = model.prefill(params, {"tokens": toks.to(d)}, cache_len=cap)
+        out, fed = [logits.float().cpu()], []
+        for i in range(LM["cpu_steps"]):
+            tok = (torch.argmax(logits, -1)[:, None] if feed is None else feed[i].to(d))
+            fed.append(tok.cpu())
+            logits, cache = model.decode_step(params, {"token": tok,
+                                                       "pos": LM["cpu_prompt"] + i}, cache)
+            out.append(logits.float().cpu())
+        return out, fed
+
+    t0 = time.perf_counter()
+    ref, fed = run(m2, cpu_p, None)
+    ref32, _ = run(m2_32, cpu_p32, fed)
+    cpu_s = time.perf_counter() - t0
+    got, _ = run(m2, card_p, fed)
+    bf16_vs_f32 = max(float((a - b).abs().max()) for a, b in zip(ref, ref32))
+    card_err = compare(
+        f"LM card vs CPU ({cfg.arch_id} cut to {LM['cpu_layers']} layers, prefill + "
+        f"{LM['cpu_steps']} decode steps on the CPU's greedy tokens, logits)",
+        got, ref, rtol=0.0, atol=2.0 * bf16_vs_f32,
+        why=f"twice the CPU's bfloat16-vs-float32 distance, {bf16_vs_f32:.4e}")
+    report["card_vs_cpu"] = {"max_abs_err": card_err, "cpu_bf16_vs_f32": bf16_vs_f32,
+                             "cpu_s": cpu_s}
+    del cpu_p, cpu_p32, card_p, got, ref, ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) the 28-layer model as serve drives it ------------------------------
+    param_bytes = 2 * cfg.param_count()
+    # the prefill's products: each token through every matrix but the
+    # embedding (a gather, and untied, the unembedding too), the unembedding
+    # for the last token only, and each layer's two S x S attention products
+    # (the simple route forms them whole, the causal mask applied after)
+    B_, S_ = LM["batch"], LM["prompt_len"]
+    emb = cfg.vocab * cfg.d_model
+    flops_prefill = (2.0 * (cfg.param_count() - emb * (1 if cfg.tie_embeddings else 2))
+                     * B_ * S_ + 2.0 * emb * B_
+                     + 4.0 * cfg.n_layers * B_ * cfg.n_heads * S_ * S_ * cfg.head_dim)
+    bound_decode_ms = param_bytes / PEAK_BYTES * 1e3
+    bound_prefill_ms = flops_prefill / PEAK_BF16 * 1e3
+    base = torch.cuda.memory_allocated()     # what the earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    served = tserve.serve(LM["arch"], smoke=False, batch=LM["batch"],
+                          prompt_len=LM["prompt_len"], gen=LM["gen"], seed=LM["seed"])
+    serve_peak = torch.cuda.max_memory_allocated() - base
+    check(served["generated"].shape == (LM["batch"], LM["gen"])
+          and ((served["generated"] >= 0) & (served["generated"] < cfg.vocab)).all(),
+          "serve's generated tokens")
+    torch.cuda.empty_cache()
+    model = get_model(cfg)
+    params = model.init_params(LM["seed"], device=dev)
+    held = sum(p.numel() * p.element_size() for p in params.parameters())
+    toks = torch.from_numpy(np.random.default_rng(LM["seed"]).integers(
+        0, cfg.vocab, size=(LM["batch"], LM["prompt_len"] + 1))).to(dev)
+    cap = LM["prompt_len"] + LM["gen"]
+    with torch.no_grad():
+        pre_s = []
+        for _ in range(6):
+            (logits, cache), s_ = sync_s(lambda: model.prefill(
+                params, {"tokens": toks[:, :LM["prompt_len"]]}, cache_len=cap))
+            pre_s.append(s_)
+        tok = torch.argmax(logits, -1)[:, None]
+        dec_s = []
+        for i in range(LM["gen"]):
+            (logits_d, cache), s_ = sync_s(lambda: model.decode_step(
+                params, {"token": tok, "pos": LM["prompt_len"] + i}, cache))
+            dec_s.append(s_)
+            tok = torch.argmax(logits_d, -1)[:, None]
+        # tests/test_arch_smoke.py:65-83 at full width: prefill(S) + decode(S)
+        # against prefill(S + 1)
+        lp, c1 = model.prefill(params, {"tokens": toks[:, :LM["prompt_len"]]},
+                               cache_len=LM["prompt_len"] + 1)
+        ld, _ = model.decode_step(params, {"token": toks[:, LM["prompt_len"]:],
+                                           "pos": LM["prompt_len"]}, c1)
+        lf, _ = model.prefill(params, {"tokens": toks})
+    check(all(bool(torch.isfinite(t).all()) for t in (logits, logits_d, lp, ld, lf)),
+          "non-finite LM logits")
+    compare(f"LM prefill({LM['prompt_len']}) + decode_step vs prefill({LM['prompt_len'] + 1}) "
+            f"(last-token logits, {cfg.n_layers} layers)", [ld], [lf], rtol=0.15, atol=0.15,
+            why="tests/test_arch_smoke.py:81-83 gate")
+    warm_prefill_ms = statistics.median(pre_s[1:]) * 1e3
+    warm_decode_ms = statistics.median(dec_s) * 1e3
+    # the device's share: the same step and prefill replayed from a CUDA
+    # graph (the decode rewrites cache position 64 each time)
+    dec_dev = device_ms(lambda: model.decode_step(
+        params, {"token": tok, "pos": LM["prompt_len"]}, cache))
+    pre_dev = device_ms(lambda: model.prefill(
+        params, {"tokens": toks[:, :LM["prompt_len"]]}, cache_len=cap))
+    report["serve"] = {
+        "batch": LM["batch"], "prompt_len": LM["prompt_len"], "gen": LM["gen"],
+        "prefill_first_ms": served["prefill_s"] * 1e3, "prefill_warm_ms": warm_prefill_ms,
+        "decode_ms_per_token": served["decode_s_per_token"] * 1e3,
+        "decode_warm_median_ms": warm_decode_ms, "tokens_per_s": served["tokens_per_s"],
+        "decode_device_ms": dec_dev, "prefill_device_ms": pre_dev,
+        "decode_idle_share": 1.0 - dec_dev / warm_decode_ms,
+        "prefill_idle_share": 1.0 - pre_dev / warm_prefill_ms,
+        "param_count_bytes": param_bytes, "param_bytes_held": held, "peak_bytes": serve_peak,
+        "held_before_bytes": base,
+        "bound_decode_ms": bound_decode_ms, "prefill_tflop": flops_prefill / 1e12,
+        "bound_prefill_ms": bound_prefill_ms}
+    print(f"[phase 12] {smi}: serve({LM['arch']}, batch {LM['batch']}, prompt "
+          f"{LM['prompt_len']}, gen {LM['gen']}): prefill {served['prefill_s'] * 1e3:.2f} ms "
+          f"first, {warm_prefill_ms:.2f} ms warm (bound {bound_prefill_ms:.3f} ms: "
+          f"{flops_prefill / 1e12:.3f} TFLOP at 989 TFLOP/s); decode "
+          f"{served['decode_s_per_token'] * 1e3:.3f} ms a token in serve, "
+          f"{warm_decode_ms:.3f} ms warm median a step (bound {bound_decode_ms:.3f} ms: "
+          f"{param_bytes / 1e9:.3f} GB of parameters at 3.35 TB/s); "
+          f"{served['tokens_per_s']:.1f} tok/s; peak {serve_peak / 1e9:.3f} GB "
+          f"above the {base / 1e9:.3f} GB held before it (parameters held {held / 1e9:.3f} "
+          f"GB); device time from a CUDA graph: decode "
+          f"step {dec_dev:.3f} ms (idle {100 * (1 - dec_dev / warm_decode_ms):.1f}% of the "
+          f"eager step), prefill {pre_dev:.3f} ms (idle "
+          f"{100 * (1 - pre_dev / warm_prefill_ms):.1f}%)")
+
+    # -- (c) the flash route at full width --------------------------------------
+    long = torch.from_numpy(np.random.default_rng(LM["seed"] + 1).integers(
+        0, cfg.vocab, size=(1, LM["long_prompt"]))).to(dev)
+    routes = []
+    orig_flash, orig_simple = tl._attention_flash, tl._attention_simple
+
+    def spy(name, fn):
+        def call(*a, **kw):
+            routes.append(name)
+            return fn(*a, **kw)
+        return call
+
+    tl._attention_flash = spy("flash", orig_flash)
+    tl._attention_simple = spy("simple", orig_simple)
+    try:
+        with torch.no_grad():
+            long_s = [sync_s(lambda: model.prefill(params, {"tokens": long}))[1]
+                      for _ in range(3)]
+    finally:
+        tl._attention_flash, tl._attention_simple = orig_flash, orig_simple
+    check(routes == ["flash"] * (3 * cfg.n_layers),
+          f"the {LM['long_prompt']}-token prefill took the flash route in every layer")
+    long_dev = device_ms(lambda: model.prefill(params, {"tokens": long}), replays=3)
+    with torch.no_grad():
+        lp0 = params.blocks[0]
+        x = tlm._embed(params, long, cfg)
+        hn = tl.rmsnorm(x, lp0["ln1"], cfg.norm_eps)
+        q, k, v = tl._project_qkv(lp0["attn"], hn, hn, cfg)
+        pos = torch.arange(LM["long_prompt"], device=dev)
+        q, k = tl.rope(q, pos, cfg.rope_theta), tl.rope(k, pos, cfg.rope_theta)
+        q, k, v = q.float(), k.float(), v.float()
+        qg = q.reshape(1, LM["long_prompt"], cfg.n_kv_heads, -1, cfg.head_dim)
+        kw = dict(causal=True, window=0, kv_valid_len=None, softcap=0.0)
+        (flash_out, flash_s) = sync_s(lambda: tl._attention_flash(qg, k, v, **kw))
+        (simple_out, simple_s) = sync_s(lambda: tl._attention_simple(qg, k, v, q_offset=0,
+                                                                     **kw))
+    flash_err = compare(f"layer 0 attention, flash vs simple route ({LM['long_prompt']} "
+                        f"tokens, float32)", [flash_out], [simple_out], rtol=2e-4, atol=2e-5,
+                        why="tests/test_layers.py:38-41 gate")
+    report["flash"] = {"prompt": LM["long_prompt"], "prefill_first_ms": long_s[0] * 1e3,
+                       "prefill_warm_ms": statistics.median(long_s[1:]) * 1e3,
+                       "prefill_device_ms": long_dev,
+                       "layer0_flash_ms": flash_s * 1e3, "layer0_simple_ms": simple_s * 1e3,
+                       "flash_vs_simple": flash_err}
+    print(f"[phase 12] {smi}: {LM['long_prompt']}-token prefill (flash route, "
+          f"{cfg.n_layers} layers): {long_s[0] * 1e3:.2f} ms first, "
+          f"{statistics.median(long_s[1:]) * 1e3:.2f} ms warm, {long_dev:.2f} ms of device "
+          f"time (CUDA graph); layer 0 attention in float32: "
+          f"flash {flash_s * 1e3:.2f} ms, simple {simple_s * 1e3:.2f} ms")
+    del params, model, cache, c1, flash_out, simple_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print("[phase 12] " + json.dumps(report))
+    print(f"[phase 12] took {report['seconds']:.1f} s")
+    return report
 
 
 def main() -> int:
@@ -3097,6 +3379,9 @@ def main() -> int:
     # -- 11. the sharded fleet and the row-sharded fit (ROADMAP A5) ----------
     phase11(dev, fspec, compare, cuda_ms, ref9,
             dict(X=X0, y=y0, spec=spec, Xq=Xs[:MAIN["queries"]], fit_s=main_fit_s))
+
+    # -- 12. the LM half's dense serving path (ROADMAP A8) ------------------
+    phase12(dev, smi, compare)
 
     # -- results --------------------------------------------------------------
     kernels = []

@@ -1,7 +1,7 @@
 // Feature tiles of the kernel expansions, shared by phi_features.cu and
 // phi_gram.cu (the counterparts of repro/kernels/hermite_phi.py::phi_tile
 // and repro/kernels/rff_phi.py::rff_tile), and the scaled-Gram epilogue
-// shared by phi_gram.cu and scaled_gram.cu.
+// and two-level row sum shared by phi_gram.cu and scaled_gram.cu.
 //
 // Hermite-Mercer (kind 0): for one input row, the p*n values
 //     tab[j*n + d] = psi_d(z_j) * exp(-delta2_j x_j^2),  z_j = rho_j beta_j x_j
@@ -79,6 +79,83 @@ __device__ __forceinline__ float rff_feature(const float* x, int xstride,
 __device__ __forceinline__ float scaled_entry(float g, float di, float dj,
                                               float sig2, bool unit) {
   return __fmaf_rn(g, __fdiv_rn(__fmul_rn(di, dj), sig2), unit ? 1.f : 0.f);
+}
+
+// The Gram's two-level row sum, the reference kernel's structure
+// (repro/kernels/phi_gram.py contracts a block_k = 256-row tile per grid
+// step and adds the tiles in order; the scaled Gram takes the same strips
+// so that it stays bitwise the fused fit's): each entry sums a strip of
+// kGramStrip rows in registers from 0.f, one fmaf a row, and the strips
+// join a running total in row order.  A block's 8 x 8 register tiles are
+// at rows i0 + (u / 4) * 16 + u % 4 and columns j0 + (v / 4) * 32 + v % 4
+// of its own output tile, and the total is kept there, in the output
+// itself: no other block touches that tile before the end (a mirror is
+// written only below the diagonal), so it needs no scratch and no
+// atomics.  A fold is 64 loads and 64 stores a thread (64 KB a block each
+// way), and across the grid it costs too much to fold every 256 rows: the
+// strips are 1,024 rows, four of the reference's tiles, 9 folds at
+// N = 10^4 where 256-row strips take 39 (benchmarks/
+// torch_phi_gram_ablation.py times the fused fit at 256 and 512 rows
+// beside this one; PERF.md row 1).  A float32 chain is then 1,024 FMAs
+// and ~N/1,024 adds long instead of N.
+constexpr int kGramStrip = 1024;
+
+// The fold's operands pass through an empty asm statement, so the
+// compiler cannot compute its 64 addresses and bounds once, outside the
+// row loop: held there across the FMAs they would push the 8 x 8 tile
+// (the kernels run at their 128-register cap) into local memory.
+__device__ __forceinline__ void opaque(float*& out, int& M, int& i0, int& j0) {
+  unsigned long long p = reinterpret_cast<unsigned long long>(out);
+  asm volatile("" : "+l"(p), "+r"(M), "+r"(i0), "+r"(j0));
+  out = reinterpret_cast<float*>(p);
+}
+
+// A strip's sums into the running total (the first strip is the total),
+// then zeroed for the next strip; entries past M only zeroed.  Two rows'
+// 16 loads go out together ahead of their stores (a load cannot pass an
+// earlier store the compiler cannot tell apart from it).
+__device__ __forceinline__ void fold_strip(float (&acc)[8][8], float* out,
+                                           int M, int i0, int j0, bool first) {
+  opaque(out, M, i0, j0);
+#pragma unroll
+  for (int u0 = 0; u0 < 8; u0 += 2) {
+    float held[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gi = i0 + ((u0 + h) / 4) * 16 + (u0 + h) % 4;
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const int gj = j0 + (v / 4) * 32 + v % 4;
+        held[h][v] = (first || gi >= M || gj >= M) ? 0.f : out[(size_t)gi * M + gj];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int u = u0 + h;
+      const int gi = i0 + (u / 4) * 16 + u % 4;
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const int gj = j0 + (v / 4) * 32 + v % 4;
+        if (gi < M && gj < M)
+          out[(size_t)gi * M + gj] = first ? acc[u][v] : __fadd_rn(held[h][v], acc[u][v]);
+        acc[u][v] = 0.f;
+      }
+    }
+  }
+}
+
+// The last strip joins the total: acc becomes the whole sum.
+__device__ __forceinline__ void join_strips(float (&acc)[8][8], const float* out,
+                                            int M, int i0, int j0) {
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int gi = i0 + (u / 4) * 16 + u % 4;
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      const int gj = j0 + (v / 4) * 32 + v % 4;
+      if (gi < M && gj < M) acc[u][v] = __fadd_rn(out[(size_t)gi * M + gj], acc[u][v]);
+    }
+  }
 }
 
 // Dynamic shared memory above the default 48 KB must be opted into.

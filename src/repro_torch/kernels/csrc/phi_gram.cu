@@ -24,9 +24,13 @@
 // once, write B once).  For a bank (B slots of N rows, M = 625 at the
 // fleet's shape) it is B*N*M*(M+1) flops (2.0e12 at B = 512, N = 10^4), so
 // the same rate bounds it.  TF32 tensor cores would be faster but break
-// the fit's parity gates, and every entry is summed in row order by one
-// thread, one fmaf per row, so the Gram is bitwise that of the scaled-Gram
-// kernel on the stored features (scaled_gram.cu) and exactly symmetric.
+// the fit's parity gates.  Every entry is summed by one thread in the
+// reference kernel's two levels: strips of 1,024 rows (four of its
+// block_k = 256 tiles), one fmaf per row in row order, the strips added in
+// row order (repro::fold_strip in expansion.cuh, which says why 1,024), so
+// a float32 chain is 1,024 FMAs and ~N/1,024 adds long, not N; the Gram is
+// bitwise that of the scaled-Gram kernel on the stored features
+// (scaled_gram.cu) and exactly symmetric.
 //
 // Four costs of regenerating Phi per tile, and what this design does:
 //  * Feature work per FMA: a block owns a 128 x 128 tile of the upper
@@ -49,15 +53,20 @@
 //    by the threads that build the diagonal block's columns, each column
 //    once, in row order, while they build, not after the FMAs.
 // One block loops over all N rows (the TPU's sequential grid axis), so no
-// sum crosses blocks: no atomics, no second pass.  The slot is the grid's
+// sum crosses blocks: no atomics, no second pass.  Between strips a
+// thread's running totals wait in its block's own output tile (a second
+// 8 x 8 register tile would take 64 more registers and halve the blocks
+// an SM holds), and b's in b itself.  The slot is the grid's
 // y axis; both kernels share one body.  Rows past N are built from x = 0
 // and masked, columns past M are built and never stored.
 //
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 59.4-59.5
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 62.4-62.9
 // ms at N = 10^4, M = 14,641 (bound 32.0 ms; Phi^T Phi on a stored Phi,
-// 81 ms); the bank 67.2 ms at 512 slots x 10^4 rows, M = 625 (bound 30.0
-// ms; bmm 78 ms).  Alone, the FMA core reaches 70% of the FP32 rate and
-// the feature build adds ~12 ms (benchmarks/torch_phi_gram_ablation.py).
+// 81 ms); the bank 71.9 ms at 512 slots x 10^4 rows, M = 625 (bound 30.0
+// ms; bmm 78 ms); 128 registers, the bank entry spilling 8 bytes.  The
+// two-level sum costs 5-6% (one-chain sums: 59.4-59.5 and 67.2 ms).
+// Before it, the FMA core alone reached 70% of the FP32 rate and the
+// feature build added ~12 ms (benchmarks/torch_phi_gram_ablation.py).
 #include <math.h>
 
 #include "expansion.cuh"
@@ -72,6 +81,8 @@ constexpr int kPitch = kK + 1;   // row table: value v of row r at v * kPitch + 
 constexpr int kMaxP = 8;         // widest input with an unrolled producer
 constexpr int kSide = kK * kT;   // floats of one (32, 128) feature tile
 constexpr int kMinBlocks = 2;    // resident blocks per SM the kernel is built for
+constexpr int kStripSteps = repro::kGramStrip / kK;  // steps a strip
+static_assert(repro::kGramStrip % kK == 0, "a strip is whole steps");
 
 // Shared memory in floats: the feature ring [stage][side][kK][kT], mask*y
 // and mask [stage][2][kK], the column info [side][col_words][kT] (pitch-
@@ -250,7 +261,7 @@ phi_gram_body(const float* __restrict__ X, const float* __restrict__ y,
   for (int u = 0; u < 8; ++u)
 #pragma unroll
     for (int v = 0; v < 8; ++v) acc[u][v] = 0.f;
-  float bacc = 0.f;
+  float bacc = 0.f;  // b's strip; its running total waits in b[col]
 
   const int steps = (N + kK - 1) / kK;
   auto tab_of = [&](int s) { return sh + L.tab + s * L.row_words * kPitch; };
@@ -267,6 +278,10 @@ phi_gram_body(const float* __restrict__ X, const float* __restrict__ y,
     if (diag) {
 #pragma unroll 8
       for (int r = 0; r < kK; ++r) bacc = fmaf(ym[r], dst[r * kT], bacc);
+      if ((s + 1) % kStripSteps == 0 && s + 1 < steps) {
+        if (col < M) b[col] = (s + 1 == kStripSteps) ? bacc : __fadd_rn(b[col], bacc);
+        bacc = 0.f;
+      }
     }
   };
 
@@ -297,9 +312,13 @@ phi_gram_body(const float* __restrict__ X, const float* __restrict__ y,
 #pragma unroll
           for (int v = 0; v < 8; ++v) acc[u][v] = fmaf(av[u], cv[v], acc[u][v]);
       }
+      if ((k + 1) % kStripSteps == 0 && k + 1 < steps)
+        repro::fold_strip(acc, out, M, bi * kT + r0, bj * kT + q0,
+                          k + 1 == kStripSteps);
     }
     __syncthreads();  // step k consumed; step k + 1's features built
   }
+  if (steps > kStripSteps) repro::join_strips(acc, out, M, bi * kT + r0, bj * kT + q0);
 
 #pragma unroll
   for (int u = 0; u < 8; ++u) {
@@ -315,7 +334,8 @@ phi_gram_body(const float* __restrict__ X, const float* __restrict__ y,
       if (!diag) out[(size_t)gj * M + gi] = val;
     }
   }
-  if (diag && side == 0 && col < M) b[col] = bacc;
+  if (diag && side == 0 && col < M)
+    b[col] = (steps > kStripSteps) ? __fadd_rn(b[col], bacc) : bacc;
 }
 
 // The two kernels: one body, the bank's slot offsets compiled in or out.
@@ -389,15 +409,17 @@ int launch(const float* X, const float* y, const float* mask, int nbank, int N,
 }  // namespace
 
 // out = {tile edge, rows per step, stages, steps, tile rows, blocks per
-// slot, blocks, shared bytes per block, resident blocks per SM}.
+// slot, blocks, shared bytes per block, resident blocks per SM, rows a
+// strip}.
 extern "C" int repro_phi_gram_plan(int N, int M, int nbank, int kind, int p, int n,
                                    long long* out) {
   GramPlan P;
   const cudaError_t err = gram_plan(N, M, nbank, kind, p, n, &P);
   if (err != cudaSuccess) return (int)err;
-  const long long vals[9] = {kT, kK, kStages, (N + kK - 1) / kK, P.tiles,
-                             P.blocks_per_slot, P.blocks, P.smem, P.resident};
-  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  const long long vals[10] = {kT, kK, kStages, (N + kK - 1) / kK, P.tiles,
+                              P.blocks_per_slot, P.blocks, P.smem, P.resident,
+                              repro::kGramStrip};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
   return 0;
 }
 

@@ -25,9 +25,11 @@
 //    4 x 8 threads, so each float4 shared load of a row meets 4 or 8
 //    distinct addresses), and loops over all N rows itself: no sum crosses
 //    blocks.  The tile and its mirror are stored, so B is exactly
-//    symmetric; every entry is summed in row order, one fmaf per row from
-//    0.f, and scaled by repro::scaled_entry, as in the fused fit, so on
-//    the same features B is bitwise the fused fit's.
+//    symmetric; every entry is summed as the fused fit sums it, in strips
+//    of 1,024 rows, one fmaf per row from 0.f, the strips added in row
+//    order through the block's own output tile (repro::fold_strip), and scaled
+//    by repro::scaled_entry, so on the same features B is bitwise the
+//    fused fit's.
 //  * The two (32, 128) slices of a step come through a three-stage ring
 //    in shared memory (96 KB, 2 blocks per SM): step k + 2's slices are
 //    loaded while step k's FMAs run, one barrier a step.  A diagonal block
@@ -47,13 +49,13 @@
 //    3.35 TB/s, well under the FMA time.  Ragged edges are masked, so Phi
 //    is never padded or copied.
 //
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 50.4-50.5
-// ms at N = 10^4, M = 14,641 float32 (bound 32.0 ms; the former 64 x 64
-// design 67.4-69.9 ms; Phi^T Phi 81 ms), bfloat16 50.1-50.5 ms; 128
-// registers, no spill.  Its FMA core alone takes 40.9 ms and an
-// L2-resident slice is no faster than Phi from HBM
-// (benchmarks/torch_phi_gram_ablation.py): the loads' instructions and
-// waits, not HBM, take the rest.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 54.2-54.3
+// ms at N = 10^4, M = 14,641 float32 with the two-level sum (50.4-50.5
+// with one chain; bound 32.0 ms; the former 64 x 64 design 67.4-69.9 ms;
+// Phi^T Phi 81 ms); 128 registers, no spill.  With one chain its FMA core
+// alone took 40.9 ms and an L2-resident slice was no faster than Phi from
+// HBM (benchmarks/torch_phi_gram_ablation.py): the loads' instructions
+// and waits, not HBM, took the rest.
 #include "expansion.cuh"
 
 namespace {
@@ -66,6 +68,8 @@ constexpr int kStages = 3;                         // ring of (32, 128) slice pa
 constexpr int kQuarter = kK / 4;                   // FMA rows between two load batches
 constexpr int kPerQuarter = kK * kT / kThreads / 4;  // a thread's loads of a side a quarter
 constexpr size_t kSmem = sizeof(float) * kStages * 2 * kSide;
+constexpr int kStripSteps = repro::kGramStrip / kK;  // steps a strip
+static_assert(repro::kGramStrip % kK == 0, "a strip is whole steps");
 
 // float32 as is; bfloat16 (raw 16 bits, the top half of a float32)
 // widened exactly
@@ -185,7 +189,10 @@ scaled_gram_kernel(const T* __restrict__ Phi, int N, int M,
       }
       if (s < steps) ld.deposit(q, dst, held);
     }
+    if ((k + 1) % kStripSteps == 0 && k + 1 < steps)
+      repro::fold_strip(acc, out, M, bi * kT + r0, bj * kT + q0, k + 1 == kStripSteps);
   }
+  if (steps > kStripSteps) repro::join_strips(acc, out, M, bi * kT + r0, bj * kT + q0);
   // the tile and, off the diagonal, its mirror; columns past M dropped
 #pragma unroll
   for (int u = 0; u < 8; ++u) {
@@ -232,16 +239,17 @@ int launch(const T* Phi, int N, int M, const float* d, float sig2, float* out,
 }  // namespace
 
 // out = {tile edge, rows per step, stages, steps, blocks, shared bytes per
-// block, resident blocks per SM} for Phi (N, M), bfloat16 if bf16 != 0.
+// block, resident blocks per SM, rows a strip} for Phi (N, M), bfloat16 if
+// bf16 != 0.
 extern "C" int repro_scaled_gram_plan(int N, int M, int bf16, long long* out) {
   long long blocks;
   int resident;
   const cudaError_t err = bf16 ? plan<unsigned short>(N, M, &blocks, &resident)
                                : plan<float>(N, M, &blocks, &resident);
   if (err != cudaSuccess) return (int)err;
-  const long long vals[7] = {kT, kK, kStages, (N + kK - 1) / kK, blocks,
-                             (long long)kSmem, resident};
-  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  const long long vals[8] = {kT, kK, kStages, (N + kK - 1) / kK, blocks,
+                             (long long)kSmem, resident, repro::kGramStrip};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
   return 0;
 }
 

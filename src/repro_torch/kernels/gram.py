@@ -14,10 +14,11 @@ diagonal.  The 32-row slices of Phi come through a three-stage
 shared-memory ring, loaded a quarter step at a time into registers between
 the FMA rows (Phi's odd row pitch rules out 16-byte copies), so loads
 overlap the FMAs, one barrier a step.  Ragged edges are masked, so Phi is
-never padded.  Every entry is summed in row order, one fmaf per row: on the
+never padded.  Every entry is summed as the fused fit sums it, in strips
+of 1,024 rows (one fmaf per row, in row order) added in row order: on the
 same features B is bitwise the fused fit's.  On an NVIDIA H100 80GB HBM3 at
-700 W it takes 50.4-50.5 ms at N = 10^4, M = 14,641 (``Phi^T Phi``: 81
-ms).  :func:`scaled_gram_plan` reports the launch.  Its plain version,
+700 W it takes 54.2-54.3 ms at N = 10^4, M = 14,641 (``Phi^T Phi``: 81
+ms; with one-chain sums it took 50.4-50.5).  :func:`scaled_gram_plan` reports the launch.  Its plain version,
 :func:`scaled_gram_plain`, is what a CPU tensor runs.
 """
 from __future__ import annotations
@@ -32,7 +33,7 @@ __all__ = ["scaled_gram_plain", "scaled_gram_cuda", "scaled_gram_plan", "COUNTER
 
 COUNTER = _build.LaunchCounter("scaled_gram")
 _PLAN_KEYS = ("tile", "rows_per_step", "stages", "steps", "blocks", "smem_bytes",
-              "resident_blocks_per_sm")
+              "resident_blocks_per_sm", "strip_rows")
 
 
 def scaled_gram_plain(Phi: torch.Tensor, d: torch.Tensor, sig2) -> torch.Tensor:
@@ -48,8 +49,9 @@ def scaled_gram_plain(Phi: torch.Tensor, d: torch.Tensor, sig2) -> torch.Tensor:
 
 def scaled_gram_plan(N: int, M: int, bf16: bool = False, device=None) -> dict:
     """The kernel's launch for Phi (N, M), float32 or bfloat16: tile edge,
-    rows per step, ring stages, steps, blocks, shared bytes per block and
-    the resident blocks per SM the card gives it."""
+    rows per step, ring stages, steps, blocks, shared bytes per block, the
+    resident blocks per SM the card gives it and the rows a strip sums
+    before it joins the running total."""
     lib = _build.library("scaled_gram")
     fn = lib.repro_scaled_gram_plan
     fn.restype = ctypes.c_int

@@ -13,13 +13,16 @@ blocks), 8 x 8 register tiles a thread, so a feature built feeds 64 FMAs.
 The feature tiles are rebuilt from X in shared memory through a two-stage
 ring: the next 32 rows' features are built while this step's FMAs run,
 one barrier a step, each Hermite feature p shared loads at offsets staged
-once per block.  Every entry is summed in row order, one fmaf per row, so
-B is exactly symmetric and bitwise the scaled Gram of the stored features
+once per block.  Every entry is summed in the reference kernel's two
+levels, in strips of 1,024 rows (four of its ``block_k`` tiles; one fmaf
+per row, in row order) added in row order, the running totals waiting in
+the block's own output tile between strips, so B is exactly symmetric
+and bitwise the scaled
+Gram of the stored features
 (``csrc/scaled_gram.cu``).  On an NVIDIA H100 80GB HBM3 at 700 W it takes
-59.4-59.5 ms at N = 10^4, M = 14,641 (``Phi^T Phi`` on a stored Phi: 81
-ms), the bank 67.2 ms at 512 slots of 10^4 rows, M = 625 (``bmm``: 78 ms);
-the FMA core alone runs at 70% of the FP32 rate, the feature build adds
-~12 ms.  :func:`phi_gram_plan` reports the launch.  Its
+62.4-62.9 ms at N = 10^4, M = 14,641 (``Phi^T Phi`` on a stored Phi: 81
+ms), the bank 71.9 ms at 512 slots of 10^4 rows, M = 625 (``bmm``: 78 ms),
+5-6% above the one-chain sums it replaced.  :func:`phi_gram_plan` reports the launch.  Its
 plain version, :func:`phi_gram_plain`, materializes one row block of Phi at
 a time; it is what a CPU tensor runs.  The bank's plain version,
 :func:`bank_phi_gram_plain`, runs it slot by slot, so it never forms a
@@ -47,7 +50,8 @@ COUNTER = _build.LaunchCounter("phi_gram")
 PLAIN_BLOCK = 4096
 MAX_BANK = 65535  # slots are the grid's y axis
 _PLAN_KEYS = ("tile", "rows_per_step", "stages", "steps", "tile_rows",
-              "blocks_per_slot", "blocks", "smem_bytes", "resident_blocks_per_sm")
+              "blocks_per_slot", "blocks", "smem_bytes", "resident_blocks_per_sm",
+              "strip_rows")
 
 
 def phi_gram_plain(X, y, mask, tile: TileArgs, d, sig2, scale: bool,
@@ -73,8 +77,9 @@ def phi_gram_plan(N: int, M: int, nbank: int = 1, kind: str = "hermite",
     """The kernel's launch for N rows of a bank of ``nbank`` slots (1: the
     one-model kernel) at M features of a ``kind`` tile with p inputs and
     recurrence depth n: the tile edge, rows per step, ring stages, steps,
-    tile rows, blocks per slot and in all, shared bytes per block and the
-    resident blocks per SM the card gives it."""
+    tile rows, blocks per slot and in all, shared bytes per block, the
+    resident blocks per SM the card gives it and the rows a strip sums
+    before it joins the running total."""
     dev = torch.device("cuda" if device is None else device)
     lib = _build.library("phi_gram")
     fn = lib.repro_phi_gram_plan

@@ -1,0 +1,202 @@
+"""Decoder-only LM assembly, dense family: the port of the dense parts of
+``repro/models/lm.py`` (``_dtype``, the "dense" block's init and apply,
+``init_params``, ``forward``, ``_unembed``, ``init_cache``,
+``_dense_block_decode``, ``decode_step`` and ``prefill``).
+
+The model is an ``nn.Module`` (:class:`LM`) holding a ``ModuleList`` of
+:class:`DenseBlock`; every parameter keeps the reference's leaf name
+(``tok_emb``, ``final_norm``, ``lm_head``, ``blocks.<l>.ln1``,
+``blocks.<l>.attn.wq`` ...) and its ``(d_in, d_out)`` orientation, and a
+block reads like the reference's parameter dict (``lp["attn"]["wq"]``).
+The reference stacks the blocks (L, ...) and scans over them; here a loop
+over the list does the same, and the cache is ``{"k", "v"}`` of shape
+(L, B, S, K, Dh) as there.
+
+``prefill`` fuses the reference's two passes (``forward`` for the logits,
+then a second pass over the blocks for the cache): the second pass
+recomputes the first's keys and values from the same inputs with the same
+operations, so one pass that keeps them gives the same logits and cache.
+``decode_step`` writes the cache in place (the reference donates it).
+
+MoE, MLA, SSM/hybrid, audio and VLM families, ``loss_fn`` and
+``xent_chunked`` come with A8's later parts (``repro_torch.models``
+refuses them).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from . import layers
+from .config import ModelConfig
+
+__all__ = ["LM", "DenseBlock", "init_params", "forward", "prefill", "decode_step",
+           "init_cache"]
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in tensors.items()})
+
+
+class DenseBlock(nn.Module):
+    """One "dense" block: ln1, attn, ln2, mlp under the reference's names;
+    ``block["attn"]`` reads like the reference's parameter dict."""
+
+    def __init__(self, ln1, attn: dict, ln2, mlp: dict):
+        super().__init__()
+        self.ln1 = nn.Parameter(ln1, requires_grad=False)
+        self.attn = _pdict(attn)
+        self.ln2 = nn.Parameter(ln2, requires_grad=False)
+        self.mlp = _pdict(mlp)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+class LM(nn.Module):
+    """Token embedding, a list of dense blocks, the final norm and (untied)
+    the LM head; parameters under the reference's leaf names."""
+
+    def __init__(self, cfg: ModelConfig, tok_emb, final_norm, blocks, lm_head=None):
+        super().__init__()
+        self.cfg = cfg
+        self.tok_emb = nn.Parameter(tok_emb, requires_grad=False)
+        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
+        if lm_head is not None:
+            self.lm_head = nn.Parameter(lm_head, requires_grad=False)
+        self.blocks = nn.ModuleList(blocks)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_emb.device
+
+
+def _block_init(gen: torch.Generator, cfg: ModelConfig) -> DenseBlock:
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    return DenseBlock(
+        layers.norm_init(d, device=gen.device), layers.attn_init(gen, cfg, dt),
+        layers.norm_init(d, device=gen.device),
+        layers.mlp_init(gen, d, cfg.d_ff, dt, gated=cfg.mlp_gated))
+
+
+def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
+                device: Optional[Union[str, torch.device]] = None) -> LM:
+    """Random weights with the reference's distributions: ``tok_emb`` (and
+    an untied ``lm_head``) N(0, 1) * 0.02 drawn in float32 then cast,
+    projections N(0, 1) / sqrt(d_in) (``wo`` / sqrt(H Dh), ``wd`` and ``w2``
+    / sqrt(f)), biases 0, norms 1.  ``gen`` is a ``torch.Generator`` (its
+    device is the model's) or a seed for one on ``device`` (default the
+    card; ``"cpu"`` for the tests).  The numbers are
+    not the reference's (``jax.random`` draws others); the tests hand both
+    packages the same weights through :func:`repro_torch.models.convert`."""
+    if cfg.family != "dense":
+        raise ValueError(f"lm.init_params builds the dense family, not {cfg.family!r}")
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(int(gen))
+    dt = _dtype(cfg)
+
+    def emb():
+        w = torch.randn((cfg.vocab, cfg.d_model), generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return (w * 0.02).to(dt)
+
+    tok_emb = emb()
+    lm_head = None if cfg.tie_embeddings else emb()
+    blocks = [_block_init(gen, cfg) for _ in range(cfg.n_layers)]
+    return LM(cfg, tok_emb, layers.norm_init(cfg.d_model, device=gen.device), blocks,
+              lm_head)
+
+
+# ---------------------------------------------------------------------------
+# Forward, prefill, decode
+# ---------------------------------------------------------------------------
+
+
+def _block_apply(lp, x, cfg: ModelConfig, kv_out=None):
+    """Full-sequence dense block; ``kv_out`` (k, v) cache slices of this
+    layer, if given, receive the block's keys and values."""
+    a, (k, v) = layers.attn_apply(lp["attn"], layers.rmsnorm(x, lp["ln1"], cfg.norm_eps),
+                                  cfg, return_kv=True)
+    if kv_out is not None:
+        S = k.shape[1]
+        kv_out[0][:, :S] = k.to(kv_out[0].dtype)
+        kv_out[1][:, :S] = v.to(kv_out[1].dtype)
+    x = x + a
+    h = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + layers.mlp_apply(lp["mlp"], h, cfg.act)
+
+
+def _embed(params: LM, tokens, cfg: ModelConfig):
+    return params.tok_emb[tokens.to(params.device)].to(_dtype(cfg))
+
+
+def forward(params: LM, batch, cfg: ModelConfig, *, cache=None):
+    """Token inputs -> final hidden states (B, S, d), aux loss (0 for the
+    dense family).  ``cache`` (from :func:`init_cache`), if given, receives
+    every layer's keys and values at positions [0, S)."""
+    x = _embed(params, batch["tokens"], cfg)
+    for l, lp in enumerate(params.blocks):
+        kv = None if cache is None else (cache["k"][l], cache["v"][l])
+        x = _block_apply(lp, x, cfg, kv)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return layers.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
+
+
+def _unembed(params: LM, cfg: ModelConfig):
+    return params.tok_emb if cfg.tie_embeddings else params.lm_head
+
+
+def _logits(params: LM, h, cfg: ModelConfig):
+    # in the model dtype, then cast: the reference's product is not f32
+    return (h @ _unembed(params, cfg).T).to(torch.float32)
+
+
+def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> dict:
+    """Zeroed cache for a context capacity of S tokens, on ``device``
+    (default the card)."""
+    if cfg.family != "dense":
+        raise ValueError(f"lm.init_cache builds the dense family's, not {cfg.family!r}")
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
+
+
+def _dense_block_decode(p, x, cfg: ModelConfig, ck, cv, pos: int):
+    a, ck, cv = layers.attn_decode(p["attn"], layers.rmsnorm(x, p["ln1"], cfg.norm_eps),
+                                   cfg, ck, cv, pos)
+    x = x + a
+    x = x + layers.mlp_apply(p["mlp"], layers.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    return x, ck, cv
+
+
+def decode_step(params: LM, batch, cache, cfg: ModelConfig):
+    """One serve step: batch {'token': (B, 1) integer, 'pos': int}.  Writes
+    the cache at ``pos`` in place and returns (logits (B, vocab) float32,
+    cache)."""
+    pos = int(batch["pos"])
+    x = _embed(params, batch["token"], cfg)
+    for l, lp in enumerate(params.blocks):
+        x, _, _ = _dense_block_decode(lp, x, cfg, cache["k"][l], cache["v"][l], pos)
+    h = layers.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return _logits(params, h[:, 0, :], cfg), cache
+
+
+def prefill(params: LM, batch, cfg: ModelConfig, cache_len: Optional[int] = None):
+    """Forward over the prompt, building the decode cache (capacity
+    ``cache_len``, default the prompt's length; positions past the prompt
+    stay 0).  Returns (last-token logits (B, vocab) float32, cache)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, cache_len or S, device=params.device)
+    h, _ = forward(params, batch, cfg, cache=cache)
+    return _logits(params, h[:, -1, :], cfg), cache

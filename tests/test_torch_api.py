@@ -5,7 +5,10 @@ the signatures of ``GP.optimize`` and the lane engine, the names
 each naming its current ROADMAP.md item."""
 import ast
 import inspect
+import os
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -31,6 +34,9 @@ from repro_torch.core.approximation import UnsupportedError  # noqa: E402
 from repro_torch.core.gp import GP  # noqa: E402
 from repro_torch.launch import mesh as t_mesh  # noqa: E402
 from repro_torch.launch import serve_gp as t_serve  # noqa: E402
+from repro_torch.launch import steps as t_steps  # noqa: E402
+from repro_torch import configs as t_configs  # noqa: E402
+from repro_torch import models as t_models  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer, serving_watchdog  # noqa: E402
 from repro_torch.optim import gp_hyperopt as tgh  # noqa: E402
 
@@ -190,8 +196,22 @@ def _fleet(**option):
 
 
 # (refusal, ROADMAP item, a word of that item's heading)
+def _lm_model(arch):
+    return t_models.get_model(t_configs.ARCHS[arch].SMOKE)
+
+
 REFUSALS = {
     "make_production_mesh": (lambda tp: t_mesh.make_production_mesh(), "A8", "LM"),
+    # the LM half past its dense serving path
+    "get_model(moe)": (lambda tp: _lm_model("olmoe-1b-7b"), "A8", "LM"),
+    "get_model(mla)": (lambda tp: _lm_model("deepseek-v3-671b"), "A8", "LM"),
+    "get_model(ssm)": (lambda tp: _lm_model("mamba2-130m"), "A8", "LM"),
+    "get_model(hybrid)": (lambda tp: _lm_model("zamba2-7b"), "A8", "LM"),
+    "get_model(audio)": (lambda tp: _lm_model("whisper-small"), "A8", "LM"),
+    "get_model(vlm)": (lambda tp: _lm_model("llama-3.2-vision-11b"), "A8", "LM"),
+    "loss_fn": (lambda tp: _lm_model("qwen2-1.5b").loss_fn(None, None), "A8", "LM"),
+    "make_train_step": (lambda tp: t_steps.make_train_step(_lm_model("qwen2-1.5b")),
+                        "A8", "LM"),
     "lower_fit": (lambda tp: t_dist.lower_fit(None, t_mesh.make_local_mesh(devices=["cpu"])),
                   "A8", "LM"),
     "lower_predict": (lambda tp: t_dist.lower_predict(
@@ -351,3 +371,43 @@ def test_bank_mesh_wants_as_many_cards_as_shards():
     with pytest.raises(ValueError, match=rf"wants {n + 1} devices"):
         t_serve.serve_fleet(shards=n + 1, device="cuda", tenants=2, n_train=8, p=2, n=4,
                             rounds=1, queries_per_round=4, observations_per_round=2)
+
+
+# ---------------------------------------------------------------------------
+# import hygiene: the port and chip_smoke.py import nothing of JAX or of the
+# JAX package
+# ---------------------------------------------------------------------------
+
+PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)\b(?!_))", re.M)
+
+
+def test_port_imports_without_jax():
+    """Every module of repro_torch imports in a process where ``jax`` cannot
+    be imported at all."""
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert not [k for k, m in sys.modules.items()\n"
+        "            if m is not None and (k == 'repro' or k.startswith(('repro.', 'jax')))]\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(PORT.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 60     # every module was walked
+
+
+def test_port_sources_name_no_jax_import():
+    files = sorted(PORT.rglob("*.py")) + [PORT.parents[1] / "chip_smoke.py"]
+    hits = [f"{f.relative_to(PORT.parents[1])}:{m.group(0).strip()}" for f in files
+            for m in FORBIDDEN.finditer(f.read_text())]
+    assert hits == []
+    # the pattern has teeth
+    assert FORBIDDEN.search("from repro.models import lm") and FORBIDDEN.search("import jax")
+    assert not FORBIDDEN.search("from repro_torch.models import lm")

@@ -174,7 +174,8 @@ def test_cuda_scaled_gram_plan(cuda_device):
         # three stages of two (32, 128) float32 slices; 115 tile rows
         assert {k: v for k, v in plan.items() if k != "resident_blocks_per_sm"} == {
             "tile": 128, "rows_per_step": 32, "stages": 3, "steps": 313,
-            "blocks": 115 * 116 // 2, "smem_bytes": 4 * 3 * 2 * 32 * 128}
+            "blocks": 115 * 116 // 2, "smem_bytes": 4 * 3 * 2 * 32 * 128,
+            "strip_rows": 1024}
         assert plan["resident_blocks_per_sm"] >= 1
     with pytest.raises(RuntimeError, match="scaled_gram"):
         tgram.scaled_gram_plan(10, 0, False, cuda_device)

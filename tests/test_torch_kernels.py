@@ -315,17 +315,17 @@ def test_kernel_sources_present():
 
 def test_ablation_variants_edit_the_current_sources():
     """benchmarks/torch_phi_gram_ablation.py builds its variants by
-    replacing statements of the kernel sources: each statement it replaces
-    is still there."""
+    replacing statements of the kernel sources or of their copy of
+    expansion.cuh: each statement it replaces is still in one of them."""
     path = Path(__file__).resolve().parents[1] / "benchmarks" / "torch_phi_gram_ablation.py"
     spec = importlib.util.spec_from_file_location("torch_phi_gram_ablation", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     for name, (source, edits) in mod.VARIANTS.items():
         assert source in _build.SOURCES, name
-        text = (_build.CSRC / f"{source}.cu").read_text()
+        texts = [(_build.CSRC / f).read_text() for f in (f"{source}.cu", "expansion.cuh")]
         for old, _ in edits:
-            assert old in text, (name, source, old)
+            assert any(old in text for text in texts), (name, source, old)
 
 
 # ---------------------------------------------------------------------------
@@ -371,9 +371,10 @@ def _on(tile, device):
 # sides of its 128-column tile edge, for p = 9 (past the producers unrolled
 # for p <= 8), for an RFF tile, and at the paths' shapes of the features
 # kernel (N x M, p = 4: a phase-3 microbatch and update, a fleet microbatch
-# and ingest round, phase 6's stored Phi, the RFF path's microbatch): every
-# entry is summed in row order by one thread, one fmaf per row, from
-# bitwise the features of the features kernel, so B (scale=True) and the
+# and ingest round, phase 6's stored Phi, the RFF path's microbatch): both
+# kernels sum every entry in the same 1,024-row strips, one fmaf per row
+# from 0, and add the strips in row order, from bitwise the features of
+# the features kernel, so B (scale=True) and the
 # masked G (scale=False; the scaled Gram with d = 1, sigma^2 = 1 is G + I)
 # are equal
 PATH_SHAPES = {"128x14641": ("hermite", 128, 11), "64x14641": ("hermite", 64, 11),
@@ -419,7 +420,7 @@ def test_cuda_phi_gram_plan(cuda_device):
     assert one == {"tile": 128, "rows_per_step": 32, "stages": 2, "steps": 33,
                    "tile_rows": 3, "blocks_per_slot": 6, "blocks": 6,
                    "smem_bytes": 4 * (16384 + 128 + 2 * 3 * 128 + 2 * 21 * 33),
-                   "resident_blocks_per_sm": 2}
+                   "resident_blocks_per_sm": 2, "strip_rows": 1024}
     bank = tgram.phi_gram_plan(10_000, 625, 512, "hermite", 4, 5, cuda_device)
     assert (bank["tile_rows"], bank["blocks_per_slot"], bank["blocks"], bank["steps"]) \
         == (5, 15, 7680, 313)

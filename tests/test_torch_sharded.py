@@ -457,3 +457,37 @@ def test_mesh_takes_cards_or_the_devices_given():
             tmesh.make_bank_mesh(2)
     with pytest.raises(UnsupportedError, match=r"ROADMAP A8"):
         tmesh.make_production_mesh()
+
+
+# ---------------------------------------------------------------------------
+# the fleet's width on the card (ROADMAP.md section C, C9)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_2d_fit_matches_resident_at_fleet_width():
+    """8 tenants of the fleet (N = 10^4 rows, p = 4, n = 5: M = 625) fitted
+    resident and over a (bank 4, data 2) mesh of one card: the data split
+    sums each tenant's rows in two halves, the resident fit in one, both in
+    the fused fit's 1,024-row strips; the means and variances on 1,024 mixed
+    queries agree at tests/test_shard_bank.py:134-136's 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (repro_torch's CUDA kernels)")
+    from repro_torch.core.gp import GPSpec
+    from repro_torch.launch.serve_gp import fleet_dataset
+
+    dev = torch.device("cuda")
+    tenants, N, p, n = 8, 10_000, 4, 5
+    _, Xb, yb, _ = fleet_dataset(np.random.default_rng(0), tenants=tenants, n_train=N, p=p,
+                                 rounds=1, observations_per_round=8, noise=0.05, seed=0)
+    spec = GPSpec.create(n, eps=np.full((p,), 0.8, np.float32), rho=2.0, noise=0.05,
+                         backend="pallas", device=dev)
+    Xc, yc = torch.from_numpy(Xb).to(dev), torch.from_numpy(yb).to(dev)
+    rng = np.random.default_rng(1)
+    Xq = torch.from_numpy(uniform(rng, (1024, p))).to(dev)
+    ten = [int(t) for t in rng.integers(0, tenants, 1024)]
+    resident = GPBank.fit(Xc, yc, spec).mean_var(ten, Xq)
+    mesh = tmesh.make_bank_mesh(4, 2, devices=[dev] * 8)
+    split = ShardedGPBank.fit(Xc, yc, spec, mesh).mean_var(ten, Xq)
+    for got, want in zip(split, resident):
+        assert float((got - want).abs().max()) <= 1e-4
