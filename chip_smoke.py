@@ -176,7 +176,23 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    prompt through the flash route in every layer (counted), layer 0's
    flash attention against the simple route in float32 (2e-4 / 2e-5).
    No kernel of this repository runs there: the LM half reaches no
-   ``pallas_call``.
+   ``pallas_call``;
+13. the LM half's training path (ROADMAP A8; ``phase13()``) at qwen2-1.5b's
+   full width: (a) cut to 2 layers, 3 train steps at batch 2 x 128 on the
+   card and on the CPU from the same weights, each step's loss and grad
+   norm printed, every parameter after step 3 gated at twice the CPU's
+   own bfloat16-vs-float32 distance; (b) the 28 layers through
+   ``launch.train.build(smoke=False)`` and ``runtime.train_loop``, 20
+   steps at batch 4 x 1,024 (first step, warm median, tokens/s, peak bytes
+   above what earlier phases hold, beside the step's bound: its bfloat16
+   products at 989 TFLOP/s and its float32 attention products at 67
+   TFLOP/s), every loss and grad norm finite, the parameters moved; (c)
+   checkpoint and restart on (a)'s cut: 5 steps with an async write at
+   step 3 and a synchronous one at step 5, a fresh model restored from
+   step 5 and 5 more steps, against 10 straight (two straight runs give
+   the gate: bitwise equal, the reference test's 1e-6 / 1e-7; else their
+   spread), the step-3 checkpoint against a straight 3-step run.  No
+   kernel of this repository runs there (launch counts checked).
 
 Prints the features kernel's times by shape on a ``[features]`` line, one
 JSON line with every kernel's numbers (the features kernel's ``ms`` its
@@ -1725,6 +1741,246 @@ def phase12(dev, smi, compare) -> dict:
     report["seconds"] = time.perf_counter() - t_phase
     print("[phase 12] " + json.dumps(report))
     print(f"[phase 12] took {report['seconds']:.1f} s")
+    return report
+
+
+# phase 13, ROADMAP A8's training part: qwen2-1.5b at full width; (a) and
+# (c) cut to 2 layers (as phase 12(a)), (b) uncut at batch 4 x 1,024, the
+# schedule launch/train.py builds (warmup_cosine(lr, 20, 10_000))
+TRAIN = dict(cpu_layers=2, cpu_batch=2, cpu_seq=128, cpu_steps=3, batch=4, seq=1024,
+             steps=20, ckpt_steps=10, ckpt_at=5, ckpt_every=3, lr=3e-4, seed=0)
+
+
+def phase13(dev, smi, compare) -> dict:
+    """The LM half's training path on the card: (a) 3 train steps of the
+    2-layer cut on the card and on the CPU from the same weights (losses
+    and grad norms of both printed; gate on the parameters after step 3:
+    twice the CPU's own bfloat16-vs-float32 distance); (b) the 28-layer
+    model through ``launch.train.build(smoke=False)`` and ``train_loop``,
+    20 steps at batch 4 x 1,024, every loss and grad norm finite and the
+    parameters moved (first step, warm median, tokens/s, peak memory,
+    the bound); (c) checkpoint and restart on the 2-layer cut: 10 steps
+    straight (twice) against 5 steps with an async write at step 3 and a
+    synchronous one at step 5, a fresh model restored from step 5 and 5
+    more steps; the step-3 checkpoint against a straight 3-step run."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import convert, get_model
+    from repro_torch.models import lm as tlm
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+    from repro_torch import checkpoint as tckpt
+
+    t_phase = time.perf_counter()
+    cfg = ARCHS[LM["arch"]].CONFIG
+    check(cfg.n_layers == 28 and cfg.d_model == 1536 and cfg.vocab == 151936
+          and cfg.dtype == "bfloat16" and cfg.remat and cfg.logits_chunk == 1024,
+          "phase 13 trains qwen2-1.5b's full configuration")
+    report = {"card": smi}
+    ops.reset_launch_counts()
+    ocfg = optim.AdamWConfig(lr=optim.warmup_cosine(TRAIN["lr"], 20, 10_000))
+    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN["cpu_layers"])
+    m2 = get_model(cfg2)
+    stream2 = TokenStream(vocab=cfg.vocab, seq=TRAIN["cpu_seq"], global_batch=TRAIN["cpu_batch"],
+                          seed=TRAIN["seed"])
+
+    def steps(model, params, n, opt=None, start=0):
+        """``n`` train steps from ``start``; (params, opt, [(loss, grad
+        norm)])."""
+        opt = optim.init(tlm.leaves(params), ocfg) if opt is None else opt
+        step = make_train_step(model, ocfg)
+        out = []
+        for s in range(start, start + n):
+            _, opt, m = step(params, opt, stream2.batch(s, device=params.device))
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        return params, opt, out
+
+    def host(params):
+        return [t.detach().float().cpu() for t in tlm.leaves(params).values()]
+
+    # -- (a) the card against the port's CPU run --------------------------------
+    t0 = time.perf_counter()
+    cpu_p = m2.init_params(torch.Generator().manual_seed(TRAIN["seed"]))
+    cpu_p32 = copy.deepcopy(cpu_p).float()           # the same values in float32
+    card_p = copy.deepcopy(cpu_p).to(dev)
+    m2_32 = get_model(dataclasses.replace(cfg2, dtype="float32"))
+    t1 = time.perf_counter()
+    cpu_o, cpu_m = steps(m2, cpu_p, TRAIN["cpu_steps"])[1:]
+    t2 = time.perf_counter()
+    cpu32_o, cpu32_m = steps(m2_32, cpu_p32, TRAIN["cpu_steps"])[1:]
+    cpu_s = time.perf_counter() - t0
+    print(f"[phase 13] (a) on the CPU: init and copies {t1 - t0:.1f} s, 3 bfloat16 steps "
+          f"{t2 - t1:.1f} s, 3 float32 steps {time.perf_counter() - t2:.1f} s "
+          f"({torch.get_num_threads()} threads)")
+    card_o, card_m = steps(m2, card_p, TRAIN["cpu_steps"])[1:]
+    ref, ref32, got = host(cpu_p), host(cpu_p32), host(card_p)
+    bf16_vs_f32 = max(float((a - b).abs().max()) for a, b in zip(ref, ref32))
+    for i, (c, r, r32) in enumerate(zip(card_m, cpu_m, cpu32_m)):
+        print(f"[phase 13] (a) step {i + 1}: loss card {c[0]:.6f} cpu {r[0]:.6f} cpu-f32 "
+              f"{r32[0]:.6f}; grad norm card {c[1]:.6f} cpu {r[1]:.6f} cpu-f32 {r32[1]:.6f}")
+    card_err = compare(
+        f"LM train card vs CPU ({cfg.arch_id} cut to {TRAIN['cpu_layers']} layers, "
+        f"{TRAIN['cpu_steps']} steps at {TRAIN['cpu_batch']} x {TRAIN['cpu_seq']}, every "
+        f"parameter)", got, ref, rtol=0.0, atol=2.0 * bf16_vs_f32,
+        why=f"twice the CPU's bfloat16-vs-float32 distance, {bf16_vs_f32:.4e}")
+    loss_gap = max(abs(c[0] - r[0]) for c, r in zip(card_m, cpu_m))
+    loss_gap32 = max(abs(r[0] - r32[0]) for r, r32 in zip(cpu_m, cpu32_m))
+    report["card_vs_cpu"] = {"max_abs_err": card_err, "cpu_bf16_vs_f32": bf16_vs_f32,
+                             "loss_card_vs_cpu": loss_gap, "loss_bf16_vs_f32": loss_gap32,
+                             "card": card_m, "cpu": cpu_m, "cpu_f32": cpu32_m,
+                             "cpu_s": cpu_s}
+    check(loss_gap <= 2.0 * loss_gap32,
+          f"(a) card loss {loss_gap:.3e} from the CPU's, over twice its bf16-vs-f32 "
+          f"{loss_gap32:.3e}")
+    del cpu_p, cpu_p32, card_p, cpu_o, cpu32_o, card_o, ref, ref32, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) the 28 layers through launch/train.py's build and train_loop ------
+    B_, S_ = TRAIN["batch"], TRAIN["seq"]
+    T_ = B_ * S_
+    emb = cfg.vocab * cfg.d_model
+    blocks = cfg.param_count() - emb * (1 if cfg.tie_embeddings else 2)
+    # the products as the code runs them: forward, backward (twice the
+    # forward), the blocks' remat forward and the loss chunk's recomputed
+    # logits, in bfloat16 on the tensor cores; the attention's two S x S
+    # products a layer are float32 (the simple route forms them whole)
+    f_blocks, f_unembed = 2.0 * blocks * T_, 2.0 * emb * T_
+    f_attn = 4.0 * cfg.n_layers * B_ * cfg.n_heads * S_ * S_ * cfg.head_dim
+    bf16_flop = 4.0 * (f_blocks + f_unembed)
+    f32_flop = 4.0 * f_attn
+    bound_ms = (bf16_flop / PEAK_BF16 + f32_flop / PEAK_F32) * 1e3
+    base = torch.cuda.memory_allocated()      # what the earlier phases still hold
+    t0 = time.perf_counter()
+    cfg_b, model, params, opt_state, step_fn, stream, extras, shardings = ttrain.build(
+        LM["arch"], smoke=False, batch=B_, seq=S_, lr=TRAIN["lr"], seed=TRAIN["seed"],
+        device=dev)
+    check(cfg_b == cfg and shardings == (None, None), "(b) build's configuration")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    watch = {k: v.detach().clone() for k, v in tlm.leaves(params).items()
+             if k in ("final_norm", "blocks.0.ln1", "blocks.27.attn.bq", "blocks.27.mlp.wd")}
+    emb_rows = params.tok_emb[:4096].detach().clone()
+    t_batch = []
+    for s in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stream.batch(s, extras, device=dev)
+        torch.cuda.synchronize()
+        t_batch.append(time.perf_counter() - t1)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, rep = train_loop(step_fn, params, opt_state,
+                                        lambda s: stream.batch(s, extras, device=dev),
+                                        TrainLoopConfig(steps=TRAIN["steps"], ckpt_dir=None,
+                                                        log_every=1, handle_signals=False),
+                                        log_fn=lambda s: None)
+    peak = torch.cuda.max_memory_allocated() - base
+    hist = rep["history"]
+    check(len(hist) == TRAIN["steps"] and rep["final_step"] == TRAIN["steps"],
+          "(b) ran every step")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist),
+          "(b) every loss and grad norm finite")
+    moved = {k: not torch.equal(v, tlm.leaves(params)[k]) for k, v in watch.items()}
+    moved["tok_emb[:4096]"] = not torch.equal(emb_rows, params.tok_emb[:4096])
+    check(all(moved.values()), f"(b) the parameters moved: {moved}")
+    secs = [h["sec_per_step"] for h in hist]
+    warm = statistics.median(secs[1:])
+    report["train"] = {
+        "batch": B_, "seq": S_, "steps": TRAIN["steps"], "build_s": build_s,
+        "first_step_s": secs[0], "warm_median_s": warm, "warm_min_s": min(secs[1:]),
+        "warm_max_s": max(secs[1:]), "tokens_per_s": T_ / warm,
+        "first_loss": hist[0]["loss"], "last_loss": hist[-1]["loss"],
+        "grad_norms": [h["grad_norm"] for h in hist], "losses": [h["loss"] for h in hist],
+        "batch_ms": statistics.median(t_batch) * 1e3, "stragglers": rep["stragglers"],
+        "held_bytes": held, "peak_bytes": peak, "held_before_bytes": base,
+        "bf16_tflop": bf16_flop / 1e12, "f32_tflop": f32_flop / 1e12, "bound_ms": bound_ms}
+    print(f"[phase 13] {smi}: train({LM['arch']}, {cfg.n_layers} layers, batch {B_} x "
+          f"{S_}, {TRAIN['steps']} steps): first step {secs[0]:.3f} s, warm median "
+          f"{warm * 1e3:.1f} ms ({min(secs[1:]) * 1e3:.1f}-{max(secs[1:]) * 1e3:.1f}), "
+          f"{T_ / warm:.0f} tokens/s; loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; "
+          f"bound {bound_ms:.1f} ms ({bf16_flop / 1e12:.2f} TFLOP bf16 at 989 TFLOP/s + "
+          f"{f32_flop / 1e12:.2f} TFLOP float32 attention at 67 TFLOP/s); model and AdamW "
+          f"state held {held / 1e9:.3f} GB, the steps' peak {peak / 1e9:.3f} GB above the "
+          f"{base / 1e9:.3f} GB held before (the batch alone {statistics.median(t_batch) * 1e3:.1f} "
+          f"ms); built in {build_s:.1f} s")
+    del params, opt_state, step_fn, model, watch, emb_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) checkpoint and restart on the 2-layer cut ---------------------------
+    n, at = TRAIN["ckpt_steps"], TRAIN["ckpt_at"]
+
+    def fresh():
+        p = m2.init_params(TRAIN["seed"], device=dev)
+        return p, optim.init(tlm.leaves(p), ocfg)
+
+    def loop(params, opt, n_steps, ckpt_dir=None, every=TRAIN["ckpt_every"]):
+        return train_loop(make_train_step(m2, ocfg), params, opt,
+                          lambda s: stream2.batch(s, device=dev),
+                          TrainLoopConfig(steps=n_steps, ckpt_dir=ckpt_dir, ckpt_every=every,
+                                          log_every=1000, handle_signals=False),
+                          log_fn=lambda s: None)
+
+    straight = [host(loop(*fresh(), n)[0]) for _ in range(2)]
+    spread = max(float((a - b).abs().max()) for a, b in zip(*straight))
+    bitwise = all(torch.equal(a, b) for a, b in zip(*straight))
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        loop(*fresh(), at, td)                        # async at step 3, sync at 5
+        first_s = time.perf_counter() - t0
+        check(tckpt.latest_step(td) == at, "(c) the checkpoint of step 5")
+        ckpt_bytes = sum(f.stat().st_size for f in Path(td).rglob("*") if f.is_file())
+        p3, o3 = fresh()
+        steps(m2, p3, TRAIN["ckpt_every"], opt=o3)
+        _, tree3 = tckpt.restore(td, convert.train_state_keys(p3), step=TRAIN["ckpt_every"],
+                                 device="cpu")
+        p_chk, o_chk = fresh()
+        convert.load_train_state(p_chk, o_chk, tree3)
+        async_err = max(float((a - b).abs().max()) for a, b in zip(host(p_chk), host(p3)))
+        del tree3, p3, o3, p_chk, o_chk
+        t0 = time.perf_counter()
+        resumed, resumed_o, rep_c = loop(*fresh(), n, td, every=n)   # writes step 10 only
+        resume_s = time.perf_counter() - t0
+        check(rep_c["final_step"] == n, "(c) the resumed run reached step 10")
+        got = host(resumed)
+        del resumed_o
+    if bitwise:
+        tol, why = dict(rtol=1e-6, atol=1e-7), "tests/test_runtime.py:111-112; two straight " \
+            "runs are bitwise equal"
+    else:
+        tol, why = dict(rtol=0.0, atol=spread), "the spread of two straight runs"
+    resume_err = compare(f"LM restart on the card ({TRAIN['cpu_layers']} layers at full width: "
+                         f"{at} steps, checkpoint, a fresh model, {n - at} more; against "
+                         f"{n} straight)", got, straight[0], why=why, **tol)
+    check(async_err <= spread,
+          f"(c) the async step-3 checkpoint {async_err:.3e} from a straight 3-step run's "
+          f"parameters, over the straight runs' spread {spread:.3e}")
+    report["restart"] = {"straight_bitwise": bitwise, "straight_spread": spread,
+                         "resume_max_abs_err": resume_err, "async_ckpt_vs_straight": async_err,
+                         "ckpt_bytes_both": ckpt_bytes, "first_half_s": first_s,
+                         "resume_s": resume_s}
+    print(f"[phase 13] {smi}: restart: straight runs bitwise {bitwise} (spread "
+          f"{spread:.3e}); resumed - straight {resume_err:.3e}; async step-3 checkpoint - "
+          f"straight 3 steps {async_err:.3e}; the checkpoints of steps 3 and 5 "
+          f"{ckpt_bytes / 1e9:.2f} GB; 5 steps and both writes {first_s:.1f} s; the "
+          f"restore, 5 steps and the write of step 10 {resume_s:.1f} s")
+    check(ops.launch_counts() == NO_LAUNCHES,
+          f"the LM training path launched a kernel: {ops.launch_counts()}")
+    del straight, got, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print("[phase 13] " + json.dumps(report))
+    print(f"[phase 13] took {report['seconds']:.1f} s")
     return report
 
 
@@ -3382,6 +3638,9 @@ def main() -> int:
 
     # -- 12. the LM half's dense serving path (ROADMAP A8) ------------------
     phase12(dev, smi, compare)
+
+    # -- 13. the LM half's training path (ROADMAP A8) -------------------------
+    phase13(dev, smi, compare)
 
     # -- results --------------------------------------------------------------
     kernels = []

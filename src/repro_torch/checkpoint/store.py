@@ -13,7 +13,8 @@ layout, so a checkpoint written by either package restores in the other:
 * writes go to ``<dir>/tmp.<step>.<pid>`` and are renamed into place with
   ``os.replace``, so a crash mid-write never corrupts a committed step; a
   dead writer's staging directory is ignored and reaped (and counted) by
-  the next :func:`latest_step` / :func:`restore`.
+  the next :func:`latest_step` / :func:`restore`;
+* :class:`AsyncCheckpointer` overlaps the write with the next train steps.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import json
 import os
 import re
 import shutil
+import threading
 from pathlib import Path
 from typing import Any, Optional, Union
 
@@ -30,7 +32,7 @@ import torch
 from ..device import resolve_device
 from ..obs import metrics as obs_metrics
 
-__all__ = ["save", "restore", "latest_step"]
+__all__ = ["save", "restore", "latest_step", "AsyncCheckpointer"]
 
 _SEP = "/"
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -167,3 +169,62 @@ def restore(ckpt_dir: Union[str, Path], like: Any, *, step: Optional[int] = None
                 t = torch.from_numpy(arr)
             flat[key] = t if key.split(_SEP, 1)[0] in host else t.to(dev)
     return manifest["step"], _unflatten(flat)
+
+
+def _host_copy(tree):
+    """Every tensor leaf of a nested dict as a fresh host copy (a CPU
+    tensor is copied too: the train step updates its parameters in place),
+    every array leaf as a copy; the copies have finished on return."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    return tree
+
+
+class AsyncCheckpointer:
+    """Overlap checkpoint serialization with training (one write in
+    flight).
+
+    ``save`` waits for the write before it, copies the tree to host memory
+    on the calling thread (finished before it returns, so a train step
+    that then updates the tensors in place cannot tear the checkpoint) and
+    writes it with :func:`save` on a worker thread."""
+
+    def __init__(self, ckpt_dir: Union[str, Path]):
+        self.ckpt_dir = Path(ckpt_dir)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def wait(self) -> None:
+        """Block until the in-flight write (if any) finishes.  A worker
+        that failed raises its original exception here, exactly once (a
+        later ``wait`` is clean); ``save`` calls ``wait`` first, so a
+        failure is never skipped by scheduling the next checkpoint."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save(self, step: int, tree: Any, *, metadata: Optional[dict] = None) -> None:
+        self.wait()
+        host_tree = _host_copy(tree)
+
+        def work():
+            try:
+                save(self.ckpt_dir, step, host_tree, metadata=metadata)
+            except BaseException as e:  # surfaced on the next wait()
+                e.add_note(f"async checkpoint of step {step} failed")
+                # counted when it fails, not at the next wait()
+                obs_metrics.get_default().counter(
+                    "checkpoint_async_failures_total",
+                    "async checkpoint worker failures",
+                ).inc()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()

@@ -1,0 +1,85 @@
+"""Training launcher of the LM half (the port of ``repro/launch/train.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --smoke \\
+      --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt [--device cpu]
+
+Runs on the card unless ``--device cpu``; weights are random, drawn from
+``--seed``; batches come from the synthetic ``TokenStream``; the schedule
+is ``warmup_cosine(lr, 20, 10_000)``.  The train step updates the model
+and the AdamW state in place; checkpoints are the reference's tree, so a
+run started by either package resumes in the other.  Only the dense
+family is ported (``repro_torch.models.get_model`` refuses the others, and
+with them the audio and VLM extras); a production mesh (``mesh=``) comes
+with A8's ``parallel/`` part.
+"""
+from __future__ import annotations
+
+import argparse
+
+from .. import optim
+from ..configs import ARCHS
+from ..core.gp import _not_ported
+from ..data import TokenStream
+from ..device import resolve_device
+from ..models import get_model, lm
+from ..runtime import TrainLoopConfig, train_loop
+from .steps import make_train_step
+
+__all__ = ["build", "main"]
+
+
+def build(arch_id: str, *, smoke: bool, batch: int, seq: int, lr: float,
+          mesh=None, seed: int = 0, device=None):
+    """(cfg, model, params, opt_state, step_fn, stream, extras, shardings)
+    as the reference's ``build`` returns them, on ``device`` (default the
+    card); ``shardings`` is ``(None, None)``."""
+    if mesh is not None:
+        _not_ported("launch.train.build(mesh=...)", "LM half's parallel/ part (ROADMAP A8)")
+    dev = resolve_device(device)
+    mod = ARCHS[arch_id]
+    cfg = mod.SMOKE if smoke else mod.CONFIG
+    model = get_model(cfg)
+    params = model.init_params(seed, device=dev)
+    ocfg = optim.AdamWConfig(lr=optim.warmup_cosine(lr, 20, 10_000))
+    opt_state = optim.init(lm.leaves(params), ocfg)
+    step_fn = make_train_step(model, ocfg)
+    stream = TokenStream(vocab=cfg.vocab, seq=seq, global_batch=batch, seed=seed)
+    return cfg, model, params, opt_state, step_fn, stream, {}, (None, None)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m", choices=sorted(ARCHS))
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg, model, params, opt_state, step_fn, stream, extras, _ = build(
+        args.arch, smoke=args.smoke, batch=args.batch, seq=args.seq, lr=args.lr,
+        seed=args.seed, device=dev)
+    loop_cfg = TrainLoopConfig(
+        steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir
+    )
+    params, opt_state, report = train_loop(
+        step_fn, params, opt_state,
+        lambda step: stream.batch(step, extras, device=dev),
+        loop_cfg,
+    )
+    h = report["history"]
+    print(f"\narch={cfg.arch_id} steps={report['final_step']} "
+          f"first_loss={h[0]['loss']:.4f} last_loss={h[-1]['loss']:.4f} "
+          f"stragglers={report['stragglers']}")
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,7 @@ dense family (qwen2-1.5b, qwen2.5-3b, smollm-360m, starcoder2-3b).
 ``get_model(cfg)`` gives the reference's uniform API (``init_params``,
 ``loss_fn``, ``prefill``, ``decode_step``, ``init_cache``, ``cfg``).  What
 is not ported yet raises ``UnsupportedError`` naming ROADMAP A8: the moe,
-ssm, hybrid, audio and vlm families, MLA, and ``loss_fn`` (training).
+ssm, hybrid, audio and vlm families and MLA.
 """
 from types import SimpleNamespace
 
@@ -17,9 +17,10 @@ __all__ = ["ModelConfig", "get_model", "config", "layers", "lm"]
 
 def get_model(cfg: ModelConfig) -> SimpleNamespace:
     """Family dispatch.  ``init_params(gen, device=None)`` takes a
-    ``torch.Generator`` or a seed (see :func:`lm.init_params`); ``prefill``,
-    ``decode_step`` and ``init_cache(B, S, device=None)`` are those of
-    :mod:`repro_torch.models.lm`; ``device`` defaults to the card."""
+    ``torch.Generator`` or a seed (see :func:`lm.init_params`); ``loss_fn``,
+    ``prefill``, ``decode_step`` and ``init_cache(B, S, device=None)`` are
+    those of :mod:`repro_torch.models.lm`; ``device`` defaults to the
+    card."""
     if cfg.use_mla:
         _not_ported(f"get_model({cfg.arch_id!r}, use_mla=True)",
                     "LM half's MLA + MTP part (ROADMAP A8)")
@@ -27,12 +28,9 @@ def get_model(cfg: ModelConfig) -> SimpleNamespace:
         _not_ported(f"get_model({cfg.arch_id!r}, family={cfg.family!r})",
                     f"LM half's {cfg.family} part (ROADMAP A8)")
 
-    def loss_fn(params, batch):
-        _not_ported("loss_fn", "LM half's training part (ROADMAP A8)")
-
     return SimpleNamespace(
         init_params=lambda gen, device=None: lm.init_params(gen, cfg, device),
-        loss_fn=loss_fn,
+        loss_fn=lambda params, batch: lm.loss_fn(params, batch, cfg),
         prefill=lambda params, batch, cache_len=None: lm.prefill(
             params, batch, cfg, cache_len=cache_len),
         decode_step=lambda params, batch, cache: lm.decode_step(params, batch, cache, cfg),

@@ -1,9 +1,20 @@
-"""The JAX package's LM parameters as the port's: ``lm_params_from_jax``
-takes the reference's ``init_params`` pytree with its leaves as numpy
-arrays (``jax.tree.map(np.asarray, params)``; the blocks stacked (L, ...)
-over layers, bfloat16 leaves as ``ml_dtypes`` arrays) and returns the
-port's :class:`~repro_torch.models.lm.LM` holding the same values, so that
-the tests hand both packages one set of weights.
+"""The LM's parameters between the two packages' layouts.
+
+``lm_params_from_jax`` takes the reference's ``init_params`` pytree with
+its leaves as numpy arrays (``jax.tree.map(np.asarray, params)``; the
+blocks stacked (L, ...) over layers, bfloat16 leaves as ``ml_dtypes``
+arrays) and returns the port's :class:`~repro_torch.models.lm.LM` holding
+the same values, so that the tests hand both packages one set of weights.
+
+The reverse: ``lm_params_to_jax`` gives the port's parameters as the
+reference's nested numpy tree (float32 arrays holding the values exactly),
+and ``train_state_to_jax`` the parameters and AdamW state as the
+reference's train-loop checkpoint tree, ``{"params": ..., "opt": {"mu":
+..., "step"}}`` (``mu`` mirroring the parameters with ``{"m", "v"}``
+leaves), as host tensors in their own dtypes for
+:mod:`repro_torch.checkpoint`.  ``load_train_state`` writes such a tree,
+read from either package's checkpoint, back into the model and the AdamW
+state in place.
 """
 from __future__ import annotations
 
@@ -14,9 +25,10 @@ import torch
 
 from ..device import resolve_device
 from .config import ModelConfig
-from .lm import LM, DenseBlock, _dtype
+from .lm import LM, DenseBlock, _dtype, leaf_paths
 
-__all__ = ["lm_params_from_jax"]
+__all__ = ["lm_params_from_jax", "lm_params_to_jax", "train_state_to_jax",
+           "train_state_keys", "load_train_state"]
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -45,3 +57,90 @@ def lm_params_from_jax(tree: Mapping, cfg: ModelConfig, device=None) -> LM:
     head = None if cfg.tie_embeddings else _t(tree["lm_head"], dt, device)
     return LM(cfg, _t(tree["tok_emb"], dt, device), _t(tree["final_norm"], f32, device),
               blocks, head)
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _stacked(params: LM, leaf) -> dict:
+    """{reference path: leaf(tensors)} where ``tensors`` are a block leaf's
+    layers in order, or the one tensor of a leaf outside the blocks."""
+    named = dict(params.named_parameters())
+    groups: dict = {}
+    for name, path, layer in leaf_paths(params):
+        groups.setdefault(path, []).append((named[name], layer))
+    return {path: leaf([t for t, _ in ts], ts[0][1] is not None)
+            for path, ts in groups.items()}
+
+
+def _host(ts, stacked: bool, of=lambda t: t) -> torch.Tensor:
+    # a fresh host copy (``.to`` copies a card tensor; ``copy=True`` a CPU one)
+    if stacked:
+        return torch.stack([of(t).detach().to("cpu") for t in ts])
+    return of(ts[0]).detach().to("cpu", copy=True)
+
+
+def lm_params_to_jax(params: LM) -> dict:
+    """The reference's ``init_params`` tree of the port's parameters: numpy
+    float32 arrays (every bfloat16 value exactly), the blocks stacked
+    (L, ...); cast each leaf to the reference's dtype to feed JAX."""
+    return _nest(_stacked(params, lambda ts, st: _host(ts, st).to(torch.float32).numpy()))
+
+
+def train_state_to_jax(params: LM, opt_state: dict) -> dict:
+    """The reference train loop's checkpoint tree of the port's model and
+    AdamW state (``optim.init(lm.leaves(params), ...)``): every leaf a
+    fresh host tensor in its own dtype, the blocks stacked (L, ...).  The
+    copies from the card have finished when this returns."""
+    mu = opt_state["mu"]
+    names = {id(p): n for n, p in params.named_parameters()}
+
+    def moment(key):
+        return lambda ts, st: _host(ts, st, of=lambda t: mu[names[id(t)]][key])
+
+    m = _stacked(params, moment("m"))
+    v = _stacked(params, moment("v"))
+    return {"params": _nest(_stacked(params, _host)),
+            "opt": {"mu": _nest({path + (k,): src[path] for path in m
+                                 for k, src in (("m", m), ("v", v))}),
+                    "step": opt_state["step"].detach().to("cpu", copy=True)}}
+
+
+def train_state_keys(params: LM) -> dict:
+    """The keys of :func:`train_state_to_jax`'s tree with placeholder
+    leaves: the ``like`` that ``checkpoint.restore`` reads, without copying
+    the model."""
+    paths = list(_stacked(params, lambda ts, st: 0))
+    return {"params": _nest({p: 0 for p in paths}),
+            "opt": {"mu": _nest({p + (k,): 0 for p in paths for k in ("m", "v")}),
+                    "step": 0}}
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@torch.no_grad()
+def load_train_state(params: LM, opt_state: dict, tree: Mapping) -> None:
+    """Write a train-loop checkpoint tree (``{"params", "opt"}`` in the
+    reference's layout, written by either package) into ``params`` and
+    ``opt_state`` in place, layer by layer, each leaf cast to the dtype it
+    has here."""
+    named = dict(params.named_parameters())
+    for name, path, layer in leaf_paths(params):
+        def src(t):
+            return t if layer is None else t[layer]
+        named[name].copy_(src(torch.as_tensor(_at(tree["params"], path))))
+        for k in ("m", "v"):
+            opt_state["mu"][name][k].copy_(
+                src(torch.as_tensor(_at(tree["opt"]["mu"], path + (k,)))))
+    opt_state["step"].copy_(torch.as_tensor(tree["opt"]["step"]))

@@ -1,7 +1,8 @@
 """Decoder-only LM assembly, dense family: the port of the dense parts of
 ``repro/models/lm.py`` (``_dtype``, the "dense" block's init and apply,
-``init_params``, ``forward``, ``_unembed``, ``init_cache``,
-``_dense_block_decode``, ``decode_step`` and ``prefill``).
+``init_params``, ``forward`` with its per-block remat, ``_unembed``,
+``xent_chunked``, ``loss_fn``, ``init_cache``, ``_dense_block_decode``,
+``decode_step`` and ``prefill``).
 
 The model is an ``nn.Module`` (:class:`LM`) holding a ``ModuleList`` of
 :class:`DenseBlock`; every parameter keeps the reference's leaf name
@@ -18,23 +19,34 @@ recomputes the first's keys and values from the same inputs with the same
 operations, so one pass that keeps them gives the same logits and cache.
 ``decode_step`` writes the cache in place (the reference donates it).
 
-MoE, MLA, SSM/hybrid, audio and VLM families, ``loss_fn`` and
-``xent_chunked`` come with A8's later parts (``repro_torch.models``
-refuses them).
+Training: the parameters are built with ``requires_grad=False``, so no
+serving call records a graph; :func:`trainable` switches gradients on for
+the length of a train step.  With ``cfg.remat`` and gradients on, each
+block runs under ``torch.utils.checkpoint`` (the reference scans its
+blocks under ``jax.checkpoint``), and :func:`xent_chunked` recomputes each
+chunk's logits in the backward pass, so neither pass holds a (B, S, V)
+tensor.  :func:`leaves` names the trainable tensors in the reference's
+tree order.
+
+MoE, MLA (with its MTP loss), SSM/hybrid, audio and VLM families come with
+A8's later parts (``repro_torch.models`` refuses them).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers
 from .config import ModelConfig
 
 __all__ = ["LM", "DenseBlock", "init_params", "forward", "prefill", "decode_step",
-           "init_cache"]
+           "init_cache", "xent_chunked", "loss_fn", "leaves", "leaf_paths", "ref_ndims",
+           "trainable"]
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -139,12 +151,22 @@ def _embed(params: LM, tokens, cfg: ModelConfig):
     return params.tok_emb[tokens.to(params.device)].to(_dtype(cfg))
 
 
+def _remat(x, lp) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or lp.ln1.requires_grad)
+
+
 def forward(params: LM, batch, cfg: ModelConfig, *, cache=None):
     """Token inputs -> final hidden states (B, S, d), aux loss (0 for the
     dense family).  ``cache`` (from :func:`init_cache`), if given, receives
-    every layer's keys and values at positions [0, S)."""
+    every layer's keys and values at positions [0, S).  With ``cfg.remat``
+    and gradients on (a train step), each block's activations are
+    recomputed in the backward pass."""
     x = _embed(params, batch["tokens"], cfg)
     for l, lp in enumerate(params.blocks):
+        if cache is None and cfg.remat and _remat(x, lp):
+            x = checkpoint(_block_apply, lp, x, cfg, use_reentrant=False,
+                           preserve_rng_state=False)
+            continue
         kv = None if cache is None else (cache["k"][l], cache["v"][l])
         x = _block_apply(lp, x, cfg, kv)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -158,6 +180,128 @@ def _unembed(params: LM, cfg: ModelConfig):
 def _logits(params: LM, h, cfg: ModelConfig):
     # in the model dtype, then cast: the reference's product is not f32
     return (h @ _unembed(params, cfg).T).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(hc, emb_out, lc, mc):
+    # the logits in the model dtype, then float32, as the reference's
+    logits = (hc @ emb_out.T).to(torch.float32)              # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return torch.sum((lse - gold) * mc), torch.sum(mc)
+
+
+def xent_chunked(h, emb_out, labels, mask, chunk: int):
+    """Chunked softmax cross-entropy over the sequence axis: ``logsumexp -
+    gold`` per chunk of ``chunk`` positions, summed in chunk order, then
+    the remainder chunk when S is no multiple of ``chunk``.  Never holds a
+    (B, S, V) logits tensor: with gradients on, each whole chunk runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so
+    the backward pass recomputes its logits; the remainder, as in the
+    reference, keeps its own.  Returns (sum_loss, sum_count), float32."""
+    B, S, d = h.shape
+    chunk = min(chunk, S)
+    nch = S // chunk
+    rem = S - nch * chunk
+    remat = torch.is_grad_enabled() and (h.requires_grad or emb_out.requires_grad)
+    loss = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nch):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        args = (h[:, sl], emb_out, labels[:, sl], mask[:, sl])
+        if remat:
+            dl, dc = checkpoint(_xent_chunk, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            dl, dc = _xent_chunk(*args)
+        loss, count = loss + dl, count + dc
+    if rem:
+        sl = slice(nch * chunk, S)
+        dl, dc = _xent_chunk(h[:, sl], emb_out, labels[:, sl], mask[:, sl])
+        loss, count = loss + dl, count + dc
+    return loss, count
+
+
+def loss_fn(params: LM, batch, cfg: ModelConfig):
+    """Next-token LM loss (teacher forcing) on batch {"tokens": (B, S)}:
+    position t predicts token t + 1, the last position masked out.
+    Returns (loss, {"loss", "aux", "tokens"}) as the reference; ``aux`` is
+    0 for the dense family.  Gradients flow to the parameters inside
+    :func:`trainable`."""
+    tokens = batch["tokens"].to(params.device)
+    B, S = tokens.shape
+    labels = torch.cat([tokens[:, 1:], torch.zeros((B, 1), dtype=tokens.dtype,
+                                                   device=tokens.device)], dim=1)
+    mask = torch.cat([torch.ones((B, S - 1), dtype=torch.float32, device=tokens.device),
+                      torch.zeros((B, 1), dtype=torch.float32, device=tokens.device)], dim=1)
+    h, aux = forward(params, {**batch, "tokens": tokens}, cfg)
+    loss_sum, count = xent_chunked(h, _unembed(params, cfg), labels, mask, cfg.logits_chunk)
+    loss = loss_sum / torch.clamp(count, min=1.0)
+    loss = loss + aux
+    return loss, {"loss": loss, "aux": aux, "tokens": count}
+
+
+# ---------------------------------------------------------------------------
+# Trainable leaves
+# ---------------------------------------------------------------------------
+
+
+def leaf_paths(params: LM) -> list:
+    """``(name, path, layer)`` for every parameter, in the reference's tree
+    order (``jax.tree_util`` sorts dict keys; a block leaf is stacked over
+    layers there, so its layers follow one another here): ``name`` is the
+    module's parameter name (``blocks.3.attn.wq``), ``path`` the
+    reference's key path (``("blocks", "attn", "wq")``), ``layer`` the
+    block's index (None outside the blocks)."""
+    out = []
+    if len(params.blocks):
+        b0 = params.blocks[0]
+        for sub in ("attn", "ln1", "ln2", "mlp"):
+            keys = sorted(b0[sub].keys()) if isinstance(b0[sub], nn.ParameterDict) else [None]
+            for k in keys:
+                path = ("blocks", sub) if k is None else ("blocks", sub, k)
+                for l in range(len(params.blocks)):
+                    out.append((".".join(("blocks", str(l)) + path[1:]), path, l))
+    for top in ("final_norm", "lm_head", "tok_emb"):
+        if hasattr(params, top):
+            out.append((top, (top,), None))
+    return out
+
+
+def leaves(params: LM) -> Dict[str, torch.Tensor]:
+    """{name: parameter} in :func:`leaf_paths`' order: the dict the
+    optimizer steps (``optim.init(leaves(params), ocfg)``), whose global
+    norm sums the leaves in the reference's order, a block leaf layer by
+    layer."""
+    named = dict(params.named_parameters())
+    return {name: named[name] for name, _, _ in leaf_paths(params)}
+
+
+def ref_ndims(params: LM) -> Dict[str, int]:
+    """{name: the leaf's rank in the reference's tree}: a block leaf is
+    stacked (L, ...) there, one rank more than its layer's tensor here."""
+    named = dict(params.named_parameters())
+    return {name: named[name].ndim + (layer is not None)
+            for name, _, layer in leaf_paths(params)}
+
+
+@contextlib.contextmanager
+def trainable(params: LM):
+    """Gradients on every parameter inside the block, off again after it
+    (each back to what it was), so serving never records a graph."""
+    ps = list(params.parameters())
+    was = [p.requires_grad for p in ps]
+    for p in ps:
+        p.requires_grad_(True)
+    try:
+        yield params
+    finally:
+        for p, w in zip(ps, was):
+            p.requires_grad_(w)
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> dict:

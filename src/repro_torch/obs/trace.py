@@ -122,7 +122,10 @@ class Tracer:
             ev = {"name": name, "ph": ph, "ts": t0 // 1000, "pid": _PID,
                   "tid": tid}
             if ph == "X":
-                ev["dur"] = (t1 - t0) // 1000
+                # both ends truncated to the microsecond, so a span that
+                # nests another in nanoseconds still nests it (truncating
+                # the duration instead can end a child after its parent)
+                ev["dur"] = t1 // 1000 - t0 // 1000
             else:
                 ev["s"] = "t"              # instant scope: thread
             if args:

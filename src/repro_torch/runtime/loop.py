@@ -1,0 +1,165 @@
+"""Fault-tolerant training loop.
+
+Counterpart of ``repro/runtime/loop.py``, with its behaviours:
+
+* **checkpoint/restart**: resumes from the latest checkpoint (batches are
+  a pure function of the step, so a resumed run repeats the straight one);
+* **preemption**: SIGTERM/SIGINT set a flag; the loop finishes the step,
+  writes a checkpoint and exits cleanly;
+* **async checkpointing**: a write overlaps the next steps, except on the
+  last step and at preemption;
+* **stragglers**: a step slower than ``straggler_factor`` times the
+  running median of the last 50 is counted and logged.
+
+``params`` is a nested dict of tensors or an LM (``repro_torch.models.lm
+.LM``, stepped in place by ``launch.steps.make_train_step``); an LM's
+checkpoint is the reference's tree (``models.convert.train_state_to_jax``),
+so either package resumes the other's run from the same directory.  A step
+ends with a read of its loss, which waits for the device (the reference's
+``block_until_ready``).  Elastic restore onto a mesh (``shardings=``)
+comes with A8's ``parallel/`` part.
+"""
+from __future__ import annotations
+
+import dataclasses
+import signal
+import time
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from .. import checkpoint
+from ..core.gp import _not_ported
+from ..models import convert
+from ..models.lm import LM
+
+__all__ = ["TrainLoopConfig", "train_loop"]
+
+
+@dataclasses.dataclass
+class TrainLoopConfig:
+    steps: int = 100
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = None
+    log_every: int = 10
+    straggler_factor: float = 1.5
+    handle_signals: bool = True
+    async_ckpt: bool = True
+
+
+def _device(tree) -> torch.device:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            d = _device(v)
+            if d is not None:
+                return d
+        return None
+    return tree.device if isinstance(tree, torch.Tensor) else None
+
+
+def _state(params, opt_state) -> dict:
+    """The checkpoint's tree, ``{"params", "opt"}``."""
+    if isinstance(params, LM):
+        return convert.train_state_to_jax(params, opt_state)
+    return {"params": params, "opt": opt_state}
+
+
+def _restore(ckpt_dir, params, opt_state):
+    """(step, params, opt_state) from the latest checkpoint; an LM and its
+    AdamW state are written in place."""
+    if isinstance(params, LM):
+        step, tree = checkpoint.restore(ckpt_dir, convert.train_state_keys(params),
+                                        device="cpu")
+        convert.load_train_state(params, opt_state, tree)
+        return step, params, opt_state
+    step, tree = checkpoint.restore(ckpt_dir, {"params": params, "opt": opt_state},
+                                    device=_device(params) or "cpu")
+    return step, tree["params"], tree["opt"]
+
+
+def train_loop(
+    train_step: Callable,          # (params, opt_state, batch) -> (params, opt_state, metrics)
+    params: Any,
+    opt_state: Any,
+    batch_fn: Callable[[int], Any],
+    cfg: TrainLoopConfig,
+    *,
+    shardings: tuple | None = None,
+    log_fn: Callable[[str], None] = print,
+):
+    if shardings is not None:
+        _not_ported("train_loop(shardings=...)", "LM half's parallel/ part (ROADMAP A8)")
+    start_step = 0
+    ckpt = None
+    if cfg.ckpt_dir:
+        ckpt = checkpoint.AsyncCheckpointer(cfg.ckpt_dir)
+        if checkpoint.latest_step(cfg.ckpt_dir) is not None:
+            start_step, params, opt_state = _restore(cfg.ckpt_dir, params, opt_state)
+            log_fn(f"[restore] resumed from step {start_step}")
+
+    preempted = {"flag": False}
+    old_handlers = {}
+    if cfg.handle_signals:
+        def _handler(signum, frame):
+            preempted["flag"] = True
+            log_fn(f"[preempt] signal {signum}: checkpoint at end of step")
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                old_handlers[sig] = signal.signal(sig, _handler)
+            except ValueError:  # not the main thread
+                pass
+
+    step_times: list[float] = []
+    stragglers = 0
+    history = []
+    step = start_step
+    try:
+        while step < cfg.steps:
+            t0 = time.perf_counter()
+            batch = batch_fn(step)
+            params, opt_state, metrics = train_step(params, opt_state, batch)
+            loss = float(metrics["loss"])            # waits for the device
+            dt = time.perf_counter() - t0
+            step_times.append(dt)
+            med = float(np.median(step_times[-50:]))
+            if len(step_times) > 5 and dt > cfg.straggler_factor * med:
+                stragglers += 1
+                log_fn(f"[straggler] step {step}: {dt:.3f}s vs median {med:.3f}s")
+            step += 1
+            if step % cfg.log_every == 0 or step == cfg.steps:
+                history.append(
+                    {"step": step, "loss": loss,
+                     "grad_norm": float(metrics.get("grad_norm", np.nan)),
+                     "sec_per_step": dt}
+                )
+                log_fn(f"[step {step}] loss={history[-1]['loss']:.4f} "
+                       f"gnorm={history[-1]['grad_norm']:.3f} {dt:.3f}s/step")
+            want_ckpt = ckpt and (
+                step % cfg.ckpt_every == 0 or step == cfg.steps or preempted["flag"]
+            )
+            if want_ckpt:
+                state = _state(params, opt_state)
+                if cfg.async_ckpt and not preempted["flag"] and step != cfg.steps:
+                    ckpt.save(step, state)
+                else:
+                    ckpt.wait()
+                    checkpoint.save(cfg.ckpt_dir, step, state)
+                del state
+            if preempted["flag"]:
+                log_fn(f"[preempt] exiting cleanly at step {step}")
+                break
+    finally:
+        if ckpt:
+            ckpt.wait()
+        for sig, h in old_handlers.items():
+            signal.signal(sig, h)
+
+    return params, opt_state, {
+        "history": history,
+        "final_step": step,
+        "stragglers": stragglers,
+        "preempted": preempted["flag"],
+        "median_step_s": float(np.median(step_times)) if step_times else None,
+    }

@@ -35,8 +35,10 @@ from repro_torch.core.gp import GP  # noqa: E402
 from repro_torch.launch import mesh as t_mesh  # noqa: E402
 from repro_torch.launch import serve_gp as t_serve  # noqa: E402
 from repro_torch.launch import steps as t_steps  # noqa: E402
+from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch import configs as t_configs  # noqa: E402
 from repro_torch import models as t_models  # noqa: E402
+from repro_torch import runtime as t_runtime  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer, serving_watchdog  # noqa: E402
 from repro_torch.optim import gp_hyperopt as tgh  # noqa: E402
 
@@ -209,9 +211,13 @@ REFUSALS = {
     "get_model(hybrid)": (lambda tp: _lm_model("zamba2-7b"), "A8", "LM"),
     "get_model(audio)": (lambda tp: _lm_model("whisper-small"), "A8", "LM"),
     "get_model(vlm)": (lambda tp: _lm_model("llama-3.2-vision-11b"), "A8", "LM"),
-    "loss_fn": (lambda tp: _lm_model("qwen2-1.5b").loss_fn(None, None), "A8", "LM"),
-    "make_train_step": (lambda tp: t_steps.make_train_step(_lm_model("qwen2-1.5b")),
-                        "A8", "LM"),
+    # the LM half's training path runs on one device; a mesh is parallel/'s
+    "train_loop(shardings)": (lambda tp: t_runtime.train_loop(
+        None, {}, {}, None, t_runtime.TrainLoopConfig(steps=1), shardings=(None, None)),
+        "A8", "LM"),
+    "launch.train.build(mesh)": (lambda tp: t_train.build(
+        "qwen2-1.5b", smoke=True, batch=1, seq=8, lr=1e-3, mesh=object(), device="cpu"),
+        "A8", "LM"),
     "lower_fit": (lambda tp: t_dist.lower_fit(None, t_mesh.make_local_mesh(devices=["cpu"])),
                   "A8", "LM"),
     "lower_predict": (lambda tp: t_dist.lower_predict(
@@ -269,8 +275,8 @@ def _sharded_fleet_matches_unsharded():
         abs(h["rmse"] - g["rmse"]) < 1e-5 for h, g in zip(out["rounds"], flat["rounds"]))
 
 
-# the calls ROADMAP A2, A3, A4, A5 and A6 refused until they were ported,
-# and what each now returns
+# the calls ROADMAP A2, A3, A4, A5, A6 and A8's training part refused until
+# they were ported, and what each now returns
 PORTED = {
     "GPBank.downdate": lambda tp: _bank()[0].downdate(
         [0], tt(gp_data(16, 2, 0)[0][None, :2]), tt(gp_data(16, 2, 0)[1][None, :2]))[1].tolist()
@@ -311,7 +317,29 @@ PORTED = {
     # ROADMAP A5: a resident bank has nothing to rebalance, as in JAX
     "BankRouter.rebalance": lambda tp: BankRouter(_bank()[0]).rebalance() == 0,
     "serve_fleet(shards)": lambda tp: _sharded_fleet_matches_unsharded(),
+    # ROADMAP A8, the LM half's training part
+    "loss_fn": lambda tp: _lm_loss()[0],
+    "make_train_step": lambda tp: _lm_loss()[1],
 }
+
+
+def _lm_loss():
+    """(a finite SMOKE loss with its reference keys, a train step that
+    moves the parameters in place)."""
+    from repro_torch import optim as t_optim
+    from repro_torch.models import lm as t_lm
+
+    model = _lm_model("qwen2-1.5b")
+    params = model.init_params(0, device="cpu")
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32)}
+    loss, metrics = model.loss_fn(params, batch)
+    ocfg = t_optim.AdamWConfig()
+    before = params.tok_emb.clone()
+    out, _, m = t_steps.make_train_step(model, ocfg)(
+        params, t_optim.init(t_lm.leaves(params), ocfg), batch)
+    return (bool(torch.isfinite(loss)) and set(metrics) == {"loss", "aux", "tokens"},
+            out is params and not torch.equal(before, params.tok_emb)
+            and set(m) == {"loss", "aux", "tokens", "grad_norm", "lr"})
 
 
 def _fleet_out(**option):
@@ -329,9 +357,9 @@ def _value_error(call) -> str:
 
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_formerly_refused_call_works(name, tmp_path):
-    """Each call that named ROADMAP A2, A3, A4, A5 or A6 in its refusal now
-    runs (the window without a cold tier raises the JAX package's
-    ValueError)."""
+    """Each call that named ROADMAP A2, A3, A4, A5, A6 or A8's training part
+    in its refusal now runs (the window without a cold tier raises the JAX
+    package's ValueError)."""
     assert PORTED[name](tmp_path)
 
 

@@ -85,3 +85,63 @@ def both(arch_id, dtype="bfloat16", seed=0):
 def tokens(vocab, B, S, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, size=(B, S)).astype(np.int32)
 
+
+
+def jax_train_run(jm, jp, jocfg, stream, steps, opt_state=None, start=0):
+    """The reference's train steps taken one at a time (``jax.value_and_grad``
+    of ``loss_fn``, then ``optim.apply_updates``, as its
+    ``make_train_step``), from ``start``: (params, opt_state, per-step
+    metrics, per-step gradients)."""
+    from repro import optim as joptim
+
+    @jax.jit
+    def step(p, o, batch):
+        (_, metrics), g = jax.value_and_grad(jm.loss_fn, has_aux=True)(p, batch)
+        p, o, om = joptim.apply_updates(p, g, o, jocfg)
+        return p, o, {**metrics, **om}, g
+
+    o = joptim.init(jp, jocfg) if opt_state is None else opt_state
+    mets, grads = [], []
+    for s in range(start, start + steps):
+        jp, o, m, g = step(jp, o, stream.batch(s))
+        mets.append(m)
+        grads.append(g)
+    return jp, o, mets, grads
+
+
+def adamw_gate(want, mets, grads, eps=1e-8, rel=1e-5):
+    """Per-entry tolerance of a parameter tree after AdamW steps, against
+    the reference's ``want``: ``rel`` of the leaf's largest entry, plus
+    what the gradient gate (``rel`` of the step's largest gradient in the
+    leaf) allows each step's update to move.  AdamW divides by
+    sqrt(v) + eps, so a gradient error d at an entry whose gradient g is
+    small moves its update by up to lr * 2 d / (|g| + eps) (at most a full
+    2 lr, a sign flipped): an entry whose gradient is of the order of the
+    float32 error of the sum that makes it is amplified, the others are
+    not.  Returns {path: tolerance array}."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(want)[0]:
+        key = tuple(k.key for k in path)
+        tol = np.full(leaf.shape, rel * float(np.abs(f32(leaf)).max()), np.float64)
+        for m, g in zip(mets, grads):
+            gl = g
+            for k in key:
+                gl = gl[k]
+            gl = np.abs(f32(gl)).astype(np.float64)
+            d = rel * gl.max()
+            tol += float(m["lr"]) * np.minimum(2.0, 2.0 * d / (gl + eps))
+        out[key] = tol
+    return out
+
+
+def assert_params_within(got_tree, want, tol):
+    """Every entry of the port's parameters (``convert.lm_params_to_jax``)
+    within its tolerance of the reference's ``want``."""
+    for path, leaf in jax.tree_util.tree_flatten_with_path(want)[0]:
+        key = tuple(k.key for k in path)
+        node = got_tree
+        for k in key:
+            node = node[k]
+        err = np.abs(np.asarray(node, np.float64) - f32(leaf).astype(np.float64))
+        worst = float((err / tol[key]).max())
+        assert worst <= 1.0, ("/".join(key), float(err.max()), worst)

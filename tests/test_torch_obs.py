@@ -281,6 +281,22 @@ def test_random_interleavings_validate(seed):
         assert check_trace_mod.check_trace(path, expect=("outer", "inner")) == []
 
 
+def test_export_keeps_nanosecond_nesting(tmp_path):
+    """A child that ends in the parent's last microsecond still nests once
+    exported: the parent [210.9, 219.0] us and the child [217.0, 219.0] us
+    export as [210, 219] and [217, 219] (truncating the parent's duration
+    instead gave [210, 218], which the validator rejects)."""
+    tracer = Tracer()
+    tid = threading.get_ident()
+    tracer._events += [("X", "child", 217_000, 219_000, tid, None),
+                       ("X", "parent", 210_900, 219_000, tid, None)]
+    ends = {ev["name"]: (ev["ts"], ev["ts"] + ev["dur"]) for ev in tracer.events()}
+    assert ends == {"parent": (210, 219), "child": (217, 219)}
+    path = tmp_path / "t.jsonl"
+    tracer.write_jsonl(path)
+    assert check_trace_mod.check_trace(path, expect=("parent", "child")) == []
+
+
 def test_buffer_bound_counts_drops_and_envelope(tmp_path):
     tracer = Tracer(limit=3)
     for i in range(5):
@@ -409,17 +425,25 @@ def test_record_path_is_allocation_free():
     h = NULL.histogram("y")
     span = NULL_TRACER.span("s")
     obs_files = {m.__file__, tr.__file__}
+
+    def record():
+        c.inc()
+        c.inc(3)
+        h.record(0.5)
+        h.record_many((0.1, 0.2))
+        with span:
+            pass
+        NULL_TRACER.instant("i")
+
+    # one call before the window: the interpreter's one-time work on a code
+    # object's first call (after a failed hypothesis example has switched
+    # sys.monitoring on, its per-code monitoring data) is not the record path
+    record()
     tracemalloc.start()
     try:
         s0 = tracemalloc.take_snapshot()
         for _ in range(2000):
-            c.inc()
-            c.inc(3)
-            h.record(0.5)
-            h.record_many((0.1, 0.2))
-            with span:
-                pass
-            NULL_TRACER.instant("i")
+            record()
         s1 = tracemalloc.take_snapshot()
     finally:
         tracemalloc.stop()
