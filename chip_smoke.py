@@ -192,7 +192,27 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    step 5 and 5 more steps, against 10 straight (two straight runs give
    the gate: bitwise equal, the reference test's 1e-6 / 1e-7; else their
    spread), the step-3 checkpoint against a straight 3-step run.  No
-   kernel of this repository runs there (launch counts checked).
+   kernel of this repository runs there (launch counts checked);
+14. the LM half's MoE family (ROADMAP A8; ``phase14()``) at olmoe-1b-7b's
+   full size (16 layers, 64 experts top-8, capacity factor 1.25, bf16),
+   random weights from a seed: (a) cut to 2 layers, the card against the
+   port's CPU run (prefill logits and 8 decode steps on the CPU's greedy
+   tokens, then every parameter after 3 train steps at 2 x 128; gates
+   twice the CPU's own bfloat16-vs-float32 distance), the top-k flips a
+   layer between card and CPU and the dropped share printed; (b) the 16
+   layers through ``serve`` at batch 4, prompt 256, 32 tokens (prefill,
+   decode, tok/s, peak bytes above the weights, a decode step's and a
+   prefill's device time from a CUDA graph and the idle share, beside
+   the bounds: every weight read a decode step; the prefill's products
+   with 64 x C expert rows a layer, and its bytes), prefill(S) + decode(S)
+   against prefill(S + 1) at 0.15 on the rows whose last position kept
+   its experts and, on every row, at capacity factor 8 where nothing
+   drops; (c) ``launch.train.build(smoke=False)`` + ``train_loop``, 20
+   steps at 4 x 1,024 (the memory reckoned first), every loss, aux and
+   grad norm finite, aux > 0, the parameters moved, beside the step's
+   bound; (d) on (a)'s cut, straight runs, a restart from an async
+   checkpoint and the checkpoint itself, all bitwise.  No kernel of this
+   repository runs there (launch counts checked).
 
 Prints the features kernel's times by shape on a ``[features]`` line, one
 JSON line with every kernel's numbers (the features kernel's ``ms`` its
@@ -1480,6 +1500,37 @@ def phase11d(dev, fspec, compare, main, n_cards, Xq9, ten9) -> dict:
     return {"cards": S}
 
 
+def graph_device_ms(fn, replays: int = 5) -> float:
+    """The device's time for ``fn``'s work without the host between its
+    launches: one call captured in a CUDA graph (after two warm calls on
+    a side stream), the replays timed with CUDA events, median."""
+    import torch
+
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        g.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(replays):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        del g
+    return statistics.median(times)
+
+
 # phase 12, ROADMAP A8 (dense serving): qwen2-1.5b at full width
 # (repro_torch/configs/qwen2_1p5b.py: 28 layers, d_model 1,536, 12/2 heads
 # of 128, d_ff 8,960, vocab 151,936, bfloat16, tied embeddings), random
@@ -1528,33 +1579,7 @@ def phase12(dev, smi, compare) -> dict:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    @torch.no_grad()
-    def device_ms(fn, replays: int = 5) -> float:
-        """The device's time for ``fn``'s work without the host between its
-        launches: one call captured in a CUDA graph (after two warm calls on
-        a side stream), the replays timed with CUDA events, median."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            fn()
-        g.replay()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(replays):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            g.replay()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        del g
-        return statistics.median(times)
+    device_ms = graph_device_ms
 
     # -- (a) the card against the port's CPU run, 2 layers at full width --------
     cfg2 = dataclasses.replace(cfg, n_layers=LM["cpu_layers"])
@@ -1981,6 +2006,590 @@ def phase13(dev, smi, compare) -> dict:
     report["seconds"] = time.perf_counter() - t_phase
     print("[phase 13] " + json.dumps(report))
     print(f"[phase 13] took {report['seconds']:.1f} s")
+    return report
+
+
+# phase 14, ROADMAP A8's MoE part: olmoe-1b-7b at full size
+# (repro_torch/configs/olmoe_1b_7b.py: 16 layers, d_model 2,048, 16/16
+# heads of 128, 64 experts top-8 of width 1,024, capacity factor 1.25,
+# vocab 50,304, untied embeddings, bfloat16: 6.92e9 parameters), random
+# weights from a seed; (a) and (d) cut to 2 layers at full width, (b)
+# served and (c) trained at the full 16 layers; (c)'s batch is the
+# largest of 4, 2, 1 x 1,024 whose reckoned memory fits what is free; the
+# CPU's train steps of (a) at batch 1 x 128 (its bf16 and float32 steps at
+# 2 x 128 took 70-90 s of the phase)
+MOE = dict(arch="olmoe-1b-7b", cpu_layers=2, cpu_batch=2, cpu_prompt=64, cpu_steps=8,
+           cpu_train_batch=1, cpu_train_seq=128, cpu_train_steps=3,
+           batch=4, prompt_len=256, gen=32, train_batch=4, train_seq=1024, train_steps=20,
+           ckpt_steps=10, ckpt_at=5, ckpt_every=3, lr=3e-4, seed=0)
+
+
+class MoESpy:
+    """While active, records what each MoE FFN call routed, in call order:
+    ``topi`` (T, k) and the (T, k) mask of dropped assignments, copied to
+    the host (so never around a timed region or a graph capture); it wraps
+    ``repro_torch.models.moe._route`` and ``_dispatch_tables``."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe = moe
+        self.calls = []
+
+    def __enter__(self):
+        m = self.moe
+        self._route, self._tables = m._route, m._dispatch_tables
+
+        def route(p, x, cfg):
+            out = self._route(p, x, cfg)
+            self.calls.append({"topi": out[1].cpu()})
+            return out
+
+        def tables(topi, topv, T, k, C, e_lo, n_local, dtype):
+            out = self._tables(topi, topv, T, k, C, e_lo, n_local, dtype)
+            self.calls[-1]["dropped"] = (out[2] >= n_local * C).cpu()
+            return out
+
+        m._route, m._dispatch_tables = route, tables
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route, self.moe._dispatch_tables = self._route, self._tables
+        return False
+
+    def dropped(self) -> int:
+        return sum(int(c["dropped"].sum()) for c in self.calls)
+
+    def dropped_share(self, calls=None) -> float:
+        """The share of dropped assignments over ``calls`` (default all)."""
+        calls = self.calls if calls is None else calls
+        return (sum(int(c["dropped"].sum()) for c in calls)
+                / max(sum(c["dropped"].numel() for c in calls), 1))
+
+    def rows_lost(self, B: int, last_only: bool = False):
+        """(B,) bool: the batch row lost an assignment in some layer (at its
+        last position only, with ``last_only``)."""
+        import torch
+
+        lost = torch.zeros(B, dtype=torch.bool)
+        for c in self.calls:
+            d = c["dropped"].reshape(B, -1, c["dropped"].shape[-1])
+            lost |= (d[:, -1] if last_only else d.flatten(1)).any(dim=-1)
+        return lost
+
+
+def flipped_tokens(a: MoESpy, b: MoESpy) -> list:
+    """Tokens whose ordered top-k differs between two runs, call by call."""
+    check(len(a.calls) == len(b.calls), "the two runs made different numbers of MoE calls")
+    return [int((x["topi"] != y["topi"]).any(dim=1).sum()) for x, y in zip(a.calls, b.calls)]
+
+
+def phase14(dev, smi, compare) -> dict:
+    """The LM half's MoE family on the card at olmoe-1b-7b's full size:
+    (a) card against the port's CPU run at full width cut to 2 layers
+    (prefill logits and 8 decode steps on the CPU's greedy tokens, then 3
+    train steps, every parameter after them; gate: twice the CPU's own
+    bfloat16-vs-float32 distance), the top-k flips a layer between card
+    and CPU and the dropped share printed; (b) the 16 layers through
+    ``serve`` at batch 4, a 256-token prompt and 32 tokens (prefill first
+    and warm, decode ms a token, tok/s, peak bytes above the weights, a
+    decode step's and a prefill's device time from a CUDA graph and the
+    idle share, beside the bounds), prefill(S) + decode(S) against
+    prefill(S + 1) at 0.15 on the batch rows whose last position lost no
+    assignment, finite logits; (c) the 16 layers through
+    ``launch.train.build(smoke=False)`` and ``train_loop``, 20 steps at
+    4 x 1,024 (memory reckoned first), every loss, aux and grad norm
+    finite, aux > 0, the parameters moved (first step, warm median,
+    tokens/s, peak bytes above model and AdamW state, the bound); (d) on
+    (a)'s cut, two straight 10-step runs bitwise, 5 steps with an async
+    checkpoint at step 3 and a synchronous one at 5, a fresh model restored
+    from step 5 and 5 more, against them; the step-3 checkpoint against a
+    straight 3-step run."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch import checkpoint as tckpt
+    from repro_torch import optim
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import convert, get_model
+    from repro_torch.models import lm as tlm
+    from repro_torch.models import moe as tmoe
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+
+    t_phase = time.perf_counter()
+    cfg = ARCHS[MOE["arch"]].CONFIG
+    check(cfg.family == "moe" and not cfg.use_mla and cfg.n_layers == 16
+          and cfg.d_model == 2048 and cfg.n_experts == 64 and cfg.top_k == 8
+          and cfg.d_expert == 1024 and cfg.capacity_factor == 1.25 and cfg.vocab == 50304
+          and cfg.dtype == "bfloat16" and not cfg.tie_embeddings and cfg.remat,
+          "phase 14 runs olmoe-1b-7b's full configuration")
+    free, total = torch.cuda.mem_get_info()
+    report = {"card": smi, "free_bytes_at_start": free,
+              "held_at_start": torch.cuda.memory_allocated()}
+    print(f"[phase 14] {smi}: {cfg.arch_id}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.n_experts} experts "
+          f"top-{cfg.top_k} of width {cfg.d_expert}, capacity factor {cfg.capacity_factor}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}, {cfg.param_count() / 1e9:.3f}e9 parameters; the "
+          f"card's free memory {free / 1e9:.2f} GB of {total / 1e9:.2f} GB, earlier phases "
+          f"hold {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    ops.reset_launch_counts()
+    E, k = cfg.n_experts, cfg.top_k
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- (a) the card against the port's CPU run, 2 layers at full width --------
+    cfg2 = dataclasses.replace(cfg, n_layers=MOE["cpu_layers"])
+    m2, m2_32 = get_model(cfg2), get_model(dataclasses.replace(cfg2, dtype="float32"))
+    t0 = time.perf_counter()
+    cpu_p = m2.init_params(torch.Generator().manual_seed(MOE["seed"]))
+    cpu_p32 = copy.deepcopy(cpu_p).float()          # the same values in float32
+    card_p = copy.deepcopy(cpu_p).to(dev)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(MOE["seed"])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(MOE["cpu_batch"],
+                                                             MOE["cpu_prompt"])))
+    cap = MOE["cpu_prompt"] + MOE["cpu_steps"]
+
+    @torch.no_grad()
+    def run(model, params, feed):
+        """Prefill, then one decode step per token of ``feed`` (None: the
+        run's own greedy tokens); (logits per step, tokens fed, its spy)."""
+        d = params.device
+        with MoESpy() as spy:
+            logits, cache = model.prefill(params, {"tokens": toks.to(d)}, cache_len=cap)
+            out, fed = [logits.float().cpu()], []
+            for i in range(MOE["cpu_steps"]):
+                tok = (torch.argmax(logits, -1)[:, None] if feed is None else feed[i].to(d))
+                fed.append(tok.cpu())
+                logits, cache = model.decode_step(
+                    params, {"token": tok, "pos": MOE["cpu_prompt"] + i}, cache)
+                out.append(logits.float().cpu())
+        return out, fed, spy
+
+    t0 = time.perf_counter()
+    ref, fed, spy_cpu = run(m2, cpu_p, None)
+    ref32, _, spy_32 = run(m2_32, cpu_p32, fed)
+    serve_cpu_s = time.perf_counter() - t0
+    got, _, spy_card = run(m2, card_p, fed)
+    bf16_vs_f32 = max(float((a - b).abs().max()) for a, b in zip(ref, ref32))
+    serve_err = compare(
+        f"MoE card vs CPU ({cfg.arch_id} cut to {MOE['cpu_layers']} layers, prefill + "
+        f"{MOE['cpu_steps']} decode steps on the CPU's greedy tokens, logits)",
+        got, ref, rtol=0.0, atol=2.0 * bf16_vs_f32,
+        why=f"twice the CPU's bfloat16-vs-float32 distance, {bf16_vs_f32:.4e}")
+    L2 = MOE["cpu_layers"]
+
+    def by_layer(fl):
+        return [sum(fl[i::L2]) for i in range(L2)]
+
+    fl_card, fl_32 = flipped_tokens(spy_card, spy_cpu), flipped_tokens(spy_32, spy_cpu)
+    flips_a = {"prefill_tokens": MOE["cpu_batch"] * MOE["cpu_prompt"],
+               "prefill_card_vs_cpu": fl_card[:L2], "prefill_cpu_f32_vs_bf16": fl_32[:L2],
+               "decode_tokens": MOE["cpu_batch"] * MOE["cpu_steps"],
+               "decode_card_vs_cpu": by_layer(fl_card[L2:]),
+               "decode_cpu_f32_vs_bf16": by_layer(fl_32[L2:]),
+               "dropped_share_prefill": spy_cpu.dropped_share(spy_cpu.calls[:L2]),
+               "dropped_share_card": spy_card.dropped_share(),
+               "dropped_share_cpu": spy_cpu.dropped_share()}
+    print(f"[phase 14] (a) top-k flips a layer, tokens whose experts differ: prefill "
+          f"({flips_a['prefill_tokens']} tokens) card vs CPU {fl_card[:L2]}, CPU float32 vs "
+          f"bfloat16 {fl_32[:L2]}; decode ({flips_a['decode_tokens']} tokens) card vs CPU "
+          f"{flips_a['decode_card_vs_cpu']}, CPU float32 vs bfloat16 "
+          f"{flips_a['decode_cpu_f32_vs_bf16']}; dropped share: the CPU's prefill "
+          f"{flips_a['dropped_share_prefill']:.4f}, all calls CPU "
+          f"{spy_cpu.dropped_share():.4f} card {spy_card.dropped_share():.4f}")
+    del got, ref, ref32
+
+    ocfg = optim.AdamWConfig(lr=optim.warmup_cosine(MOE["lr"], 20, 10_000))
+    stream2 = TokenStream(vocab=cfg.vocab, seq=MOE["cpu_train_seq"],
+                          global_batch=MOE["cpu_train_batch"], seed=MOE["seed"])
+
+    def steps(model, params, n, opt=None, start=0):
+        """``n`` train steps from ``start``; (params, opt, [(loss, aux, grad
+        norm)])."""
+        opt = optim.init(tlm.leaves(params), ocfg) if opt is None else opt
+        step = make_train_step(model, ocfg)
+        out = []
+        for s in range(start, start + n):
+            _, opt, m = step(params, opt, stream2.batch(s, device=params.device))
+            out.append((float(m["loss"]), float(m["aux"]), float(m["grad_norm"])))
+        return params, opt, out
+
+    def host(params):
+        return [t.detach().float().cpu() for t in tlm.leaves(params).values()]
+
+    t0 = time.perf_counter()
+    cpu_o, cpu_m = steps(m2, cpu_p, MOE["cpu_train_steps"])[1:]
+    t1 = time.perf_counter()
+    cpu32_o, cpu32_m = steps(m2_32, cpu_p32, MOE["cpu_train_steps"])[1:]
+    t2 = time.perf_counter()
+    card_o, card_m = steps(m2, card_p, MOE["cpu_train_steps"])[1:]
+    ref, ref32, got = host(cpu_p), host(cpu_p32), host(card_p)
+    train_bf16_vs_f32 = max(float((a - b).abs().max()) for a, b in zip(ref, ref32))
+    for i, (c, r, r32) in enumerate(zip(card_m, cpu_m, cpu32_m)):
+        print(f"[phase 14] (a) step {i + 1}: loss card {c[0]:.6f} cpu {r[0]:.6f} cpu-f32 "
+              f"{r32[0]:.6f}; aux card {c[1]:.6e} cpu {r[1]:.6e} cpu-f32 {r32[1]:.6e}; "
+              f"grad norm card {c[2]:.6f} cpu {r[2]:.6f} cpu-f32 {r32[2]:.6f}")
+    check(all(math.isfinite(v) for m in card_m for v in m) and all(m[1] > 0 for m in card_m),
+          "(a) the card's losses, aux and grad norms finite, aux > 0")
+    train_err = compare(
+        f"MoE train card vs CPU ({cfg.arch_id} cut to {L2} layers, "
+        f"{MOE['cpu_train_steps']} steps at {MOE['cpu_train_batch']} x "
+        f"{MOE['cpu_train_seq']}, every parameter)", got, ref, rtol=0.0,
+        atol=2.0 * train_bf16_vs_f32,
+        why=f"twice the CPU's bfloat16-vs-float32 distance, {train_bf16_vs_f32:.4e}")
+    loss_gap = max(abs(c[0] - r[0]) for c, r in zip(card_m, cpu_m))
+    loss_gap32 = max(abs(r[0] - r32[0]) for r, r32 in zip(cpu_m, cpu32_m))
+    check(loss_gap <= 2.0 * loss_gap32,
+          f"(a) card loss {loss_gap:.3e} from the CPU's, over twice its bf16-vs-f32 "
+          f"{loss_gap32:.3e}")
+    report["card_vs_cpu"] = {
+        "serve_max_abs_err": serve_err, "serve_cpu_bf16_vs_f32": bf16_vs_f32,
+        "flips": flips_a, "train_max_abs_err": train_err,
+        "train_cpu_bf16_vs_f32": train_bf16_vs_f32, "loss_card_vs_cpu": loss_gap,
+        "loss_bf16_vs_f32": loss_gap32, "card": card_m, "cpu": cpu_m, "cpu_f32": cpu32_m,
+        "init_s": init_s, "serve_cpu_s": serve_cpu_s, "train_cpu_bf16_s": t1 - t0,
+        "train_cpu_f32_s": t2 - t1, "seconds": time.perf_counter() - t_phase}
+    print(f"[phase 14] (a) on the CPU: init and copies {init_s:.1f} s, prefill + decode "
+          f"bf16 and f32 {serve_cpu_s:.1f} s, {MOE['cpu_train_steps']} bfloat16 steps "
+          f"{t1 - t0:.1f} s, {MOE['cpu_train_steps']} float32 steps {t2 - t1:.1f} s "
+          f"({torch.get_num_threads()} threads); (a) took "
+          f"{report['card_vs_cpu']['seconds']:.1f} s")
+    del cpu_p, cpu_p32, card_p, cpu_o, cpu32_o, card_o, ref, ref32, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) the 16-layer model as serve drives it ------------------------------
+    B_, P = MOE["batch"], MOE["prompt_len"]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    served = tserve.serve(MOE["arch"], smoke=False, batch=B_, prompt_len=P, gen=MOE["gen"],
+                          seed=MOE["seed"])
+    serve_peak = torch.cuda.max_memory_allocated() - base
+    check(served["generated"].shape == (B_, MOE["gen"])
+          and ((served["generated"] >= 0) & (served["generated"] < cfg.vocab)).all(),
+          "serve's generated tokens")
+    torch.cuda.empty_cache()
+    model = get_model(cfg)
+    params = model.init_params(MOE["seed"], device=dev)
+    held = sum(p.numel() * p.element_size() for p in params.parameters())
+    emb_bytes = params.tok_emb.numel() * params.tok_emb.element_size()
+    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2      # k and v, bf16
+    # a decode step reads every weight but the embedding table (a gather of
+    # B rows): all 64 experts' C = 8 slots run, padding included, as in the
+    # reference; the cache's valid positions
+    bytes_decode = held - emb_bytes + B_ * (P + MOE["gen"] // 2) * kv_row
+    bound_decode_ms = bytes_decode / PEAK_BYTES * 1e3
+    # a prefill: the products with the expert rows counted as E x C slot
+    # rows (C = capacity(B S), the padding included), the attention
+    # projections and router for every token, each layer's two S x S
+    # products (float32, formed whole), the unembedding for the last token
+    T_ = B_ * P
+    C_ = tmoe.capacity(T_, cfg)
+    attn_w = 4 * cfg.d_model * cfg.n_heads * cfg.head_dim
+    f_bf16 = cfg.n_layers * (2.0 * attn_w * T_ + 6.0 * cfg.d_model * cfg.d_expert * E * C_) \
+        + 2.0 * cfg.vocab * cfg.d_model * B_
+    f_f32 = cfg.n_layers * (2.0 * cfg.d_model * E * T_
+                            + 4.0 * B_ * cfg.n_heads * P * P * cfg.head_dim)
+    bound_prefill_ops_ms = (f_bf16 / PEAK_BF16 + f_f32 / PEAK_F32) * 1e3
+    bound_prefill_bytes_ms = (held - emb_bytes + T_ * kv_row) / PEAK_BYTES * 1e3
+    bound_prefill_ms = max(bound_prefill_ops_ms, bound_prefill_bytes_ms)
+    toks = torch.from_numpy(np.random.default_rng(MOE["seed"]).integers(
+        0, cfg.vocab, size=(B_, P + 1))).to(dev)
+    cap = P + MOE["gen"]
+    with torch.no_grad():
+        pre_s = []
+        for _ in range(6):
+            (logits, cache), s_ = sync_s(lambda: model.prefill(
+                params, {"tokens": toks[:, :P]}, cache_len=cap))
+            pre_s.append(s_)
+        tok = torch.argmax(logits, -1)[:, None]
+        dec_s = []
+        for i in range(MOE["gen"]):
+            (logits_d, cache), s_ = sync_s(lambda: model.decode_step(
+                params, {"token": tok, "pos": P + i}, cache))
+            dec_s.append(s_)
+            tok = torch.argmax(logits_d, -1)[:, None]
+    check(bool(torch.isfinite(logits).all() and torch.isfinite(logits_d).all()),
+          "non-finite MoE logits")
+    # tests/test_arch_smoke.py:65-83 at full width: prefill(S) + decode(S)
+    # against prefill(S + 1).  It holds exactly where the full forward
+    # dropped nothing at the compared position; at capacity factor 1.25 the
+    # prefills drop assignments (ranks are token-major, so the last rows
+    # lose first), the decode step (C = 8 for 4 tokens) none.  So the gate
+    # holds on the rows whose last position kept its experts in every
+    # layer, and again on every row at capacity factor E / k, where C = T
+    # and nothing can drop (the reference test's regime: its SMOKE config
+    # runs at 8.0), on the same weights
+    def consistency(m):
+        with torch.no_grad():
+            with MoESpy() as spy_s:
+                _, c1 = m.prefill(params, {"tokens": toks[:, :P]}, cache_len=P + 1)
+            with MoESpy() as spy_d:
+                ld, _ = m.decode_step(params, {"token": toks[:, P:], "pos": P}, c1)
+            with MoESpy() as spy_f:
+                lf, _ = m.prefill(params, {"tokens": toks})
+        check(bool(torch.isfinite(ld).all() and torch.isfinite(lf).all()),
+              "non-finite MoE logits")
+        check(spy_d.dropped() == 0 and len(spy_d.calls) == cfg.n_layers,
+              f"a decode step at batch {B_} dropped {spy_d.dropped()} assignments")
+        # tokens of the compared position routed to other experts by the
+        # step than by the full forward, over the layers
+        flips = sum(int((d["topi"] != f["topi"].reshape(B_, P + 1, -1)[:, -1]).any(-1).sum())
+                    for d, f in zip(spy_d.calls, spy_f.calls))
+        return ld.cpu(), lf.cpu(), spy_s, spy_f, flips
+
+    cf8 = E / k
+    ld, lf, spy_s, spy_f, flips = consistency(model)
+    lost_last = [int(sum(c["dropped"].reshape(B_, P + 1, -1)[b, -1].sum() for c in spy_f.calls))
+                 for b in range(B_)]
+    kept = torch.tensor([n_ == 0 for n_ in lost_last])
+    diff = (ld - lf).abs().amax(dim=-1)
+    consist = {"dropped_share_prefill_S": spy_s.dropped_share(),
+               "dropped_share_prefill_S1": spy_f.dropped_share(),
+               "last_position_lost_by_row": lost_last,
+               "rows_without_any_drop": int((~(spy_s.rows_lost(B_) | spy_f.rows_lost(B_))).sum()),
+               "rows_checked": int(kept.sum()), "max_abs_diff_by_row": diff.tolist()}
+    if kept.any():
+        consist["max_abs_err"] = compare(
+            f"MoE prefill({P}) + decode_step vs prefill({P + 1}) (last-token logits, "
+            f"{cfg.n_layers} layers, capacity factor {cfg.capacity_factor}, the "
+            f"{int(kept.sum())} of {B_} rows whose last position kept its {k} experts in "
+            f"every layer)", [ld[kept]], [lf[kept]], rtol=0.15, atol=0.15,
+            why="tests/test_arch_smoke.py:81-83 gate")
+    ld8, lf8, spy_s8, spy_f8, flips8 = consistency(get_model(dataclasses.replace(
+        cfg, capacity_factor=cf8)))
+    consist.update(topk_flips=flips, topk_flips_cf8=flips8)
+    check(spy_s8.dropped() == 0 and spy_f8.dropped() == 0,
+          f"capacity factor {cf8} dropped assignments")
+    consist["max_abs_err_cf8"] = compare(
+        f"MoE prefill({P}) + decode_step vs prefill({P + 1}) (last-token logits, "
+        f"{cfg.n_layers} layers, capacity factor {cf8}: nothing dropped, every row)",
+        [ld8], [lf8], rtol=0.15, atol=0.15, why="tests/test_arch_smoke.py:81-83 gate")
+    print(f"[phase 14] (b) capacity drops at {cfg.capacity_factor}: prefill({P}) at C = "
+          f"{tmoe.capacity(B_ * P, cfg)} dropped {spy_s.dropped_share():.5f} of its "
+          f"assignments, prefill({P + 1}) at C = {tmoe.capacity(B_ * (P + 1), cfg)} "
+          f"{spy_f.dropped_share():.5f}, the decode step at C = {tmoe.capacity(B_, cfg)} "
+          f"none; assignments lost at the last position, by row, over the {cfg.n_layers} "
+          f"layers: {lost_last}; rows checked {int(kept.sum())} of {B_}; max |prefill + "
+          f"decode - prefill(S + 1)| by row {[round(v, 4) for v in diff.tolist()]}; at "
+          f"capacity factor {cf8} (C = T) {consist['max_abs_err_cf8']:.4f} over every row; "
+          f"the last position's top-k flips between the step and the full forward, rows x "
+          f"layers of {B_} x {cfg.n_layers}: {flips} at {cfg.capacity_factor}, {flips8} at "
+          f"{cf8}")
+    del spy_s, spy_f, spy_s8, spy_f8
+    warm_prefill_ms = statistics.median(pre_s[1:]) * 1e3
+    warm_decode_ms = statistics.median(dec_s) * 1e3
+    dec_dev = graph_device_ms(lambda: model.decode_step(
+        params, {"token": tok, "pos": P}, cache))
+    pre_dev = graph_device_ms(lambda: model.prefill(
+        params, {"tokens": toks[:, :P]}, cache_len=cap))
+    report["serve"] = {
+        "batch": B_, "prompt_len": P, "gen": MOE["gen"],
+        "prefill_first_ms": served["prefill_s"] * 1e3, "prefill_warm_ms": warm_prefill_ms,
+        "decode_ms_per_token": served["decode_s_per_token"] * 1e3,
+        "decode_warm_median_ms": warm_decode_ms, "tokens_per_s": served["tokens_per_s"],
+        "decode_device_ms": dec_dev, "prefill_device_ms": pre_dev,
+        "decode_idle_share": 1.0 - dec_dev / warm_decode_ms,
+        "prefill_idle_share": 1.0 - pre_dev / warm_prefill_ms,
+        "param_bytes_held": held, "peak_bytes": serve_peak,
+        "peak_above_weights": serve_peak - held, "held_before_bytes": base,
+        "bound_decode_ms": bound_decode_ms, "decode_bytes": bytes_decode,
+        "prefill_capacity": C_, "prefill_bf16_tflop": f_bf16 / 1e12,
+        "prefill_f32_tflop": f_f32 / 1e12, "bound_prefill_ops_ms": bound_prefill_ops_ms,
+        "bound_prefill_bytes_ms": bound_prefill_bytes_ms, "bound_prefill_ms": bound_prefill_ms,
+        "consistency": consist}
+    print(f"[phase 14] {smi}: serve({MOE['arch']}, batch {B_}, prompt {P}, gen "
+          f"{MOE['gen']}): prefill {served['prefill_s'] * 1e3:.2f} ms first, "
+          f"{warm_prefill_ms:.2f} ms warm (bound {bound_prefill_ms:.3f} ms: operations "
+          f"{bound_prefill_ops_ms:.3f} ms, {f_bf16 / 1e12:.3f} TFLOP bf16 with {E} x "
+          f"{C_} expert rows a layer + {f_f32 / 1e12:.4f} TFLOP float32; bytes "
+          f"{bound_prefill_bytes_ms:.3f} ms); decode "
+          f"{served['decode_s_per_token'] * 1e3:.3f} ms a token in serve, "
+          f"{warm_decode_ms:.3f} ms warm median a step (bound {bound_decode_ms:.3f} ms: "
+          f"{bytes_decode / 1e9:.3f} GB at 3.35 TB/s); {served['tokens_per_s']:.1f} tok/s; "
+          f"serve's peak {serve_peak / 1e9:.3f} GB, {(serve_peak - held) / 1e9:.3f} GB above "
+          f"the {held / 1e9:.3f} GB of weights ({base / 1e9:.3f} GB held before); device "
+          f"time from a CUDA graph: decode step {dec_dev:.3f} ms (idle "
+          f"{100 * (1 - dec_dev / warm_decode_ms):.1f}% of the eager step), prefill "
+          f"{pre_dev:.3f} ms (idle {100 * (1 - pre_dev / warm_prefill_ms):.1f}%)")
+    del params, model, cache, logits, logits_d, ld, lf, ld8, lf8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) the 16 layers through launch/train.py's build and train_loop ------
+    S_ = MOE["train_seq"]
+    state_bytes = 4 * held                    # weights, gradients, AdamW's m and v
+
+    def act_bytes(b):
+        """What a step holds beside the state, reckoned: each block's input
+        (per-block remat), one block's recomputed expert buffers and their
+        gradients (gathered rows, outputs, products: E x C slot rows), the
+        float32 S x S attention scores, probabilities and their gradient,
+        and a loss chunk's float32 logits, their softmax and gradient."""
+        T = b * S_
+        C = tmoe.capacity(T, cfg)
+        return (cfg.n_layers * T * cfg.d_model * 2 + 8 * E * C * cfg.d_model * 2
+                + 6 * E * C * cfg.d_expert * 2 + 3 * b * cfg.n_heads * S_ * S_ * 4
+                + 3 * b * min(cfg.logits_chunk, S_) * cfg.vocab * 4)
+
+    free = torch.cuda.mem_get_info()[0]
+    bt = MOE["train_batch"]
+    while bt > 1 and state_bytes + act_bytes(bt) > free:
+        bt //= 2
+    print(f"[phase 14] (c) memory reckoned: weights, gradients and AdamW state "
+          f"{state_bytes / 1e9:.2f} GB + a step's activations {act_bytes(bt) / 1e9:.2f} GB "
+          f"at batch {bt} x {S_} (at {MOE['train_batch']}: {act_bytes(MOE['train_batch']) / 1e9:.2f}"
+          f" GB); free {free / 1e9:.2f} GB")
+    T_ = bt * S_
+    C_ = tmoe.capacity(T_, cfg)
+    # the products as the code runs them: forward, backward (twice the
+    # forward), the blocks' remat forward and the loss chunk's recomputed
+    # logits: the projections and the E x C expert rows in bfloat16, the
+    # router and the attention's S x S products in float32
+    f_blocks = cfg.n_layers * (2.0 * attn_w * T_ + 6.0 * cfg.d_model * cfg.d_expert * E * C_)
+    f_unembed = 2.0 * cfg.vocab * cfg.d_model * T_
+    f_attn = cfg.n_layers * 4.0 * bt * cfg.n_heads * S_ * S_ * cfg.head_dim
+    f_router = cfg.n_layers * 2.0 * T_ * cfg.d_model * E
+    bf16_flop = 4.0 * (f_blocks + f_unembed)
+    f32_flop = 4.0 * (f_attn + f_router)
+    bound_ms = (bf16_flop / PEAK_BF16 + f32_flop / PEAK_F32) * 1e3
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cfg_b, model, params, opt_state, step_fn, stream, extras, shardings = ttrain.build(
+        MOE["arch"], smoke=False, batch=bt, seq=S_, lr=MOE["lr"], seed=MOE["seed"],
+        device=dev)
+    check(cfg_b == cfg and shardings == (None, None), "(c) build's configuration")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held_c = torch.cuda.memory_allocated() - base
+    last = cfg.n_layers - 1
+    watch = {k_: v.detach().clone() for k_, v in tlm.leaves(params).items()
+             if k_ in ("final_norm", "blocks.0.ln1", "blocks.0.moe.router",
+                       f"blocks.{last}.attn.wq", f"blocks.{last}.moe.wd")}
+    emb_rows = params.tok_emb[:4096].detach().clone()
+    auxes = []
+
+    def step_rec(p, o, b):
+        out = step_fn(p, o, b)
+        auxes.append(out[2]["aux"])
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, rep = train_loop(step_rec, params, opt_state,
+                                        lambda s: stream.batch(s, extras, device=dev),
+                                        TrainLoopConfig(steps=MOE["train_steps"], ckpt_dir=None,
+                                                        log_every=1, handle_signals=False),
+                                        log_fn=lambda s: None)
+    peak = torch.cuda.max_memory_allocated() - base
+    hist = rep["history"]
+    aux_v = [float(a) for a in auxes]
+    check(len(hist) == MOE["train_steps"] and rep["final_step"] == MOE["train_steps"],
+          "(c) ran every step")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist)
+          and all(math.isfinite(a) and a > 0 for a in aux_v),
+          "(c) every loss, aux and grad norm finite, aux > 0")
+    moved = {k_: not torch.equal(v, tlm.leaves(params)[k_]) for k_, v in watch.items()}
+    moved["tok_emb[:4096]"] = not torch.equal(emb_rows, params.tok_emb[:4096])
+    check(all(moved.values()), f"(c) the parameters moved: {moved}")
+    secs = [h["sec_per_step"] for h in hist]
+    warm = statistics.median(secs[1:])
+    report["train"] = {
+        "batch": bt, "seq": S_, "steps": MOE["train_steps"], "capacity": C_,
+        "build_s": build_s, "first_step_s": secs[0], "warm_median_s": warm,
+        "warm_min_s": min(secs[1:]), "warm_max_s": max(secs[1:]), "tokens_per_s": T_ / warm,
+        "losses": [h["loss"] for h in hist], "aux": aux_v,
+        "grad_norms": [h["grad_norm"] for h in hist], "stragglers": rep["stragglers"],
+        "held_bytes": held_c, "peak_bytes": peak, "peak_above_state": peak - held_c,
+        "held_before_bytes": base, "reckoned_state_bytes": state_bytes,
+        "reckoned_act_bytes": act_bytes(bt), "bf16_tflop": bf16_flop / 1e12,
+        "f32_tflop": f32_flop / 1e12, "bound_ms": bound_ms}
+    print(f"[phase 14] {smi}: train({MOE['arch']}, {cfg.n_layers} layers, batch {bt} x "
+          f"{S_}, {MOE['train_steps']} steps, {E} x {C_} expert rows a layer): first step "
+          f"{secs[0]:.3f} s, warm median {warm * 1e3:.1f} ms "
+          f"({min(secs[1:]) * 1e3:.1f}-{max(secs[1:]) * 1e3:.1f}), {T_ / warm:.0f} tokens/s; "
+          f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, aux {aux_v[0]:.5f} -> "
+          f"{aux_v[-1]:.5f}; bound {bound_ms:.1f} ms ({bf16_flop / 1e12:.2f} TFLOP bf16 at "
+          f"989 TFLOP/s + {f32_flop / 1e12:.2f} TFLOP float32 at 67 TFLOP/s); model and "
+          f"AdamW state held {held_c / 1e9:.3f} GB, the steps' peak {(peak - held_c) / 1e9:.3f}"
+          f" GB above it ({base / 1e9:.3f} GB held before); built in {build_s:.1f} s")
+    del params, opt_state, step_fn, model, watch, emb_rows, auxes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) checkpoint and restart on (a)'s cut ----------------------------------
+    n, at = MOE["ckpt_steps"], MOE["ckpt_at"]
+
+    def fresh():
+        p = m2.init_params(MOE["seed"], device=dev)
+        return p, optim.init(tlm.leaves(p), ocfg)
+
+    def loop(params, opt, n_steps, ckpt_dir=None, every=MOE["ckpt_every"]):
+        return train_loop(make_train_step(m2, ocfg), params, opt,
+                          lambda s: stream2.batch(s, device=dev),
+                          TrainLoopConfig(steps=n_steps, ckpt_dir=ckpt_dir, ckpt_every=every,
+                                          log_every=1000, handle_signals=False),
+                          log_fn=lambda s: None)
+
+    t0 = time.perf_counter()
+    straight = [host(loop(*fresh(), n)[0]) for _ in range(2)]
+    straight_s = time.perf_counter() - t0
+    bitwise = all(torch.equal(a, b) for a, b in zip(*straight))
+    check(bitwise, "(d) two straight runs on the card are not bitwise equal")
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        loop(*fresh(), at, td)                        # async at step 3, sync at 5
+        first_s = time.perf_counter() - t0
+        check(tckpt.latest_step(td) == at, "(d) the checkpoint of step 5")
+        ckpt_bytes = sum(f.stat().st_size for f in Path(td).rglob("*") if f.is_file())
+        p3, o3 = fresh()
+        steps(m2, p3, MOE["ckpt_every"], opt=o3)
+        _, tree3 = tckpt.restore(td, convert.train_state_keys(p3), step=MOE["ckpt_every"],
+                                 device="cpu")
+        p_chk, o_chk = fresh()
+        convert.load_train_state(p_chk, o_chk, tree3)
+        async_bitwise = all(torch.equal(a, b) for a, b in zip(host(p_chk), host(p3)))
+        del tree3, p3, o3, p_chk, o_chk
+        t0 = time.perf_counter()
+        resumed, resumed_o, rep_d = loop(*fresh(), n, td, every=n)   # writes step 10 only
+        resume_s = time.perf_counter() - t0
+        check(rep_d["final_step"] == n, "(d) the resumed run reached step 10")
+        got = host(resumed)
+        del resumed, resumed_o
+    resume_bitwise = all(torch.equal(a, b) for a, b in zip(got, straight[0]))
+    check(resume_bitwise, "(d) the resumed run is not bitwise the straight run")
+    check(async_bitwise, "(d) the async step-3 checkpoint is not bitwise a straight 3-step run")
+    report["restart"] = {"straight_bitwise": bitwise, "resume_bitwise": resume_bitwise,
+                         "async_ckpt_bitwise": async_bitwise, "ckpt_bytes_both": ckpt_bytes,
+                         "straight_two_runs_s": straight_s, "first_half_s": first_s,
+                         "resume_s": resume_s}
+    print(f"[phase 14] {smi}: restart ({L2} layers at full width, batch "
+          f"{MOE['cpu_train_batch']} x {MOE['cpu_train_seq']}): two straight {n}-step runs "
+          f"bitwise {bitwise} ({straight_s:.1f} s); {at} steps, a fresh model restored, "
+          f"{n - at} more = straight bitwise {resume_bitwise}; the async step-3 checkpoint = "
+          f"a straight 3-step run bitwise {async_bitwise}; the checkpoints of steps 3 and 5 "
+          f"{ckpt_bytes / 1e9:.2f} GB; 5 steps and both writes {first_s:.1f} s; the restore, "
+          f"5 steps and the write of step 10 {resume_s:.1f} s")
+    check(ops.launch_counts() == NO_LAUNCHES,
+          f"the MoE path launched a kernel: {ops.launch_counts()}")
+    del straight, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print("[phase 14] " + json.dumps(report))
+    print(f"[phase 14] took {report['seconds']:.1f} s")
     return report
 
 
@@ -3641,6 +4250,9 @@ def main() -> int:
 
     # -- 13. the LM half's training path (ROADMAP A8) -------------------------
     phase13(dev, smi, compare)
+
+    # -- 14. the LM half's MoE family (ROADMAP A8) ----------------------------
+    phase14(dev, smi, compare)
 
     # -- results --------------------------------------------------------------
     kernels = []

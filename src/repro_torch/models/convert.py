@@ -25,7 +25,7 @@ import torch
 
 from ..device import resolve_device
 from .config import ModelConfig
-from .lm import LM, DenseBlock, _dtype, leaf_paths
+from .lm import LM, _block_type, _dtype, leaf_paths
 
 __all__ = ["lm_params_from_jax", "lm_params_to_jax", "train_state_to_jax",
            "train_state_keys", "load_train_state"]
@@ -37,23 +37,28 @@ def _t(a, dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+# leaves the reference keeps in float32 whatever the model dtype
+F32_LEAVES = ("ln1", "ln2", "final_norm", "router")
+
+
 def lm_params_from_jax(tree: Mapping, cfg: ModelConfig, device=None) -> LM:
-    """The dense family's parameters on ``device`` (default the card):
-    weights and biases in the model dtype, norms in float32, as the
-    reference keeps them."""
-    if cfg.family != "dense" or cfg.use_mla:
-        raise ValueError(f"lm_params_from_jax converts the dense family, not {cfg.family!r}")
+    """The dense or (non-MLA) MoE family's parameters on ``device``
+    (default the card): weights and biases in the model dtype, norms and
+    the MoE router in float32, as the reference keeps them; an MoE block's
+    expert leaves stay stacked (E, ...) over experts."""
+    Block = _block_type(cfg)
     device = resolve_device(device)
     dt = _dtype(cfg)
     f32 = torch.float32
     bl = tree["blocks"]
-    blocks = [
-        DenseBlock(_t(bl["ln1"][l], f32, device),
-                   {k: _t(v[l], dt, device) for k, v in bl["attn"].items()},
-                   _t(bl["ln2"][l], f32, device),
-                   {k: _t(v[l], dt, device) for k, v in bl["mlp"].items()})
-        for l in range(cfg.n_layers)
-    ]
+
+    def sub(name, l):
+        return {k: _t(v[l], f32 if k in F32_LEAVES else dt, device)
+                for k, v in bl[name].items()}
+
+    blocks = [Block(_t(bl["ln1"][l], f32, device), sub("attn", l),
+                    _t(bl["ln2"][l], f32, device), sub(Block.FFN, l))
+              for l in range(cfg.n_layers)]
     head = None if cfg.tie_embeddings else _t(tree["lm_head"], dt, device)
     return LM(cfg, _t(tree["tok_emb"], dt, device), _t(tree["final_norm"], f32, device),
               blocks, head)

@@ -1,14 +1,20 @@
-"""Decoder-only LM assembly, dense family: the port of the dense parts of
-``repro/models/lm.py`` (``_dtype``, the "dense" block's init and apply,
-``init_params``, ``forward`` with its per-block remat, ``_unembed``,
-``xent_chunked``, ``loss_fn``, ``init_cache``, ``_dense_block_decode``,
-``decode_step`` and ``prefill``).
+"""Decoder-only LM assembly, dense and MoE families: the port of the dense
+and (non-MLA) MoE parts of ``repro/models/lm.py`` (``_dtype``, the
+"dense" and "moe" blocks' init and apply, ``init_params``, ``forward``
+with its per-block remat and its aux loss, ``_unembed``, ``xent_chunked``,
+``loss_fn``, ``init_cache``, ``_dense_block_decode`` and
+``_moe_block_decode`` (one ``_block_decode`` here), ``decode_step`` and
+``prefill``).
 
 The model is an ``nn.Module`` (:class:`LM`) holding a ``ModuleList`` of
-:class:`DenseBlock`; every parameter keeps the reference's leaf name
-(``tok_emb``, ``final_norm``, ``lm_head``, ``blocks.<l>.ln1``,
-``blocks.<l>.attn.wq`` ...) and its ``(d_in, d_out)`` orientation, and a
-block reads like the reference's parameter dict (``lp["attn"]["wq"]``).
+:class:`DenseBlock` or :class:`MoEBlock`; every parameter keeps the
+reference's leaf name (``tok_emb``, ``final_norm``, ``lm_head``,
+``blocks.<l>.ln1``, ``blocks.<l>.attn.wq``, ``blocks.<l>.moe.wg`` ...) and
+its orientation, and a block reads like the reference's parameter dict
+(``lp["attn"]["wq"]``, ``lp["moe"]["router"]``).  An MoE block's FFN is
+:func:`repro_torch.models.moe.moe_dispatch` over the block's (B * S, d)
+tokens; its aux loss is summed over the layers in layer order, as the
+reference's scan carries it.
 The reference stacks the blocks (L, ...) and scans over them; here a loop
 over the list does the same, and the cache is ``{"k", "v"}`` of shape
 (L, B, S, K, Dh) as there.
@@ -28,8 +34,8 @@ chunk's logits in the backward pass, so neither pass holds a (B, S, V)
 tensor.  :func:`leaves` names the trainable tensors in the reference's
 tree order.
 
-MoE, MLA (with its MTP loss), SSM/hybrid, audio and VLM families come with
-A8's later parts (``repro_torch.models`` refuses them).
+MLA (with its MTP loss), SSM/hybrid, audio and VLM families come with A8's
+later parts (``repro_torch.models`` refuses them).
 """
 from __future__ import annotations
 
@@ -41,12 +47,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from . import layers
+from . import layers, moe
 from .config import ModelConfig
 
-__all__ = ["LM", "DenseBlock", "init_params", "forward", "prefill", "decode_step",
-           "init_cache", "xent_chunked", "loss_fn", "leaves", "leaf_paths", "ref_ndims",
-           "trainable"]
+__all__ = ["LM", "DenseBlock", "MoEBlock", "init_params", "forward", "prefill",
+           "decode_step", "init_cache", "xent_chunked", "loss_fn", "leaves", "leaf_paths",
+           "ref_ndims", "trainable"]
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -58,23 +64,50 @@ def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
                              for k, v in tensors.items()})
 
 
-class DenseBlock(nn.Module):
-    """One "dense" block: ln1, attn, ln2, mlp under the reference's names;
-    ``block["attn"]`` reads like the reference's parameter dict."""
+class _Block(nn.Module):
+    """ln1, attn, ln2 and the FFN (named ``FFN``) under the reference's
+    names; ``block["attn"]`` reads like the reference's parameter dict."""
 
-    def __init__(self, ln1, attn: dict, ln2, mlp: dict):
+    FFN = ""
+
+    def __init__(self, ln1, attn: dict, ln2, ffn: dict):
         super().__init__()
         self.ln1 = nn.Parameter(ln1, requires_grad=False)
         self.attn = _pdict(attn)
         self.ln2 = nn.Parameter(ln2, requires_grad=False)
-        self.mlp = _pdict(mlp)
+        setattr(self, self.FFN, _pdict(ffn))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
 
+class DenseBlock(_Block):
+    """One "dense" block: ln1, attn, ln2, mlp."""
+
+    FFN = "mlp"
+
+
+class MoEBlock(_Block):
+    """One "moe" block: ln1, attn, ln2, moe (``router`` float32, ``wg``,
+    ``wu``, ``wd`` stacked over experts, ``shared_w*`` with shared
+    experts)."""
+
+    FFN = "moe"
+
+
+def _block_type(cfg: ModelConfig):
+    """The block class of ``cfg``'s family; raises for the families that
+    ``lm`` does not build."""
+    if cfg.family == "dense":
+        return DenseBlock
+    if cfg.family == "moe" and not cfg.use_mla:
+        return MoEBlock
+    raise ValueError(f"lm builds the dense family and the moe family without MLA, not "
+                     f"{cfg.arch_id!r} (family {cfg.family!r}, use_mla={cfg.use_mla})")
+
+
 class LM(nn.Module):
-    """Token embedding, a list of dense blocks, the final norm and (untied)
+    """Token embedding, a list of blocks, the final norm and (untied)
     the LM head; parameters under the reference's leaf names."""
 
     def __init__(self, cfg: ModelConfig, tok_emb, final_norm, blocks, lm_head=None):
@@ -91,13 +124,15 @@ class LM(nn.Module):
         return self.tok_emb.device
 
 
-def _block_init(gen: torch.Generator, cfg: ModelConfig) -> DenseBlock:
+def _block_init(gen: torch.Generator, cfg: ModelConfig) -> _Block:
     dt = _dtype(cfg)
     d = cfg.d_model
-    return DenseBlock(
-        layers.norm_init(d, device=gen.device), layers.attn_init(gen, cfg, dt),
-        layers.norm_init(d, device=gen.device),
-        layers.mlp_init(gen, d, cfg.d_ff, dt, gated=cfg.mlp_gated))
+    Block = _block_type(cfg)
+    attn = layers.attn_init(gen, cfg, dt)
+    ffn = (moe.moe_init(gen, cfg, dt) if Block is MoEBlock
+           else layers.mlp_init(gen, d, cfg.d_ff, dt, gated=cfg.mlp_gated))
+    return Block(layers.norm_init(d, device=gen.device), attn,
+                 layers.norm_init(d, device=gen.device), ffn)
 
 
 def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
@@ -105,13 +140,13 @@ def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
     """Random weights with the reference's distributions: ``tok_emb`` (and
     an untied ``lm_head``) N(0, 1) * 0.02 drawn in float32 then cast,
     projections N(0, 1) / sqrt(d_in) (``wo`` / sqrt(H Dh), ``wd`` and ``w2``
-    / sqrt(f)), biases 0, norms 1.  ``gen`` is a ``torch.Generator`` (its
-    device is the model's) or a seed for one on ``device`` (default the
-    card; ``"cpu"`` for the tests).  The numbers are
+    / sqrt(f)), biases 0, norms 1; an MoE block's FFN as
+    :func:`repro_torch.models.moe.moe_init` draws it.  ``gen`` is a
+    ``torch.Generator`` (its device is the model's) or a seed for one on
+    ``device`` (default the card; ``"cpu"`` for the tests).  The numbers are
     not the reference's (``jax.random`` draws others); the tests hand both
     packages the same weights through :func:`repro_torch.models.convert`."""
-    if cfg.family != "dense":
-        raise ValueError(f"lm.init_params builds the dense family, not {cfg.family!r}")
+    _block_type(cfg)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=resolve_device(device)).manual_seed(int(gen))
     dt = _dtype(cfg)
@@ -133,9 +168,20 @@ def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
+def _ffn(lp, h, cfg: ModelConfig):
+    """The block's FFN on (B, S, d): (y, aux); aux is None for a dense
+    block."""
+    if isinstance(lp, MoEBlock):
+        B, S, d = h.shape
+        y, aux = moe.moe_dispatch(lp["moe"], h.reshape(B * S, d), cfg)
+        return y.reshape(B, S, d), aux
+    return layers.mlp_apply(lp["mlp"], h, cfg.act), None
+
+
 def _block_apply(lp, x, cfg: ModelConfig, kv_out=None):
-    """Full-sequence dense block; ``kv_out`` (k, v) cache slices of this
-    layer, if given, receive the block's keys and values."""
+    """Full-sequence block: (x, aux), aux None for a dense block;
+    ``kv_out`` (k, v) cache slices of this layer, if given, receive the
+    block's keys and values."""
     a, (k, v) = layers.attn_apply(lp["attn"], layers.rmsnorm(x, lp["ln1"], cfg.norm_eps),
                                   cfg, return_kv=True)
     if kv_out is not None:
@@ -143,8 +189,8 @@ def _block_apply(lp, x, cfg: ModelConfig, kv_out=None):
         kv_out[0][:, :S] = k.to(kv_out[0].dtype)
         kv_out[1][:, :S] = v.to(kv_out[1].dtype)
     x = x + a
-    h = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + layers.mlp_apply(lp["mlp"], h, cfg.act)
+    y, aux = _ffn(lp, layers.rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
+    return x + y, aux
 
 
 def _embed(params: LM, tokens, cfg: ModelConfig):
@@ -156,20 +202,23 @@ def _remat(x, lp) -> bool:
 
 
 def forward(params: LM, batch, cfg: ModelConfig, *, cache=None):
-    """Token inputs -> final hidden states (B, S, d), aux loss (0 for the
-    dense family).  ``cache`` (from :func:`init_cache`), if given, receives
-    every layer's keys and values at positions [0, S).  With ``cfg.remat``
-    and gradients on (a train step), each block's activations are
-    recomputed in the backward pass."""
+    """Token inputs -> final hidden states (B, S, d), aux loss (float32;
+    the MoE blocks' aux summed in layer order, 0 for the dense family).
+    ``cache`` (from :func:`init_cache`), if given, receives every layer's
+    keys and values at positions [0, S).  With ``cfg.remat`` and gradients
+    on (a train step), each block's activations are recomputed in the
+    backward pass."""
     x = _embed(params, batch["tokens"], cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, lp in enumerate(params.blocks):
         if cache is None and cfg.remat and _remat(x, lp):
-            x = checkpoint(_block_apply, lp, x, cfg, use_reentrant=False,
-                           preserve_rng_state=False)
-            continue
-        kv = None if cache is None else (cache["k"][l], cache["v"][l])
-        x = _block_apply(lp, x, cfg, kv)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = checkpoint(_block_apply, lp, x, cfg, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            kv = None if cache is None else (cache["k"][l], cache["v"][l])
+            x, a = _block_apply(lp, x, cfg, kv)
+        if a is not None:
+            aux = aux + a
     return layers.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
 
 
@@ -230,7 +279,8 @@ def loss_fn(params: LM, batch, cfg: ModelConfig):
     """Next-token LM loss (teacher forcing) on batch {"tokens": (B, S)}:
     position t predicts token t + 1, the last position masked out.
     Returns (loss, {"loss", "aux", "tokens"}) as the reference; ``aux`` is
-    0 for the dense family.  Gradients flow to the parameters inside
+    the MoE blocks' load-balance loss (0 for the dense family), added to
+    the loss.  Gradients flow to the parameters inside
     :func:`trainable`."""
     tokens = batch["tokens"].to(params.device)
     B, S = tokens.shape
@@ -260,7 +310,7 @@ def leaf_paths(params: LM) -> list:
     out = []
     if len(params.blocks):
         b0 = params.blocks[0]
-        for sub in ("attn", "ln1", "ln2", "mlp"):
+        for sub in sorted(("attn", "ln1", "ln2", b0.FFN)):
             keys = sorted(b0[sub].keys()) if isinstance(b0[sub], nn.ParameterDict) else [None]
             for k in keys:
                 path = ("blocks", sub) if k is None else ("blocks", sub, k)
@@ -306,21 +356,24 @@ def trainable(params: LM):
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> dict:
     """Zeroed cache for a context capacity of S tokens, on ``device``
-    (default the card)."""
-    if cfg.family != "dense":
-        raise ValueError(f"lm.init_cache builds the dense family's, not {cfg.family!r}")
+    (default the card); the same {"k", "v"} for both families."""
+    _block_type(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
             "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
 
 
-def _dense_block_decode(p, x, cfg: ModelConfig, ck, cv, pos: int):
+def _block_decode(p, x, cfg: ModelConfig, ck, cv, pos: int):
+    """One block's step, the reference's ``_dense_block_decode`` and
+    ``_moe_block_decode``: an MoE block's FFN routes the step's B tokens
+    (capacity for B tokens: 8 slots an expert at a small batch), its aux
+    dropped."""
     a, ck, cv = layers.attn_decode(p["attn"], layers.rmsnorm(x, p["ln1"], cfg.norm_eps),
                                    cfg, ck, cv, pos)
     x = x + a
-    x = x + layers.mlp_apply(p["mlp"], layers.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
-    return x, ck, cv
+    y, _ = _ffn(p, layers.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, ck, cv
 
 
 def decode_step(params: LM, batch, cache, cfg: ModelConfig):
@@ -330,7 +383,7 @@ def decode_step(params: LM, batch, cache, cfg: ModelConfig):
     pos = int(batch["pos"])
     x = _embed(params, batch["token"], cfg)
     for l, lp in enumerate(params.blocks):
-        x, _, _ = _dense_block_decode(lp, x, cfg, cache["k"][l], cache["v"][l], pos)
+        x, _, _ = _block_decode(lp, x, cfg, cache["k"][l], cache["v"][l], pos)
     h = layers.rmsnorm(x, params.final_norm, cfg.norm_eps)
     return _logits(params, h[:, 0, :], cfg), cache
 

@@ -204,8 +204,7 @@ def _lm_model(arch):
 
 REFUSALS = {
     "make_production_mesh": (lambda tp: t_mesh.make_production_mesh(), "A8", "LM"),
-    # the LM half past its dense serving path
-    "get_model(moe)": (lambda tp: _lm_model("olmoe-1b-7b"), "A8", "LM"),
+    # the LM half past its dense and MoE paths
     "get_model(mla)": (lambda tp: _lm_model("deepseek-v3-671b"), "A8", "LM"),
     "get_model(ssm)": (lambda tp: _lm_model("mamba2-130m"), "A8", "LM"),
     "get_model(hybrid)": (lambda tp: _lm_model("zamba2-7b"), "A8", "LM"),
@@ -222,7 +221,17 @@ REFUSALS = {
                   "A8", "LM"),
     "lower_predict": (lambda tp: t_dist.lower_predict(
         None, t_mesh.make_local_mesh(devices=["cpu"])), "A8", "LM"),
+    # the expert-parallel MoE path is parallel/'s
+    "moe_apply_sharded": (lambda tp: _moe_sharded(), "A8", "LM"),
 }
+
+
+def _moe_sharded():
+    from repro_torch.models import moe as t_moe
+
+    cfg = t_configs.ARCHS["olmoe-1b-7b"].SMOKE
+    p = t_moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
+    t_moe.moe_apply_sharded(p, torch.zeros((4, cfg.d_model)), cfg)
 
 
 def _opt_bank():
@@ -275,8 +284,8 @@ def _sharded_fleet_matches_unsharded():
         abs(h["rmse"] - g["rmse"]) < 1e-5 for h, g in zip(out["rounds"], flat["rounds"]))
 
 
-# the calls ROADMAP A2, A3, A4, A5, A6 and A8's training part refused until
-# they were ported, and what each now returns
+# the calls ROADMAP A2, A3, A4, A5, A6 and A8's training and MoE parts
+# refused until they were ported, and what each now returns
 PORTED = {
     "GPBank.downdate": lambda tp: _bank()[0].downdate(
         [0], tt(gp_data(16, 2, 0)[0][None, :2]), tt(gp_data(16, 2, 0)[1][None, :2]))[1].tolist()
@@ -320,7 +329,20 @@ PORTED = {
     # ROADMAP A8, the LM half's training part
     "loss_fn": lambda tp: _lm_loss()[0],
     "make_train_step": lambda tp: _lm_loss()[1],
+    # ROADMAP A8, the LM half's MoE part
+    "get_model(moe)": lambda tp: _moe_model(),
 }
+
+
+def _moe_model():
+    """olmoe's SMOKE model serves and trains, its aux loss in the loss."""
+    model = _lm_model("olmoe-1b-7b")
+    params = model.init_params(0, device="cpu")
+    logits, cache = model.prefill(params, {"tokens": torch.zeros((2, 8), dtype=torch.int32)},
+                                  cache_len=9)
+    _, metrics = model.loss_fn(params, {"tokens": torch.ones((2, 8), dtype=torch.int32)})
+    return (model.cfg.family == "moe" and bool(torch.isfinite(logits).all())
+            and set(cache) == {"k", "v"} and float(metrics["aux"]) > 0)
 
 
 def _lm_loss():
@@ -357,8 +379,8 @@ def _value_error(call) -> str:
 
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_formerly_refused_call_works(name, tmp_path):
-    """Each call that named ROADMAP A2, A3, A4, A5, A6 or A8's training part
-    in its refusal now runs (the window without a cold tier raises the JAX
+    """Each call that named ROADMAP A2, A3, A4, A5, A6 or A8's training or
+    MoE part in its refusal now runs (the window without a cold tier raises the JAX
     package's ValueError)."""
     assert PORTED[name](tmp_path)
 

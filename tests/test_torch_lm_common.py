@@ -23,8 +23,11 @@ from repro_torch.models.config import ModelConfig as TConfig  # noqa: E402
 from repro_torch.models.convert import lm_params_from_jax  # noqa: E402
 
 DENSE = ("qwen2-1.5b", "qwen2.5-3b", "smollm-360m", "starcoder2-3b")
+MOE = ("olmoe-1b-7b",)
 BIASES = ("bq", "bk", "bv", "b1", "b2")
 NORMS = ("ln1", "ln2", "final_norm")
+# leaves the reference keeps in float32 in a bfloat16 model
+F32_LEAVES = NORMS + ("router",)
 
 
 def f32(a):
@@ -61,14 +64,14 @@ def numpy_params(jcfg, seed=0):
 
 
 def jax_params(tree, jcfg):
-    """The numpy tree in the reference's dtypes (norms float32, the rest
-    the model dtype)."""
+    """The numpy tree in the reference's dtypes (norms and the MoE router
+    float32, the rest the model dtype)."""
     dt = jnp.bfloat16 if jcfg.dtype == "bfloat16" else jnp.float32
 
     def cast(node, name=None):
         if isinstance(node, dict):
             return {k: cast(v, k) for k, v in node.items()}
-        return jnp.asarray(node, jnp.float32 if name in NORMS else dt)
+        return jnp.asarray(node, jnp.float32 if name in F32_LEAVES else dt)
 
     return cast(tree)
 
