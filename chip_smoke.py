@@ -178,7 +178,7 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    No kernel of this repository runs there: the LM half reaches no
    ``pallas_call``;
 13. the LM half's training path (ROADMAP A8; ``phase13()``) at qwen2-1.5b's
-   full width: (a) cut to 2 layers, 3 train steps at batch 2 x 128 on the
+   full width: (a) cut to 2 layers, 3 train steps at batch 1 x 128 on the
    card and on the CPU from the same weights, each step's loss and grad
    norm printed, every parameter after step 3 gated at twice the CPU's
    own bfloat16-vs-float32 distance; (b) the 28 layers through
@@ -197,7 +197,7 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    full size (16 layers, 64 experts top-8, capacity factor 1.25, bf16),
    random weights from a seed: (a) cut to 2 layers, the card against the
    port's CPU run (prefill logits and 8 decode steps on the CPU's greedy
-   tokens, then every parameter after 3 train steps at 2 x 128; gates
+   tokens, then every parameter after 2 train steps at 1 x 128; gates
    twice the CPU's own bfloat16-vs-float32 distance), the top-k flips a
    layer between card and CPU and the dropped share printed; (b) the 16
    layers through ``serve`` at batch 4, prompt 256, 32 tokens (prefill,
@@ -212,7 +212,29 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    grad norm finite, aux > 0, the parameters moved, beside the step's
    bound; (d) on (a)'s cut, straight runs, a restart from an async
    checkpoint and the checkpoint itself, all bitwise.  No kernel of this
-   repository runs there (launch counts checked).
+   repository runs there (launch counts checked);
+15. the LM half's MLA family (ROADMAP A8; ``phase15()``) at deepseek-v3's
+   published widths (d_model 7,168, 128 heads, MLA kv_lora 512 + rope 64,
+   256 routed experts top-8 and a shared one, MTP depth 1, vocab 129,280,
+   bf16), random weights from a seed, the depth cut: (a) 2 layers with 16
+   experts, the card against the port's CPU run (prefill logits and 8
+   decode steps on the CPU's greedy tokens; the loss with its MTP term and
+   its gradients' global norm on 1 x 128 tokens; gates twice the CPU's own
+   bfloat16-vs-float32 distance); (b) 4 layers (3 dense, 1 MoE) with all
+   256 experts through ``launch.serve.generate`` at batch 4, prompt 256,
+   32 tokens (prefill, decode, tok/s, peak above the weights, the latent
+   cache beside the expanded K/V, a decode step's and a prefill's device
+   time from a CUDA graph and the idle share, beside the bounds),
+   prefill(S) + decode(S) against prefill(S + 1) at 0.15 (capacity factor
+   8 on the rows whose last position kept its experts; E / k on one row),
+   a 4,096-token prompt through the flash route (Dqk 192, Dv 128) in every
+   layer, layer 0's flash against the simple route on 16 heads; (c) 4
+   layers with 32 experts, 20 steps at 4 x 1,024 (memory reckoned first)
+   through ``train_loop``, every loss (MTP in), aux and grad norm finite,
+   the parameters moved, beside the bound; (d) on the SMOKE config,
+   straight runs, a restart from an async checkpoint and the checkpoint
+   itself, bitwise.  TF32 checked off; no kernel of this repository runs
+   there (launch counts checked).
 
 Prints the features kernel's times by shape on a ``[features]`` line, one
 JSON line with every kernel's numbers (the features kernel's ``ms`` its
@@ -1771,8 +1793,10 @@ def phase12(dev, smi, compare) -> dict:
 
 # phase 13, ROADMAP A8's training part: qwen2-1.5b at full width; (a) and
 # (c) cut to 2 layers (as phase 12(a)), (b) uncut at batch 4 x 1,024, the
-# schedule launch/train.py builds (warmup_cosine(lr, 20, 10_000))
-TRAIN = dict(cpu_layers=2, cpu_batch=2, cpu_seq=128, cpu_steps=3, batch=4, seq=1024,
+# schedule launch/train.py builds (warmup_cosine(lr, 20, 10_000)); (a)'s
+# steps at batch 1 x 128 (at 2 x 128 the CPU's bf16 and float32 steps took
+# most of the phase's 80-105 s, and the script neared its time limit)
+TRAIN = dict(cpu_layers=2, cpu_batch=1, cpu_seq=128, cpu_steps=3, batch=4, seq=1024,
              steps=20, ckpt_steps=10, ckpt_at=5, ckpt_every=3, lr=3e-4, seed=0)
 
 
@@ -2017,9 +2041,10 @@ def phase13(dev, smi, compare) -> dict:
 # served and (c) trained at the full 16 layers; (c)'s batch is the
 # largest of 4, 2, 1 x 1,024 whose reckoned memory fits what is free; the
 # CPU's train steps of (a) at batch 1 x 128 (its bf16 and float32 steps at
-# 2 x 128 took 70-90 s of the phase)
+# 2 x 128 took 70-90 s of the phase), 2 of them (3 took 50-70 s, and the
+# script neared its time limit)
 MOE = dict(arch="olmoe-1b-7b", cpu_layers=2, cpu_batch=2, cpu_prompt=64, cpu_steps=8,
-           cpu_train_batch=1, cpu_train_seq=128, cpu_train_steps=3,
+           cpu_train_batch=1, cpu_train_seq=128, cpu_train_steps=2,
            batch=4, prompt_len=256, gen=32, train_batch=4, train_seq=1024, train_steps=20,
            ckpt_steps=10, ckpt_at=5, ckpt_every=3, lr=3e-4, seed=0)
 
@@ -2087,7 +2112,7 @@ def flipped_tokens(a: MoESpy, b: MoESpy) -> list:
 def phase14(dev, smi, compare) -> dict:
     """The LM half's MoE family on the card at olmoe-1b-7b's full size:
     (a) card against the port's CPU run at full width cut to 2 layers
-    (prefill logits and 8 decode steps on the CPU's greedy tokens, then 3
+    (prefill logits and 8 decode steps on the CPU's greedy tokens, then 2
     train steps, every parameter after them; gate: twice the CPU's own
     bfloat16-vs-float32 distance), the top-k flips a layer between card
     and CPU and the dropped share printed; (b) the 16 layers through
@@ -2590,6 +2615,677 @@ def phase14(dev, smi, compare) -> dict:
     report["seconds"] = time.perf_counter() - t_phase
     print("[phase 14] " + json.dumps(report))
     print(f"[phase 14] took {report['seconds']:.1f} s")
+    return report
+
+
+# phase 15, ROADMAP A8's MLA and MTP part: deepseek-v3-671b at full width
+# (repro_torch/configs/deepseek_v3_671b.py: d_model 7,168, 128 heads, MLA
+# q_lora 1,536, kv_lora 512, nope 128, rope 64, v 128; the first 3 layers
+# dense (d_ff 18,432), then 256 routed experts top-8 of width 2,048 and one
+# shared expert, capacity factor 1.25; MTP depth 1; vocab 129,280, untied,
+# bfloat16), random weights from a seed, every width the published one and
+# only the depth cut: (a) 2 layers (the first dense) with 16 experts top-8
+# (4.31e9 parameters) for the card-against-CPU check; (b) served at 4
+# layers (the 3 dense and 1 MoE layer) with all 256 experts and the MTP
+# block as init_params builds it (2.67e10 parameters, 53.4 GB in bf16: a
+# second MoE layer would need ~76 GB); (c) trained at 4 layers with the
+# routed experts cut to 32 (6.89e9 parameters): one 256-expert layer with
+# AdamW's moments and its gradients needs ~92 GB; (d) the restart on the
+# SMOKE config (a full-width checkpoint is >= 26 GB a write)
+DEEPSEEK = dict(arch="deepseek-v3-671b", cpu_layers=2, cpu_moe_start=1, cpu_experts=16,
+                cpu_batch=2, cpu_prompt=64, cpu_steps=8, cpu_loss_batch=1, cpu_loss_seq=128,
+                serve_layers=4, batch=4, prompt_len=256, gen=32, long_prompt=4096,
+                flash_heads=16, consistency_cf=8.0,
+                train_layers=4, train_experts=32, train_batch=4, train_seq=1024,
+                train_steps=20, ckpt_steps=10, ckpt_at=5, ckpt_every=3, ckpt_seq=64,
+                ckpt_batch=2, lr=3e-4, seed=0)
+
+
+def mla_bytes_read(params) -> int:
+    """The bytes of the parameters a serving call reads: every one but the
+    embedding table (a gather of a few rows) and the MTP head (the loss's
+    only)."""
+    return sum(p.numel() * p.element_size() for n, p in params.named_parameters()
+               if not n.startswith(("tok_emb", "mtp_")))
+
+
+def phase15(dev, smi, compare) -> dict:
+    """The LM half's MLA family on the card, deepseek-v3 at full width with
+    the depth cut: (a) card against the port's CPU run at 2 layers and 16
+    experts (prefill logits and 8 decode steps on the CPU's greedy tokens,
+    then the loss with its MTP term and its gradients' global norm on 1 x
+    128 tokens; gate: twice the CPU's own bfloat16-vs-float32 distance),
+    the top-k flips and dropped share printed; (b) 4 layers with all 256
+    experts through ``launch.serve.generate`` at batch 4, a 256-token
+    prompt and 32 tokens (prefill first and warm, decode ms a token,
+    tok/s, peak above the weights, the latent cache beside the expanded
+    K/V it replaces, a decode step's and a prefill's device time from a
+    CUDA graph and the idle share, beside the bounds), prefill(S) +
+    decode(S) against prefill(S + 1) at 0.15 (capacity factor 8 on the
+    rows whose last position kept its experts; capacity factor E / k on
+    one row, where nothing can drop), a 4,096-token prompt through the
+    flash route in every layer (counted) and layer 0's flash attention
+    against the simple route on 16 heads in float32; (c) 4 layers with 32
+    experts through the pieces ``launch.train.build`` assembles and
+    ``train_loop``, 20 steps at 4 x 1,024 (memory reckoned first), every
+    loss (the MTP term in), aux and grad norm finite, aux > 0, the
+    parameters moved, beside the step's bound; (d) on the SMOKE config,
+    two straight runs, a restart from an async checkpoint and the
+    checkpoint itself, bitwise, with the MTP leaves in the reference's
+    tree."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch import checkpoint as tckpt
+    from repro_torch import optim
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import convert, get_model
+    from repro_torch.models import layers as tl
+    from repro_torch.models import lm as tlm
+    from repro_torch.models import mla as tmla
+    from repro_torch.models import moe as tmoe
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+
+    t_phase = time.perf_counter()
+    D = DEEPSEEK
+    full = ARCHS[D["arch"]].CONFIG
+    check(full.use_mla and full.n_layers == 61 and full.moe_layer_start == 3
+          and full.d_model == 7168 and full.n_heads == 128 and full.q_lora_rank == 1536
+          and full.kv_lora_rank == 512 and full.qk_nope_dim == 128 and full.qk_rope_dim == 64
+          and full.v_head_dim == 128 and full.n_experts == 256 and full.top_k == 8
+          and full.n_shared_experts == 1 and full.d_expert == 2048 and full.d_ff == 18432
+          and full.capacity_factor == 1.25 and full.mtp_depth == 1 and full.vocab == 129280
+          and full.dtype == "bfloat16" and not full.tie_embeddings and full.remat,
+          "phase 15 runs deepseek-v3-671b's published widths")
+    # the absorbed form's float32 score and context products: full float32
+    prec = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    check(prec == ("highest", False), f"TF32 is on for float32 products: {prec}")
+    free, total = torch.cuda.mem_get_info()
+    report = {"card": smi, "free_bytes_at_start": free,
+              "held_at_start": torch.cuda.memory_allocated(), "matmul_precision": prec[0]}
+    print(f"[phase 15] {smi}: {full.arch_id}, published widths: d_model {full.d_model}, "
+          f"{full.n_heads} heads, MLA q_lora {full.q_lora_rank} kv_lora {full.kv_lora_rank} "
+          f"nope {full.qk_nope_dim} rope {full.qk_rope_dim} v {full.v_head_dim}, "
+          f"{full.moe_layer_start} dense layers of d_ff {full.d_ff}, {full.n_experts} routed "
+          f"experts top-{full.top_k} of width {full.d_expert} + {full.n_shared_experts} "
+          f"shared, capacity factor {full.capacity_factor}, MTP depth {full.mtp_depth}, "
+          f"vocab {full.vocab}, {full.dtype}; float32 matmul precision {prec[0]!r}, "
+          f"allow_tf32 {prec[1]}; the card's free memory {free / 1e9:.2f} GB of "
+          f"{total / 1e9:.2f} GB, earlier phases hold "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    ops.reset_launch_counts()
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def nparams(params):
+        return sum(p.numel() for p in params.parameters())
+
+    # -- (a) the card against the port's CPU run, 2 layers and 16 experts ------
+    # without the per-block remat, which gives the same values bitwise
+    # (tests/test_torch_lm_mla.py::test_mla_remat_on_and_off_agree) and
+    # spares the CPU's gradients a second forward pass; (c) trains with it
+    cfg_a = dataclasses.replace(full, n_layers=D["cpu_layers"],
+                                moe_layer_start=D["cpu_moe_start"], n_experts=D["cpu_experts"],
+                                remat=False)
+    m_a, m_a32 = get_model(cfg_a), get_model(dataclasses.replace(cfg_a, dtype="float32"))
+    t0 = time.perf_counter()
+    card_p = m_a.init_params(D["seed"], device=dev)          # drawn on the card
+    cpu_p = copy.deepcopy(card_p).to("cpu")
+    cpu_p32 = copy.deepcopy(cpu_p).float()                   # the same values in float32
+    init_s = time.perf_counter() - t0
+    n_a = nparams(cpu_p)
+    # bf16 and f32 weights, the bf16 run's gradients kept while the
+    # float32 run's are compared with them
+    host_bytes = n_a * (2 + 4 + 2 + 4)
+    print(f"[phase 15] (a) {cfg_a.n_layers} layers ({cfg_a.moe_layer_start} dense), "
+          f"{cfg_a.n_experts} experts top-{cfg_a.top_k}, MTP {cfg_a.mtp_depth}: "
+          f"{n_a / 1e9:.3f}e9 parameters; the CPU side holds ~{host_bytes / 1e9:.1f} GB "
+          f"(bf16 and float32 weights, the gradients of both runs) beside its "
+          f"activations")
+    rng = np.random.default_rng(D["seed"])
+    toks = torch.from_numpy(rng.integers(0, cfg_a.vocab, size=(D["cpu_batch"],
+                                                                D["cpu_prompt"])))
+    cap = D["cpu_prompt"] + D["cpu_steps"]
+
+    @torch.no_grad()
+    def run(model, params, feed):
+        """Prefill, then one decode step per token of ``feed`` (None: the
+        run's own greedy tokens); (logits per step, tokens fed, its spy)."""
+        d = params.device
+        with MoESpy() as spy:
+            logits, cache = model.prefill(params, {"tokens": toks.to(d)}, cache_len=cap)
+            out, fed = [logits.float().cpu()], []
+            for i in range(D["cpu_steps"]):
+                tok = (torch.argmax(logits, -1)[:, None] if feed is None else feed[i].to(d))
+                fed.append(tok.cpu())
+                logits, cache = model.decode_step(
+                    params, {"token": tok, "pos": D["cpu_prompt"] + i}, cache)
+                out.append(logits.float().cpu())
+        return out, fed, spy
+
+    t0 = time.perf_counter()
+    ref, fed, spy_cpu = run(m_a, cpu_p, None)
+    t1 = time.perf_counter()
+    ref32, _, spy_32 = run(m_a32, cpu_p32, fed)
+    serve_cpu_s = (t1 - t0, time.perf_counter() - t1)
+    got, _, spy_card = run(m_a, card_p, fed)
+    bf16_vs_f32 = max(float((a - b).abs().max()) for a, b in zip(ref, ref32))
+    serve_err = compare(
+        f"MLA card vs CPU ({cfg_a.arch_id} cut to {cfg_a.n_layers} layers and "
+        f"{cfg_a.n_experts} experts, prefill + {D['cpu_steps']} decode steps on the CPU's "
+        f"greedy tokens, logits)", got, ref, rtol=0.0, atol=2.0 * bf16_vs_f32,
+        why=f"twice the CPU's bfloat16-vs-float32 distance, {bf16_vs_f32:.4e}")
+    fl_card, fl_32 = flipped_tokens(spy_card, spy_cpu), flipped_tokens(spy_32, spy_cpu)
+    flips_a = {"prefill_tokens": D["cpu_batch"] * D["cpu_prompt"],
+               "prefill_card_vs_cpu": fl_card[0], "prefill_cpu_f32_vs_bf16": fl_32[0],
+               "decode_tokens": D["cpu_batch"] * D["cpu_steps"],
+               "decode_card_vs_cpu": sum(fl_card[1:]), "decode_cpu_f32_vs_bf16": sum(fl_32[1:]),
+               "dropped_share_prefill_cpu": spy_cpu.dropped_share(spy_cpu.calls[:1]),
+               "dropped_share_card": spy_card.dropped_share(),
+               "dropped_share_cpu": spy_cpu.dropped_share()}
+    print(f"[phase 15] (a) the MoE layer's top-k flips, tokens whose experts differ: prefill "
+          f"({flips_a['prefill_tokens']} tokens) card vs CPU {fl_card[0]}, CPU float32 vs "
+          f"bfloat16 {fl_32[0]}; decode ({flips_a['decode_tokens']} tokens) card vs CPU "
+          f"{flips_a['decode_card_vs_cpu']}, CPU float32 vs bfloat16 "
+          f"{flips_a['decode_cpu_f32_vs_bf16']}; dropped share: the CPU's prefill (C = "
+          f"{tmoe.capacity(flips_a['prefill_tokens'], cfg_a)}) "
+          f"{flips_a['dropped_share_prefill_cpu']:.4f}, all calls CPU "
+          f"{spy_cpu.dropped_share():.4f} card {spy_card.dropped_share():.4f}")
+    del got, ref, ref32
+
+    ltoks = torch.from_numpy(rng.integers(0, cfg_a.vocab, size=(D["cpu_loss_batch"],
+                                                                 D["cpu_loss_seq"])))
+
+    def loss_grads(model, params):
+        """((the loss with its MTP term, its aux, the global norm of its
+        gradients over every leaf, summed in float32), the gradients)."""
+        with tlm.trainable(params):
+            loss, met = model.loss_fn(params, {"tokens": ltoks.to(params.device)})
+            named = tlm.leaves(params)
+            grads = torch.autograd.grad(loss, list(named.values()))
+        sq = torch.zeros((), dtype=torch.float32, device=params.device)
+        for g in grads:
+            sq = sq + torch.sum(torch.square(g.float()))
+        return (float(loss.detach()), float(met["aux"].detach()), float(torch.sqrt(sq))), grads
+
+    def grad_dist(ga, gb):
+        """max |ga - gb| over every gradient entry, a leaf at a time on the
+        card (the same float32 differences, without the host's passes over
+        the 4.4e9 entries)."""
+        return max(float((a.to(dev).float() - b.to(dev).float()).abs().max())
+                   for a, b in zip(ga, gb))
+
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = loss_grads(m_a, cpu_p)
+    t1 = time.perf_counter()
+    l_32, g_32 = loss_grads(m_a32, cpu_p32)
+    loss_cpu_s = (t1 - t0, time.perf_counter() - t1)
+    grad_bf16_vs_f32 = grad_dist(g_cpu, g_32)
+    del g_32
+    l_card, g_card = loss_grads(m_a, card_p)
+    grad_err = grad_dist(g_card, g_cpu)
+    del g_card, g_cpu
+    # the loss's MTP term alone, on the card, from the port's own pieces
+    no_mtp = float(tlm.loss_fn(card_p, {"tokens": ltoks.to(dev)},
+                               dataclasses.replace(cfg_a, mtp_depth=0))[0])
+    print(f"[phase 15] (a) on 1 x {D['cpu_loss_seq']} tokens: loss card {l_card[0]:.6f} cpu "
+          f"{l_cpu[0]:.6f} cpu-f32 {l_32[0]:.6f} (card without the MTP head {no_mtp:.6f}); "
+          f"aux card {l_card[1]:.6e} cpu {l_cpu[1]:.6e} cpu-f32 {l_32[1]:.6e}; gradients' "
+          f"global norm card {l_card[2]:.6f} cpu {l_cpu[2]:.6f} cpu-f32 {l_32[2]:.6f}")
+    check(all(math.isfinite(v) for v in l_card) and l_card[1] > 0,
+          "(a) the card's loss, aux and grad norm finite, aux > 0")
+    check(no_mtp != l_card[0], "(a) the MTP term is in the loss")
+    loss_gap, loss_gap32 = abs(l_card[0] - l_cpu[0]), abs(l_cpu[0] - l_32[0])
+    check(loss_gap <= 2.0 * loss_gap32, f"(a) card loss {loss_gap:.3e} from the CPU's, over "
+                                        f"twice its bf16-vs-f32 {loss_gap32:.3e}")
+    # the gradients entry by entry (a scalar norm's bf16-vs-f32 gap is one
+    # draw, which cancellation can make small by chance)
+    ok = grad_err <= 2.0 * grad_bf16_vs_f32
+    print(f"[check] MLA gradients card vs CPU ({cfg_a.arch_id} cut to {cfg_a.n_layers} layers "
+          f"and {cfg_a.n_experts} experts, the loss with its MTP term on 1 x "
+          f"{D['cpu_loss_seq']} tokens, every leaf): max_abs_err={grad_err:.3e} tol=rtol 0, "
+          f"atol {2.0 * grad_bf16_vs_f32:g} (twice the CPU's bfloat16-vs-float32 distance, "
+          f"{grad_bf16_vs_f32:.4e}); worst error/tolerance "
+          f"{grad_err / (2.0 * grad_bf16_vs_f32):.3f} -> {'ok' if ok else 'FAIL'}")
+    check(ok, "(a) the card's gradients disagree with the CPU's")
+    gaps = {"loss": (loss_gap, loss_gap32), "grad_norm": (abs(l_card[2] - l_cpu[2]),
+                                                          abs(l_cpu[2] - l_32[2])),
+            "grads": (grad_err, grad_bf16_vs_f32)}
+    report["card_vs_cpu"] = {
+        "layers": cfg_a.n_layers, "experts": cfg_a.n_experts, "params": n_a,
+        "serve_max_abs_err": serve_err, "serve_cpu_bf16_vs_f32": bf16_vs_f32,
+        "flips": flips_a, "loss": {"card": l_card, "cpu": l_cpu, "cpu_f32": l_32,
+                                   "card_without_mtp": no_mtp},
+        "loss_gap": gaps["loss"], "grad_norm_gap": gaps["grad_norm"],
+        "grad_max_abs_err": gaps["grads"],
+        "reckoned_host_bytes": host_bytes, "init_and_copies_s": init_s,
+        "serve_cpu_bf16_s": serve_cpu_s[0], "serve_cpu_f32_s": serve_cpu_s[1],
+        "loss_cpu_bf16_s": loss_cpu_s[0], "loss_cpu_f32_s": loss_cpu_s[1],
+        "seconds": time.perf_counter() - t_phase}
+    print(f"[phase 15] (a) on the CPU ({torch.get_num_threads()} threads): init on the card "
+          f"and copies {init_s:.1f} s, prefill + decode bf16 {serve_cpu_s[0]:.1f} s and f32 "
+          f"{serve_cpu_s[1]:.1f} s, loss and gradients bf16 {loss_cpu_s[0]:.1f} s and f32 "
+          f"{loss_cpu_s[1]:.1f} s; (a) took {report['card_vs_cpu']['seconds']:.1f} s")
+    del cpu_p, cpu_p32, card_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) serving at 4 layers with all 256 experts -------------------------
+    cfg = dataclasses.replace(full, n_layers=D["serve_layers"])
+    E, k = cfg.n_experts, cfg.top_k
+    B_, P, G = D["batch"], D["prompt_len"], D["gen"]
+    model = get_model(cfg)
+    base = torch.cuda.memory_allocated()
+    (params, init_b_s) = sync_s(lambda: model.init_params(D["seed"], device=dev))
+    held = sum(p.numel() * p.element_size() for p in params.parameters())
+    n_b = nparams(params)
+    toks = torch.from_numpy(np.random.default_rng(D["seed"]).integers(
+        0, cfg.vocab, size=(B_, P + 1))).to(dev)
+    cap = P + G
+    torch.cuda.reset_peak_memory_stats()
+    served = tserve.generate(model, params, toks[:, :P], G)
+    serve_peak = torch.cuda.max_memory_allocated() - base
+    check(served["generated"].shape == (B_, G)
+          and ((served["generated"] >= 0) & (served["generated"] < cfg.vocab)).all(),
+          "generate's tokens")
+    W = cfg.kv_lora_rank + cfg.qk_rope_dim
+    latent_bytes = cfg.n_layers * B_ * cap * W * 2
+    expanded_bytes = cfg.n_layers * B_ * cap * cfg.n_heads * (
+        cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim) * 2
+    # a decode step reads the weights of the path (the LM head, every
+    # layer's attention and FFN, all 256 experts' 8 slots as the reference
+    # runs them) and the cache's valid latents; not the embedding table (a
+    # gather of B rows) nor the MTP head
+    read = mla_bytes_read(params)
+    bytes_decode = read + B_ * (P + G // 2) * cfg.n_layers * W * 2
+    bound_decode_ms = bytes_decode / PEAK_BYTES * 1e3
+    # a prefill: the bf16 products (attention projections with the
+    # expanded wkv_b for every token; the dense FFNs; the routed experts
+    # over E x C slot rows, padding included; the shared expert; the LM
+    # head for the last token), the float32 ones (router; each layer's two
+    # S x S products, formed whole at 256 tokens)
+    T_ = B_ * P
+    C_ = tmoe.capacity(T_, cfg)
+    H, Dqk, Dv = cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    attn_w = (cfg.d_model * cfg.q_lora_rank + cfg.q_lora_rank * H * Dqk
+              + cfg.d_model * W + cfg.kv_lora_rank * H * (cfg.qk_nope_dim + Dv)
+              + H * Dv * cfg.d_model)
+    nd, nm = cfg.moe_layer_start, cfg.n_layers - cfg.moe_layer_start
+    f_bf16 = (cfg.n_layers * 2.0 * attn_w * T_ + nd * 6.0 * cfg.d_model * cfg.d_ff * T_
+              + nm * 6.0 * cfg.d_model * cfg.d_expert * (E * C_ + T_)
+              + 2.0 * cfg.vocab * cfg.d_model * B_)
+    f_f32 = (nm * 2.0 * cfg.d_model * E * T_
+             + cfg.n_layers * 2.0 * B_ * H * P * P * (Dqk + Dv))
+    bound_prefill_ops_ms = (f_bf16 / PEAK_BF16 + f_f32 / PEAK_F32) * 1e3
+    bound_prefill_bytes_ms = (read + T_ * cfg.n_layers * W * 2) / PEAK_BYTES * 1e3
+    bound_prefill_ms = max(bound_prefill_ops_ms, bound_prefill_bytes_ms)
+    with torch.no_grad():
+        pre_s = []
+        for _ in range(4):
+            (logits, cache), s_ = sync_s(lambda: model.prefill(
+                params, {"tokens": toks[:, :P]}, cache_len=cap))
+            pre_s.append(s_)
+        tok = torch.argmax(logits, -1)[:, None]
+        dec_s = []
+        for i in range(G):
+            (logits_d, cache), s_ = sync_s(lambda: model.decode_step(
+                params, {"token": tok, "pos": P + i}, cache))
+            dec_s.append(s_)
+            tok = torch.argmax(logits_d, -1)[:, None]
+    check(bool(torch.isfinite(logits).all() and torch.isfinite(logits_d).all()),
+          "non-finite MLA logits")
+    warm_prefill_ms = statistics.median(pre_s) * 1e3
+    warm_decode_ms = statistics.median(dec_s) * 1e3
+    dec_dev = graph_device_ms(lambda: model.decode_step(
+        params, {"token": tok, "pos": P}, cache))
+    pre_dev = graph_device_ms(lambda: model.prefill(
+        params, {"tokens": toks[:, :P]}, cache_len=cap))
+    del cache, logits, logits_d
+    torch.cuda.empty_cache()
+
+    # tests/test_arch_smoke.py:65-83 at full width: the absorbed step after
+    # the expanded prefill against the expanded prefill of one more token.
+    # At capacity factor 8 (C = 264 slots for 4 x 257 tokens) the gate holds
+    # on the rows whose last position kept its experts in every layer; at
+    # capacity factor E / k = 32 (C = T) nothing can drop, on one row
+    def consistency(m, rows):
+        tk = toks[:rows]
+        with torch.no_grad():
+            with MoESpy() as spy_s:
+                _, c1 = m.prefill(params, {"tokens": tk[:, :P]}, cache_len=P + 1)
+            with MoESpy() as spy_d:
+                ld, _ = m.decode_step(params, {"token": tk[:, P:], "pos": P}, c1)
+            del c1
+            with MoESpy() as spy_f:
+                lf, _ = m.prefill(params, {"tokens": tk})
+        check(bool(torch.isfinite(ld).all() and torch.isfinite(lf).all()),
+              "non-finite MLA logits")
+        check(spy_d.dropped() == 0, f"a decode step at batch {rows} dropped assignments")
+        lost = [int(sum(c["dropped"].reshape(rows, P + 1, -1)[b, -1].sum()
+                        for c in spy_f.calls)) for b in range(rows)]
+        return ld.cpu(), lf.cpu(), spy_s, spy_f, lost
+
+    cf8 = D["consistency_cf"]
+    ld, lf, spy_s, spy_f, lost = consistency(
+        get_model(dataclasses.replace(cfg, capacity_factor=cf8)), B_)
+    kept = torch.tensor([n_ == 0 for n_ in lost])
+    consist = {"capacity_factor": cf8, "capacity": tmoe.capacity(B_ * (P + 1), dataclasses.replace(
+        cfg, capacity_factor=cf8)), "dropped_share_prefill_S": spy_s.dropped_share(),
+        "dropped_share_prefill_S1": spy_f.dropped_share(),
+        "last_position_lost_by_row": lost, "rows_checked": int(kept.sum()),
+        "max_abs_diff_by_row": (ld - lf).abs().amax(dim=-1).tolist()}
+    if kept.any():
+        consist["max_abs_err"] = compare(
+            f"MLA prefill({P}) + decode_step vs prefill({P + 1}) (last-token logits, "
+            f"{cfg.n_layers} layers, {E} experts, capacity factor {cf8}, the "
+            f"{int(kept.sum())} of {B_} rows whose last position kept its {k} experts in "
+            f"every layer)", [ld[kept]], [lf[kept]], rtol=0.15, atol=0.15,
+            why="tests/test_arch_smoke.py:81-83 gate")
+    del spy_s, spy_f
+    cf_all = E / k
+    ld1, lf1, spy_s1, spy_f1, _ = consistency(
+        get_model(dataclasses.replace(cfg, capacity_factor=cf_all)), 1)
+    check(spy_s1.dropped() == 0 and spy_f1.dropped() == 0,
+          f"capacity factor {cf_all} dropped assignments")
+    consist["max_abs_err_all_kept"] = compare(
+        f"MLA prefill({P}) + decode_step vs prefill({P + 1}) (last-token logits, "
+        f"{cfg.n_layers} layers, capacity factor {cf_all}: nothing dropped, row 0)",
+        [ld1], [lf1], rtol=0.15, atol=0.15, why="tests/test_arch_smoke.py:81-83 gate")
+    del spy_s1, spy_f1
+    print(f"[phase 15] (b) prefill({P}) + decode vs prefill({P + 1}): at capacity factor "
+          f"{cf8} (C = {consist['capacity']}) the prefills dropped "
+          f"{consist['dropped_share_prefill_S']:.5f} / "
+          f"{consist['dropped_share_prefill_S1']:.5f} of their assignments, the last "
+          f"position lost {lost} by row, rows checked {int(kept.sum())} of {B_}, max |diff| by "
+          f"row {[round(v, 4) for v in consist['max_abs_diff_by_row']]}; at capacity factor "
+          f"{cf_all:g} on row 0 {consist['max_abs_err_all_kept']:.4f}")
+
+    # a 4,096-token prompt: the flash route (Dqk 192, Dv 128) in every layer
+    long = torch.from_numpy(np.random.default_rng(D["seed"] + 1).integers(
+        0, cfg.vocab, size=(1, D["long_prompt"]))).to(dev)
+    routes = []
+    orig_flash, orig_simple = tl._attention_flash, tl._attention_simple
+
+    def spy(name, fn):
+        def call(*a, **kw):
+            routes.append(name)
+            return fn(*a, **kw)
+        return call
+
+    tl._attention_flash = spy("flash", orig_flash)
+    tl._attention_simple = spy("simple", orig_simple)
+    try:
+        with torch.no_grad():
+            long_s = [sync_s(lambda: model.prefill(params, {"tokens": long}))[1]
+                      for _ in range(2)]
+    finally:
+        tl._attention_flash, tl._attention_simple = orig_flash, orig_simple
+    check(routes == ["flash"] * (2 * cfg.n_layers),
+          f"the {D['long_prompt']}-token prefill took the flash route in every layer: {routes}")
+    long_dev = graph_device_ms(lambda: model.prefill(params, {"tokens": long}), replays=3)
+    hh = D["flash_heads"]
+    with torch.no_grad():
+        lp0 = params.dense_blocks[0]
+        x = tlm._embed(params, long, cfg)
+        hn = tl.rmsnorm(x, lp0["ln1"], cfg.norm_eps)
+        p0 = lp0["attn"]
+        pos = torch.arange(D["long_prompt"], device=dev)
+        q_nope, q_rope = tmla._q_proj(p0, hn, cfg)
+        ckv, k_rope = tmla._kv_latent(p0, hn, cfg)
+        q = torch.cat([q_nope, tl.rope(q_rope, pos, cfg.rope_theta)], dim=-1)[:, :, :hh]
+        kv = (ckv @ p0["wkv_b"]).reshape(1, D["long_prompt"], H, -1)[:, :, :hh]
+        k_ = torch.cat([kv[..., :cfg.qk_nope_dim],
+                        tl.rope(k_rope, pos, cfg.rope_theta).expand(-1, -1, hh, -1)], dim=-1)
+        v_ = kv[..., cfg.qk_nope_dim:]
+        qg = q.float().reshape(1, D["long_prompt"], hh, 1, Dqk)
+        kw = dict(causal=True, window=0, kv_valid_len=None, softcap=0.0)
+        (flash_out, flash_s) = sync_s(lambda: tl._attention_flash(qg, k_.float(), v_.float(),
+                                                                  **kw))
+        (simple_out, simple_s) = sync_s(lambda: tl._attention_simple(
+            qg, k_.float(), v_.float(), q_offset=0, **kw))
+    check(tuple(flash_out.shape) == (1, D["long_prompt"], hh, 1, Dv), "the flash route's Dv")
+    flash_err = compare(f"layer 0 MLA attention, flash vs simple route ({D['long_prompt']} "
+                        f"tokens, heads 0-{hh - 1} of {H}, Dqk {Dqk}, Dv {Dv}, float32)",
+                        [flash_out], [simple_out], rtol=2e-4, atol=2e-5,
+                        why="tests/test_layers.py:38-41 gate")
+    del x, hn, q, kv, k_, v_, qg, flash_out, simple_out, q_nope, q_rope, ckv, k_rope, lp0, p0
+    report["serve"] = {
+        "layers": cfg.n_layers, "experts": E, "params": n_b, "init_s": init_b_s,
+        "batch": B_, "prompt_len": P, "gen": G,
+        "prefill_first_ms": served["prefill_s"] * 1e3, "prefill_warm_ms": warm_prefill_ms,
+        "decode_ms_per_token": served["decode_s_per_token"] * 1e3,
+        "decode_warm_median_ms": warm_decode_ms, "tokens_per_s": served["tokens_per_s"],
+        "decode_device_ms": dec_dev, "prefill_device_ms": pre_dev,
+        "decode_idle_share": 1.0 - dec_dev / warm_decode_ms,
+        "decode_idle_share_generate": 1.0 - dec_dev / (served["decode_s_per_token"] * 1e3),
+        "prefill_idle_share": 1.0 - pre_dev / warm_prefill_ms,
+        "param_bytes_held": held, "peak_bytes": serve_peak,
+        "peak_above_weights": serve_peak - held, "held_before_bytes": base,
+        "latent_cache_bytes": latent_bytes, "expanded_kv_bytes": expanded_bytes,
+        "bound_decode_ms": bound_decode_ms, "decode_bytes": bytes_decode,
+        "prefill_capacity": C_, "prefill_bf16_tflop": f_bf16 / 1e12,
+        "prefill_f32_tflop": f_f32 / 1e12, "bound_prefill_ops_ms": bound_prefill_ops_ms,
+        "bound_prefill_bytes_ms": bound_prefill_bytes_ms, "bound_prefill_ms": bound_prefill_ms,
+        "consistency": consist,
+        "long": {"prompt": D["long_prompt"], "prefill_first_ms": long_s[0] * 1e3,
+                 "prefill_warm_ms": long_s[1] * 1e3, "prefill_device_ms": long_dev,
+                 "layer0_flash_ms": flash_s * 1e3, "layer0_simple_ms": simple_s * 1e3,
+                 "flash_heads": hh, "flash_vs_simple": flash_err}}
+    print(f"[phase 15] {smi}: generate({cfg.arch_id} at {cfg.n_layers} layers, {E} experts, "
+          f"{n_b / 1e9:.3f}e9 parameters, batch {B_}, prompt {P}, gen {G}): prefill "
+          f"{served['prefill_s'] * 1e3:.2f} ms first, {warm_prefill_ms:.2f} ms warm (bound "
+          f"{bound_prefill_ms:.3f} ms: operations {bound_prefill_ops_ms:.3f} ms, "
+          f"{f_bf16 / 1e12:.3f} TFLOP bf16 with {E} x {C_} expert rows + "
+          f"{f_f32 / 1e12:.4f} TFLOP float32; bytes {bound_prefill_bytes_ms:.3f} ms); decode "
+          f"{served['decode_s_per_token'] * 1e3:.3f} ms a token in generate, "
+          f"{warm_decode_ms:.3f} ms warm median a step (bound {bound_decode_ms:.3f} ms: "
+          f"{bytes_decode / 1e9:.3f} GB at 3.35 TB/s); {served['tokens_per_s']:.1f} tok/s; "
+          f"generate's peak {serve_peak / 1e9:.3f} GB, {(serve_peak - held) / 1e9:.3f} GB above "
+          f"the {held / 1e9:.3f} GB of weights ({base / 1e9:.3f} GB held before); the latent "
+          f"cache {latent_bytes / 1e6:.2f} MB where the expanded K/V would take "
+          f"{expanded_bytes / 1e6:.2f} MB; device time from a CUDA graph: decode step "
+          f"{dec_dev:.3f} ms (idle {100 * (1 - dec_dev / warm_decode_ms):.1f}% of the eager "
+          f"step timed alone, {100 * (1 - dec_dev / (served['decode_s_per_token'] * 1e3)):.1f}% "
+          f"of generate's, whose host runs ahead), prefill {pre_dev:.3f} ms (idle "
+          f"{100 * (1 - pre_dev / warm_prefill_ms):.1f}%)")
+    print(f"[phase 15] {smi}: {D['long_prompt']}-token prefill (flash route, {cfg.n_layers} "
+          f"layers): {long_s[0] * 1e3:.2f} ms first, {long_s[1] * 1e3:.2f} ms warm, "
+          f"{long_dev:.2f} ms of device time (CUDA graph); layer 0 attention on {hh} heads in "
+          f"float32: flash {flash_s * 1e3:.2f} ms, simple {simple_s * 1e3:.2f} ms")
+    del params, model, long
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) training at 4 layers with 32 experts ---------------------------------
+    cfg_c = dataclasses.replace(full, n_layers=D["train_layers"], n_experts=D["train_experts"])
+    E_c = cfg_c.n_experts
+    S_ = D["train_seq"]
+    model = get_model(cfg_c)
+    n_c = cfg_c.param_count()
+    state_bytes = 8 * n_c                 # bf16 weights, gradients, AdamW's m and v
+
+    def act_bytes(b):
+        """What a step holds beside the state, reckoned: each block's input
+        (per-block remat, the MTP block's too), one block's recomputed
+        float32 S x S scores, probabilities and their gradient, its expert
+        buffers and their gradients (gathered rows, outputs, products: E x
+        C slot rows), and a loss chunk's float32 logits, their softmax and
+        gradient."""
+        T = b * S_
+        C = tmoe.capacity(T, cfg_c)
+        return ((cfg_c.n_layers + cfg_c.mtp_depth) * T * cfg_c.d_model * 2
+                + 3 * b * H * S_ * S_ * 4
+                + 8 * E_c * C * cfg_c.d_model * 2 + 6 * E_c * C * cfg_c.d_expert * 2
+                + 3 * b * min(cfg_c.logits_chunk, S_) * cfg_c.vocab * 4)
+
+    free = torch.cuda.mem_get_info()[0]
+    bt = D["train_batch"]
+    while bt > 1 and state_bytes + act_bytes(bt) > free:
+        bt //= 2
+    print(f"[phase 15] (c) {cfg_c.n_layers} layers, {E_c} experts top-{cfg_c.top_k}, MTP "
+          f"{cfg_c.mtp_depth}: {n_c / 1e9:.3f}e9 parameters; memory reckoned: weights, "
+          f"gradients and AdamW state {state_bytes / 1e9:.2f} GB + a step's activations "
+          f"{act_bytes(bt) / 1e9:.2f} GB at batch {bt} x {S_} (at {D['train_batch']}: "
+          f"{act_bytes(D['train_batch']) / 1e9:.2f} GB); free {free / 1e9:.2f} GB")
+    T_ = bt * S_
+    C_ = tmoe.capacity(T_, cfg_c)
+    # the products as the code runs them: forward, backward (twice the
+    # forward), the blocks' remat forward and the loss chunks' recomputed
+    # logits, the MTP head's included: in bfloat16 the projections, the
+    # FFNs, the E x C routed and the shared expert rows, the MTP projection
+    # and the two LM heads; in float32 the router and the S x S products
+    n_blk = cfg_c.n_layers + cfg_c.mtp_depth
+    n_moe = cfg_c.n_layers - cfg_c.moe_layer_start + cfg_c.mtp_depth
+    f_blocks = (n_blk * 2.0 * attn_w * T_ + cfg_c.moe_layer_start * 6.0 * cfg_c.d_model
+                * cfg_c.d_ff * T_ + n_moe * 6.0 * cfg_c.d_model * cfg_c.d_expert
+                * (E_c * C_ + T_) + 2.0 * 2 * cfg_c.d_model * cfg_c.d_model * T_)
+    f_unembed = 2 * 2.0 * cfg_c.vocab * cfg_c.d_model * T_
+    f_attn = n_blk * 2.0 * bt * H * S_ * S_ * (Dqk + Dv)
+    f_router = n_moe * 2.0 * T_ * cfg_c.d_model * E_c
+    bf16_flop = 4.0 * (f_blocks + f_unembed)
+    f32_flop = 4.0 * (f_attn + f_router)
+    bound_ms = (bf16_flop / PEAK_BF16 + f32_flop / PEAK_F32) * 1e3
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    # the pieces launch/train.py's build assembles, at the cut depth
+    params = model.init_params(D["seed"], device=dev)
+    ocfg = optim.AdamWConfig(lr=optim.warmup_cosine(D["lr"], 20, 10_000))
+    opt_state = optim.init(tlm.leaves(params), ocfg)
+    step_fn = make_train_step(model, ocfg)
+    stream = TokenStream(vocab=cfg_c.vocab, seq=S_, global_batch=bt, seed=D["seed"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held_c = torch.cuda.memory_allocated() - base
+    watch = {k_: v.detach().clone() for k_, v in tlm.leaves(params).items()
+             if k_ in ("final_norm", "dense_blocks.0.attn.q_ln", "moe_blocks.0.moe.router",
+                       "moe_blocks.0.attn.wkv_b", "mtp_proj", "mtp_norm_e",
+                       "mtp_blocks.0.moe.shared_wd")}
+    emb_rows = params.tok_emb[:4096].detach().clone()
+    auxes = []
+
+    def step_rec(p, o, b):
+        out = step_fn(p, o, b)
+        auxes.append(out[2]["aux"])
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, rep = train_loop(step_rec, params, opt_state,
+                                        lambda s: stream.batch(s, device=dev),
+                                        TrainLoopConfig(steps=D["train_steps"], ckpt_dir=None,
+                                                        log_every=1, handle_signals=False),
+                                        log_fn=lambda s: None)
+    peak = torch.cuda.max_memory_allocated() - base
+    hist = rep["history"]
+    aux_v = [float(a) for a in auxes]
+    check(len(hist) == D["train_steps"] and rep["final_step"] == D["train_steps"],
+          "(c) ran every step")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist)
+          and all(math.isfinite(a) and a > 0 for a in aux_v),
+          "(c) every loss, aux and grad norm finite, aux > 0")
+    moved = {k_: not torch.equal(v, tlm.leaves(params)[k_]) for k_, v in watch.items()}
+    moved["tok_emb[:4096]"] = not torch.equal(emb_rows, params.tok_emb[:4096])
+    check(all(moved.values()), f"(c) the parameters moved: {moved}")
+    secs = [h["sec_per_step"] for h in hist]
+    warm = statistics.median(secs[1:])
+    report["train"] = {
+        "layers": cfg_c.n_layers, "experts": E_c, "params": n_c,
+        "batch": bt, "seq": S_, "steps": D["train_steps"], "capacity": C_,
+        "build_s": build_s, "first_step_s": secs[0], "warm_median_s": warm,
+        "warm_min_s": min(secs[1:]), "warm_max_s": max(secs[1:]), "tokens_per_s": T_ / warm,
+        "losses": [h["loss"] for h in hist], "aux": aux_v,
+        "grad_norms": [h["grad_norm"] for h in hist], "stragglers": rep["stragglers"],
+        "held_bytes": held_c, "peak_bytes": peak, "peak_above_state": peak - held_c,
+        "held_before_bytes": base, "reckoned_state_bytes": state_bytes,
+        "reckoned_act_bytes": act_bytes(bt), "bf16_tflop": bf16_flop / 1e12,
+        "f32_tflop": f32_flop / 1e12, "bound_ms": bound_ms}
+    print(f"[phase 15] {smi}: train({cfg_c.arch_id} at {cfg_c.n_layers} layers, {E_c} "
+          f"experts, batch {bt} x {S_}, {D['train_steps']} steps, {E_c} x {C_} expert rows a "
+          f"layer): first step {secs[0]:.3f} s, warm median {warm * 1e3:.1f} ms "
+          f"({min(secs[1:]) * 1e3:.1f}-{max(secs[1:]) * 1e3:.1f}), {T_ / warm:.0f} tokens/s; "
+          f"loss (MTP term in) {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, aux "
+          f"{aux_v[0]:.5f} -> {aux_v[-1]:.5f}; bound {bound_ms:.1f} ms ({bf16_flop / 1e12:.2f} "
+          f"TFLOP bf16 at 989 TFLOP/s + {f32_flop / 1e12:.2f} TFLOP float32 at 67 TFLOP/s); "
+          f"model and AdamW state held {held_c / 1e9:.3f} GB, the steps' peak "
+          f"{(peak - held_c) / 1e9:.3f} GB above it ({base / 1e9:.3f} GB held before); built "
+          f"in {build_s:.1f} s")
+    del params, opt_state, step_fn, model, watch, emb_rows, auxes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) checkpoint and restart on the SMOKE config ---------------------------
+    cfg_d = ARCHS[D["arch"]].SMOKE
+    m_d = get_model(cfg_d)
+    n, at = D["ckpt_steps"], D["ckpt_at"]
+    stream_d = TokenStream(vocab=cfg_d.vocab, seq=D["ckpt_seq"], global_batch=D["ckpt_batch"],
+                           seed=D["seed"])
+
+    def fresh():
+        p = m_d.init_params(D["seed"], device=dev)
+        return p, optim.init(tlm.leaves(p), ocfg)
+
+    def host(params):
+        return [t.detach().float().cpu() for t in tlm.leaves(params).values()]
+
+    def loop(params, opt, n_steps, ckpt_dir=None, every=D["ckpt_every"]):
+        return train_loop(make_train_step(m_d, ocfg), params, opt,
+                          lambda s: stream_d.batch(s, device=dev),
+                          TrainLoopConfig(steps=n_steps, ckpt_dir=ckpt_dir, ckpt_every=every,
+                                          log_every=1000, handle_signals=False),
+                          log_fn=lambda s: None)
+
+    t0 = time.perf_counter()
+    straight = [host(loop(*fresh(), n)[0]) for _ in range(2)]
+    straight_s = time.perf_counter() - t0
+    bitwise = all(torch.equal(a, b) for a, b in zip(*straight))
+    check(bitwise, "(d) two straight runs on the card are not bitwise equal")
+    with tempfile.TemporaryDirectory() as td:
+        loop(*fresh(), at, td)                        # async at step 3, sync at 5
+        check(tckpt.latest_step(td) == at, "(d) the checkpoint of step 5")
+        p3, o3 = fresh()
+        loop(p3, o3, D["ckpt_every"])
+        keys = convert.train_state_keys(p3)
+        check(set(keys["params"]) == {"dense_blocks", "final_norm", "lm_head", "moe_blocks",
+                                      "mtp_blocks", "mtp_norm_e", "mtp_norm_h", "mtp_proj",
+                                      "tok_emb"},
+              f"(d) the checkpoint's tree: {sorted(keys['params'])}")
+        _, tree3 = tckpt.restore(td, keys, step=D["ckpt_every"], device="cpu")
+        p_chk, o_chk = fresh()
+        convert.load_train_state(p_chk, o_chk, tree3)
+        async_bitwise = all(torch.equal(a, b) for a, b in zip(host(p_chk), host(p3)))
+        del tree3, p3, o3, p_chk, o_chk
+        resumed, _, rep_d = loop(*fresh(), n, td, every=n)   # writes step 10 only
+        check(rep_d["final_step"] == n, "(d) the resumed run reached step 10")
+        got = host(resumed)
+    resume_bitwise = all(torch.equal(a, b) for a, b in zip(got, straight[0]))
+    check(resume_bitwise, "(d) the resumed run is not bitwise the straight run")
+    check(async_bitwise, "(d) the async step-3 checkpoint is not bitwise a straight 3-step run")
+    report["restart"] = {"config": cfg_d.arch_id, "straight_bitwise": bitwise,
+                         "resume_bitwise": resume_bitwise, "async_ckpt_bitwise": async_bitwise,
+                         "straight_two_runs_s": straight_s}
+    print(f"[phase 15] {smi}: restart ({cfg_d.arch_id}, batch {D['ckpt_batch']} x "
+          f"{D['ckpt_seq']}, the MTP leaves in the reference's tree): two straight {n}-step "
+          f"runs bitwise {bitwise}; {at} steps, a fresh model restored, {n - at} more = "
+          f"straight bitwise {resume_bitwise}; the async step-3 checkpoint = a straight 3-step "
+          f"run bitwise {async_bitwise}")
+    check(ops.launch_counts() == NO_LAUNCHES,
+          f"the MLA path launched a kernel: {ops.launch_counts()}")
+    del straight, got, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print("[phase 15] " + json.dumps(report))
+    print(f"[phase 15] took {report['seconds']:.1f} s")
     return report
 
 
@@ -4253,6 +4949,9 @@ def main() -> int:
 
     # -- 14. the LM half's MoE family (ROADMAP A8) ----------------------------
     phase14(dev, smi, compare)
+
+    # -- 15. the LM half's MLA family: deepseek-v3 (ROADMAP A8) ---------------
+    phase15(dev, smi, compare)
 
     # -- results --------------------------------------------------------------
     kernels = []

@@ -7,8 +7,9 @@
 Runs on the card unless ``--device cpu``; weights are random, drawn from
 ``--seed``.  Times are on the card's clock: ``torch.cuda.synchronize()``
 closes each timed region (the reference's ``block_until_ready``).  The
-cache is written in place by every decode step.  The dense family and the
-MoE family without MLA (olmoe-1b-7b) are ported
+cache is written in place by every decode step.  The dense family, the
+MoE family (olmoe-1b-7b) and the MLA family (deepseek-v3: its latent
+cache, the absorbed form at every step) are ported
 (``repro_torch.models.get_model`` refuses the others, ROADMAP A8).
 """
 from __future__ import annotations

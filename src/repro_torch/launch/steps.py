@@ -22,7 +22,8 @@ def make_train_step(model, ocfg: optim.AdamWConfig):
     (``loss``, ``aux``, ``tokens``) and the optimizer's (``grad_norm``,
     ``lr``).  Weight decay falls on the leaves of rank >= 2 in the
     reference's tree, where a block's leaves are stacked over layers: its
-    norms and biases are decayed too, the final norm is not."""
+    norms and biases are decayed too, the final norm and the MTP head's two
+    norms are not."""
     def train_step(params, opt_state, batch):
         named = lm.leaves(params)
         with lm.trainable(params):

@@ -7,11 +7,12 @@ Runs on the card unless ``--device cpu``; weights are random, drawn from
 ``--seed``; batches come from the synthetic ``TokenStream``; the schedule
 is ``warmup_cosine(lr, 20, 10_000)``.  The train step updates the model
 and the AdamW state in place; checkpoints are the reference's tree, so a
-run started by either package resumes in the other.  The dense family and
-the MoE family without MLA (olmoe-1b-7b, its load-balance aux loss added
-to the loss) are ported (``repro_torch.models.get_model`` refuses the
-others, and with them the audio and VLM extras); a production mesh
-(``mesh=``) comes with A8's ``parallel/`` part.
+run started by either package resumes in the other.  The dense family,
+the MoE family (olmoe-1b-7b, its load-balance aux loss added to the loss)
+and the MLA family (deepseek-v3, its MTP term in the loss) are ported
+(``repro_torch.models.get_model`` refuses the others, and with them the
+audio and VLM extras); a production mesh (``mesh=``) comes with A8's
+``parallel/`` part.
 """
 from __future__ import annotations
 

@@ -2,9 +2,12 @@
 
 ``lm_params_from_jax`` takes the reference's ``init_params`` pytree with
 its leaves as numpy arrays (``jax.tree.map(np.asarray, params)``; the
-blocks stacked (L, ...) over layers, bfloat16 leaves as ``ml_dtypes``
-arrays) and returns the port's :class:`~repro_torch.models.lm.LM` holding
-the same values, so that the tests hand both packages one set of weights.
+blocks stacked (L, ...) over layers in each stack, ``blocks`` for the
+dense and MoE families, ``dense_blocks``, ``moe_blocks`` and
+``mtp_blocks`` beside ``mtp_proj``, ``mtp_norm_h`` and ``mtp_norm_e`` for
+MLA; bfloat16 leaves as ``ml_dtypes`` arrays) and returns the port's
+:class:`~repro_torch.models.lm.LM` holding the same values, so that the
+tests hand both packages one set of weights.
 
 The reverse: ``lm_params_to_jax`` gives the port's parameters as the
 reference's nested numpy tree (float32 arrays holding the values exactly),
@@ -25,7 +28,7 @@ import torch
 
 from ..device import resolve_device
 from .config import ModelConfig
-from .lm import LM, _block_type, _dtype, leaf_paths
+from .lm import LM, MTP_TOP, _dtype, _stacks, leaf_paths
 
 __all__ = ["lm_params_from_jax", "lm_params_to_jax", "train_state_to_jax",
            "train_state_keys", "load_train_state"]
@@ -38,30 +41,36 @@ def _t(a, dtype, device) -> torch.Tensor:
 
 
 # leaves the reference keeps in float32 whatever the model dtype
-F32_LEAVES = ("ln1", "ln2", "final_norm", "router")
+F32_LEAVES = ("ln1", "ln2", "final_norm", "router", "q_ln", "kv_ln", "mtp_norm_h",
+              "mtp_norm_e")
 
 
 def lm_params_from_jax(tree: Mapping, cfg: ModelConfig, device=None) -> LM:
-    """The dense or (non-MLA) MoE family's parameters on ``device``
-    (default the card): weights and biases in the model dtype, norms and
-    the MoE router in float32, as the reference keeps them; an MoE block's
-    expert leaves stay stacked (E, ...) over experts."""
-    Block = _block_type(cfg)
+    """The dense, MoE or MLA family's parameters on ``device`` (default the
+    card): weights and biases in the model dtype, the norms (an MLA
+    block's ``q_ln`` and ``kv_ln`` and the MTP head's two among them) and
+    the MoE router in float32, as the reference keeps them; each stack of
+    the tree (``blocks``; or ``dense_blocks``, ``moe_blocks`` and
+    ``mtp_blocks``) unstacked into its layers, an MoE block's expert
+    leaves still stacked (E, ...) over experts."""
     device = resolve_device(device)
     dt = _dtype(cfg)
-    f32 = torch.float32
-    bl = tree["blocks"]
 
-    def sub(name, l):
-        return {k: _t(v[l], f32 if k in F32_LEAVES else dt, device)
-                for k, v in bl[name].items()}
+    def leaf(name, a):
+        return _t(a, torch.float32 if name in F32_LEAVES else dt, device)
 
-    blocks = [Block(_t(bl["ln1"][l], f32, device), sub("attn", l),
-                    _t(bl["ln2"][l], f32, device), sub(Block.FFN, l))
-              for l in range(cfg.n_layers)]
-    head = None if cfg.tie_embeddings else _t(tree["lm_head"], dt, device)
-    return LM(cfg, _t(tree["tok_emb"], dt, device), _t(tree["final_norm"], f32, device),
-              blocks, head)
+    def block(Block, bl, l):
+        def sub(name):
+            return {k: leaf(k, v[l]) for k, v in bl[name].items()}
+        return Block(leaf("ln1", bl["ln1"][l]), sub("attn"), leaf("ln2", bl["ln2"][l]),
+                     sub(Block.FFN))
+
+    stacks = {name: [block(Block, tree[name], l) for l in range(n)]
+              for name, Block, n in _stacks(cfg)}
+    top = {k: leaf(k, tree[k]) for k in MTP_TOP if k in tree}
+    head = None if cfg.tie_embeddings else leaf("lm_head", tree["lm_head"])
+    return LM(cfg, leaf("tok_emb", tree["tok_emb"]), leaf("final_norm", tree["final_norm"]),
+              stacks, head, **top)
 
 
 def _nest(flat: dict) -> dict:

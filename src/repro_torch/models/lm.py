@@ -1,41 +1,53 @@
-"""Decoder-only LM assembly, dense and MoE families: the port of the dense
-and (non-MLA) MoE parts of ``repro/models/lm.py`` (``_dtype``, the
-"dense" and "moe" blocks' init and apply, ``init_params``, ``forward``
-with its per-block remat and its aux loss, ``_unembed``, ``xent_chunked``,
-``loss_fn``, ``init_cache``, ``_dense_block_decode`` and
-``_moe_block_decode`` (one ``_block_decode`` here), ``decode_step`` and
+"""Decoder-only LM assembly, the dense, MoE and MLA families: the port of
+the dense, MoE and MLA parts of ``repro/models/lm.py`` (``_dtype``, the
+"dense", "moe", "mla_dense" and "mla_moe" blocks' init and apply,
+``init_params``, ``forward`` with its per-block remat and its aux loss,
+``_unembed``, ``xent_chunked``, ``loss_fn`` with the MLA family's MTP
+term, ``init_cache``, ``_dense_block_decode``, ``_moe_block_decode`` and
+``_mla_block_decode`` (one ``_block_decode`` here), ``decode_step`` and
 ``prefill``).
 
-The model is an ``nn.Module`` (:class:`LM`) holding a ``ModuleList`` of
-:class:`DenseBlock` or :class:`MoEBlock`; every parameter keeps the
-reference's leaf name (``tok_emb``, ``final_norm``, ``lm_head``,
-``blocks.<l>.ln1``, ``blocks.<l>.attn.wq``, ``blocks.<l>.moe.wg`` ...) and
-its orientation, and a block reads like the reference's parameter dict
+The model is an ``nn.Module`` (:class:`LM`) holding the reference's
+stacks as ``ModuleList``\\ s of blocks: ``blocks`` (:class:`DenseBlock` or
+:class:`MoEBlock`) for the dense and MoE families; ``dense_blocks``
+(:class:`MLADenseBlock`, the first ``moe_layer_start`` layers),
+``moe_blocks`` (:class:`MLAMoEBlock`, the rest) and, with
+``cfg.mtp_depth``, ``mtp_blocks`` (:class:`MLAMoEBlock`) beside
+``mtp_proj``, ``mtp_norm_h`` and ``mtp_norm_e`` for the MLA family
+(deepseek-v3).  Every parameter keeps the reference's leaf name
+(``tok_emb``, ``final_norm``, ``lm_head``, ``blocks.<l>.attn.wq``,
+``moe_blocks.<l>.attn.wkv_b``, ``moe_blocks.<l>.moe.wg`` ...) and its
+orientation, and a block reads like the reference's parameter dict
 (``lp["attn"]["wq"]``, ``lp["moe"]["router"]``).  An MoE block's FFN is
 :func:`repro_torch.models.moe.moe_dispatch` over the block's (B * S, d)
-tokens; its aux loss is summed over the layers in layer order, as the
-reference's scan carries it.
+tokens; its aux loss is summed over the layers in layer order, a stack at
+a time, as the reference's scans carry it.  An MLA block's attention is
+:mod:`repro_torch.models.mla`: the expanded form over a sequence, the
+absorbed form for a decode step.
 The reference stacks the blocks (L, ...) and scans over them; here a loop
-over the list does the same, and the cache is ``{"k", "v"}`` of shape
-(L, B, S, K, Dh) as there.
+over the list does the same.  The cache is the reference's: ``{"k", "v"}``
+of shape (L, B, S, K, Dh), or for MLA ``{"latent_dense", "latent_moe"}``
+of shape (layers, B, S, kv_lora + rope).
 
 ``prefill`` fuses the reference's two passes (``forward`` for the logits,
 then a second pass over the blocks for the cache): the second pass
-recomputes the first's keys and values from the same inputs with the same
-operations, so one pass that keeps them gives the same logits and cache.
-``decode_step`` writes the cache in place (the reference donates it).
+recomputes the first's keys and values from the same inputs with the
+same operations, so one pass that keeps them gives the same logits and
+cache (an MLA block writes ``mla_prefill_cache`` of its normed input, as
+the reference's second pass does).  ``decode_step`` writes the cache in
+place (the reference donates it).
 
 Training: the parameters are built with ``requires_grad=False``, so no
 serving call records a graph; :func:`trainable` switches gradients on for
 the length of a train step.  With ``cfg.remat`` and gradients on, each
 block runs under ``torch.utils.checkpoint`` (the reference scans its
-blocks under ``jax.checkpoint``), and :func:`xent_chunked` recomputes each
-chunk's logits in the backward pass, so neither pass holds a (B, S, V)
-tensor.  :func:`leaves` names the trainable tensors in the reference's
-tree order.
+blocks under ``jax.checkpoint``), the MTP blocks too, and
+:func:`xent_chunked` recomputes each chunk's logits in the backward pass,
+so neither pass holds a (B, S, V) tensor.  :func:`leaves` names the
+trainable tensors in the reference's tree order.
 
-MLA (with its MTP loss), SSM/hybrid, audio and VLM families come with A8's
-later parts (``repro_torch.models`` refuses them).
+The SSM/hybrid, audio and VLM families come with A8's later parts
+(``repro_torch.models`` refuses them).
 """
 from __future__ import annotations
 
@@ -47,12 +59,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from . import layers, moe
+from . import layers, mla, moe
 from .config import ModelConfig
 
-__all__ = ["LM", "DenseBlock", "MoEBlock", "init_params", "forward", "prefill",
-           "decode_step", "init_cache", "xent_chunked", "loss_fn", "leaves", "leaf_paths",
-           "ref_ndims", "trainable"]
+__all__ = ["LM", "DenseBlock", "MoEBlock", "MLADenseBlock", "MLAMoEBlock", "init_params",
+           "forward", "prefill", "decode_step", "init_cache", "xent_chunked", "loss_fn",
+           "leaves", "leaf_paths", "ref_ndims", "trainable"]
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -66,9 +78,11 @@ def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 class _Block(nn.Module):
     """ln1, attn, ln2 and the FFN (named ``FFN``) under the reference's
-    names; ``block["attn"]`` reads like the reference's parameter dict."""
+    names; ``block["attn"]`` reads like the reference's parameter dict.
+    ``MLA``: the attention is :mod:`repro_torch.models.mla`'s."""
 
     FFN = ""
+    MLA = False
 
     def __init__(self, ln1, attn: dict, ln2, ffn: dict):
         super().__init__()
@@ -95,42 +109,86 @@ class MoEBlock(_Block):
     FFN = "moe"
 
 
-def _block_type(cfg: ModelConfig):
-    """The block class of ``cfg``'s family; raises for the families that
-    ``lm`` does not build."""
+class MLADenseBlock(_Block):
+    """One "mla_dense" block: ln1, attn (``wq_a``, ``q_ln``, ``wq_b``,
+    ``wkv_a``, ``kv_ln``, ``wkv_b``, ``wo``; the norms float32), ln2, mlp
+    (gated)."""
+
+    FFN = "mlp"
+    MLA = True
+
+
+class MLAMoEBlock(_Block):
+    """One "mla_moe" block: ln1, attn (MLA), ln2, moe."""
+
+    FFN = "moe"
+    MLA = True
+
+
+def _stacks(cfg: ModelConfig) -> list:
+    """(name, block class, layers) of each stack of ``cfg``'s family, the
+    stacks ``forward`` runs in their order, then ``mtp_blocks`` (run by the
+    loss only); raises for the families that ``lm`` does not build."""
     if cfg.family == "dense":
-        return DenseBlock
+        return [("blocks", DenseBlock, cfg.n_layers)]
     if cfg.family == "moe" and not cfg.use_mla:
-        return MoEBlock
-    raise ValueError(f"lm builds the dense family and the moe family without MLA, not "
-                     f"{cfg.arch_id!r} (family {cfg.family!r}, use_mla={cfg.use_mla})")
+        return [("blocks", MoEBlock, cfg.n_layers)]
+    if cfg.family == "moe":
+        nd = cfg.moe_layer_start
+        out = [("dense_blocks", MLADenseBlock, nd),
+               ("moe_blocks", MLAMoEBlock, cfg.n_layers - nd)]
+        if cfg.mtp_depth:
+            out.append(("mtp_blocks", MLAMoEBlock, cfg.mtp_depth))
+        return out
+    raise ValueError(f"lm builds the dense family and the moe family (with or without "
+                     f"MLA), not {cfg.arch_id!r} (family {cfg.family!r})")
+
+
+# the stacks forward runs, in order, and the cache entries each one's
+# layers write: k and v, or the MLA latent
+_CACHE = {"blocks": ("k", "v"), "dense_blocks": ("latent_dense",),
+          "moe_blocks": ("latent_moe",)}
+# the MTP head's leaves outside its blocks
+MTP_TOP = ("mtp_proj", "mtp_norm_h", "mtp_norm_e")
 
 
 class LM(nn.Module):
-    """Token embedding, a list of blocks, the final norm and (untied)
-    the LM head; parameters under the reference's leaf names."""
+    """Token embedding, the stacks of blocks, the final norm, (untied) the
+    LM head and (MLA with MTP) the MTP head; parameters under the
+    reference's leaf names.  ``stacks`` is {stack name: list of blocks};
+    ``top`` holds the MTP head's ``mtp_proj``, ``mtp_norm_h`` and
+    ``mtp_norm_e``."""
 
-    def __init__(self, cfg: ModelConfig, tok_emb, final_norm, blocks, lm_head=None):
+    def __init__(self, cfg: ModelConfig, tok_emb, final_norm, stacks, lm_head=None, **top):
         super().__init__()
         self.cfg = cfg
         self.tok_emb = nn.Parameter(tok_emb, requires_grad=False)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         if lm_head is not None:
             self.lm_head = nn.Parameter(lm_head, requires_grad=False)
-        self.blocks = nn.ModuleList(blocks)
+        for name, t in top.items():
+            setattr(self, name, nn.Parameter(t, requires_grad=False))
+        for name, blocks in stacks.items():
+            setattr(self, name, nn.ModuleList(blocks))
 
     @property
     def device(self) -> torch.device:
         return self.tok_emb.device
 
 
-def _block_init(gen: torch.Generator, cfg: ModelConfig) -> _Block:
+def _run_stacks(params: LM) -> list:
+    """(name, blocks) of the stacks ``forward`` runs, in order."""
+    return [(name, getattr(params, name)) for name in _CACHE if hasattr(params, name)]
+
+
+def _block_init(gen: torch.Generator, cfg: ModelConfig, Block) -> _Block:
     dt = _dtype(cfg)
     d = cfg.d_model
-    Block = _block_type(cfg)
-    attn = layers.attn_init(gen, cfg, dt)
-    ffn = (moe.moe_init(gen, cfg, dt) if Block is MoEBlock
-           else layers.mlp_init(gen, d, cfg.d_ff, dt, gated=cfg.mlp_gated))
+    attn = mla.mla_init(gen, cfg, dt) if Block.MLA else layers.attn_init(gen, cfg, dt)
+    if Block.FFN == "moe":
+        ffn = moe.moe_init(gen, cfg, dt)
+    else:        # the reference's mla_dense MLP is gated whatever cfg.mlp_gated
+        ffn = layers.mlp_init(gen, d, cfg.d_ff, dt, gated=cfg.mlp_gated or Block.MLA)
     return Block(layers.norm_init(d, device=gen.device), attn,
                  layers.norm_init(d, device=gen.device), ffn)
 
@@ -139,28 +197,38 @@ def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
                 device: Optional[Union[str, torch.device]] = None) -> LM:
     """Random weights with the reference's distributions: ``tok_emb`` (and
     an untied ``lm_head``) N(0, 1) * 0.02 drawn in float32 then cast,
-    projections N(0, 1) / sqrt(d_in) (``wo`` / sqrt(H Dh), ``wd`` and ``w2``
-    / sqrt(f)), biases 0, norms 1; an MoE block's FFN as
-    :func:`repro_torch.models.moe.moe_init` draws it.  ``gen`` is a
-    ``torch.Generator`` (its device is the model's) or a seed for one on
-    ``device`` (default the card; ``"cpu"`` for the tests).  The numbers are
-    not the reference's (``jax.random`` draws others); the tests hand both
-    packages the same weights through :func:`repro_torch.models.convert`."""
-    _block_type(cfg)
+    projections N(0, 1) / sqrt(d_in) (``wo`` / sqrt(H Dh) or, MLA, /
+    sqrt(H dv), ``wd`` and ``w2`` / sqrt(f)), biases 0, norms 1; an MoE
+    block's FFN as :func:`repro_torch.models.moe.moe_init` draws it, an MLA
+    block's attention as :func:`repro_torch.models.mla.mla_init`; with
+    ``cfg.mtp_depth`` the MTP head (``mtp_proj`` (2d, d), two norms,
+    ``mtp_depth`` "mla_moe" blocks).  ``gen`` is a ``torch.Generator`` (its
+    device is the model's) or a seed for one on ``device`` (default the
+    card; ``"cpu"`` for the tests).  The numbers are not the reference's
+    (``jax.random`` draws others); the tests hand both packages the same
+    weights through :func:`repro_torch.models.convert`."""
+    specs = _stacks(cfg)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=resolve_device(device)).manual_seed(int(gen))
     dt = _dtype(cfg)
+    dev = gen.device
 
     def emb():
         w = torch.randn((cfg.vocab, cfg.d_model), generator=gen, dtype=torch.float32,
-                        device=gen.device)
+                        device=dev)
         return (w * 0.02).to(dt)
 
     tok_emb = emb()
     lm_head = None if cfg.tie_embeddings else emb()
-    blocks = [_block_init(gen, cfg) for _ in range(cfg.n_layers)]
-    return LM(cfg, tok_emb, layers.norm_init(cfg.d_model, device=gen.device), blocks,
-              lm_head)
+    stacks = {name: [_block_init(gen, cfg, Block) for _ in range(n)]
+              for name, Block, n in specs}
+    top = {}
+    if "mtp_blocks" in stacks:
+        top = {"mtp_proj": layers.dense_init(gen, 2 * cfg.d_model, cfg.d_model, dt),
+               "mtp_norm_h": layers.norm_init(cfg.d_model, device=dev),
+               "mtp_norm_e": layers.norm_init(cfg.d_model, device=dev)}
+    return LM(cfg, tok_emb, layers.norm_init(cfg.d_model, device=dev), stacks, lm_head,
+              **top)
 
 
 # ---------------------------------------------------------------------------
@@ -171,23 +239,27 @@ def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
 def _ffn(lp, h, cfg: ModelConfig):
     """The block's FFN on (B, S, d): (y, aux); aux is None for a dense
     block."""
-    if isinstance(lp, MoEBlock):
+    if lp.FFN == "moe":
         B, S, d = h.shape
         y, aux = moe.moe_dispatch(lp["moe"], h.reshape(B * S, d), cfg)
         return y.reshape(B, S, d), aux
     return layers.mlp_apply(lp["mlp"], h, cfg.act), None
 
 
-def _block_apply(lp, x, cfg: ModelConfig, kv_out=None):
-    """Full-sequence block: (x, aux), aux None for a dense block;
-    ``kv_out`` (k, v) cache slices of this layer, if given, receive the
-    block's keys and values."""
-    a, (k, v) = layers.attn_apply(lp["attn"], layers.rmsnorm(x, lp["ln1"], cfg.norm_eps),
-                                  cfg, return_kv=True)
-    if kv_out is not None:
-        S = k.shape[1]
-        kv_out[0][:, :S] = k.to(kv_out[0].dtype)
-        kv_out[1][:, :S] = v.to(kv_out[1].dtype)
+def _block_apply(lp, x, cfg: ModelConfig, cache_out=None):
+    """Full-sequence block: (x, aux), aux None for a block without MoE;
+    ``cache_out``, this layer's cache slices (k and v, or the MLA latent),
+    if given, receive the block's keys and values (its latents)."""
+    h = layers.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    if lp.MLA:
+        a = mla.mla_apply(lp["attn"], h, cfg)
+        new = () if cache_out is None else (mla.mla_prefill_cache(lp["attn"], h, cfg),)
+    else:
+        a, new = layers.attn_apply(lp["attn"], h, cfg, return_kv=True)
+    if cache_out is not None:
+        S = x.shape[1]
+        for dst, src in zip(cache_out, new):
+            dst[:, :S] = src.to(dst.dtype)
     x = x + a
     y, aux = _ffn(lp, layers.rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
     return x + y, aux
@@ -201,24 +273,36 @@ def _remat(x, lp) -> bool:
     return torch.is_grad_enabled() and (x.requires_grad or lp.ln1.requires_grad)
 
 
-def forward(params: LM, batch, cfg: ModelConfig, *, cache=None):
-    """Token inputs -> final hidden states (B, S, d), aux loss (float32;
-    the MoE blocks' aux summed in layer order, 0 for the dense family).
-    ``cache`` (from :func:`init_cache`), if given, receives every layer's
-    keys and values at positions [0, S).  With ``cfg.remat`` and gradients
-    on (a train step), each block's activations are recomputed in the
-    backward pass."""
-    x = _embed(params, batch["tokens"], cfg)
+def _run_stack(blocks, x, cfg: ModelConfig, cache_entries=None):
+    """x through one stack: (x, the stack's aux summed in layer order from
+    0, as the reference's scan carries it).  ``cache_entries``: the
+    stack's cache tensors (L, B, S, ...), written at positions [0, S)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l, lp in enumerate(params.blocks):
-        if cache is None and cfg.remat and _remat(x, lp):
+    for l, lp in enumerate(blocks):
+        if cache_entries is None and cfg.remat and _remat(x, lp):
             x, a = checkpoint(_block_apply, lp, x, cfg, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            kv = None if cache is None else (cache["k"][l], cache["v"][l])
-            x, a = _block_apply(lp, x, cfg, kv)
+            x, a = _block_apply(lp, x, cfg,
+                                None if cache_entries is None else [c[l] for c in cache_entries])
         if a is not None:
             aux = aux + a
+    return x, aux
+
+
+def forward(params: LM, batch, cfg: ModelConfig, *, cache=None):
+    """Token inputs -> final hidden states (B, S, d), aux loss (float32;
+    the MoE blocks' aux summed in layer order, a stack at a time, 0 for
+    the dense family).  ``cache`` (from :func:`init_cache`), if given,
+    receives every layer's keys and values (MLA: latents) at positions
+    [0, S).  With ``cfg.remat`` and gradients on (a train step), each
+    block's activations are recomputed in the backward pass."""
+    x = _embed(params, batch["tokens"], cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for name, blocks in _run_stacks(params):
+        x, a = _run_stack(blocks, x, cfg,
+                          None if cache is None else [cache[k] for k in _CACHE[name]])
+        aux = aux + a
     return layers.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
 
 
@@ -275,22 +359,42 @@ def xent_chunked(h, emb_out, labels, mask, chunk: int):
     return loss, count
 
 
+def _shift(t, fill_dtype):
+    """t (B, S) one position to the left, a zero column appended."""
+    return torch.cat([t[:, 1:], torch.zeros((t.shape[0], 1), dtype=fill_dtype,
+                                            device=t.device)], dim=1)
+
+
 def loss_fn(params: LM, batch, cfg: ModelConfig):
     """Next-token LM loss (teacher forcing) on batch {"tokens": (B, S)}:
-    position t predicts token t + 1, the last position masked out.
-    Returns (loss, {"loss", "aux", "tokens"}) as the reference; ``aux`` is
-    the MoE blocks' load-balance loss (0 for the dense family), added to
-    the loss.  Gradients flow to the parameters inside
-    :func:`trainable`."""
+    position t predicts token t + 1, the last position masked out.  With
+    MLA and ``cfg.mtp_depth``, the reference's depth-1 multi-token
+    prediction: [rmsnorm(h_t) ; rmsnorm(emb(t + 1))] @ ``mtp_proj`` through
+    the MTP blocks predicts token t + 2, its loss added at 0.1 and its
+    blocks' aux to the aux.  Returns (loss, {"loss", "aux", "tokens"}) as
+    the reference; ``aux`` is the MoE blocks' load-balance loss (0 for the
+    dense family), added to the loss.  Gradients flow to the parameters
+    inside :func:`trainable`."""
     tokens = batch["tokens"].to(params.device)
     B, S = tokens.shape
-    labels = torch.cat([tokens[:, 1:], torch.zeros((B, 1), dtype=tokens.dtype,
-                                                   device=tokens.device)], dim=1)
-    mask = torch.cat([torch.ones((B, S - 1), dtype=torch.float32, device=tokens.device),
-                      torch.zeros((B, 1), dtype=torch.float32, device=tokens.device)], dim=1)
+    labels = _shift(tokens, tokens.dtype)
+    mask = _shift(torch.ones((B, S), dtype=torch.float32, device=tokens.device),
+                  torch.float32)
     h, aux = forward(params, {**batch, "tokens": tokens}, cfg)
-    loss_sum, count = xent_chunked(h, _unembed(params, cfg), labels, mask, cfg.logits_chunk)
+    emb_out = _unembed(params, cfg)
+    loss_sum, count = xent_chunked(h, emb_out, labels, mask, cfg.logits_chunk)
     loss = loss_sum / torch.clamp(count, min=1.0)
+
+    if cfg.use_mla and cfg.mtp_depth and hasattr(params, "mtp_blocks"):
+        emb_next = params.tok_emb[labels].to(h.dtype)
+        cat = torch.cat([layers.rmsnorm(h, params.mtp_norm_h, cfg.norm_eps),
+                         layers.rmsnorm(emb_next, params.mtp_norm_e, cfg.norm_eps)], dim=-1)
+        hm, a = _run_stack(params.mtp_blocks, cat @ params.mtp_proj, cfg)
+        aux = aux + a
+        l2, c2 = xent_chunked(hm, emb_out, _shift(labels, labels.dtype),
+                              _shift(mask, torch.float32), cfg.logits_chunk)
+        loss = loss + 0.1 * l2 / torch.clamp(c2, min=1.0)
+
     loss = loss + aux
     return loss, {"loss": loss, "aux": aux, "tokens": count}
 
@@ -302,23 +406,30 @@ def loss_fn(params: LM, batch, cfg: ModelConfig):
 
 def leaf_paths(params: LM) -> list:
     """``(name, path, layer)`` for every parameter, in the reference's tree
-    order (``jax.tree_util`` sorts dict keys; a block leaf is stacked over
-    layers there, so its layers follow one another here): ``name`` is the
-    module's parameter name (``blocks.3.attn.wq``), ``path`` the
-    reference's key path (``("blocks", "attn", "wq")``), ``layer`` the
-    block's index (None outside the blocks)."""
+    order (``jax.tree_util`` sorts dict keys, so the stacks and the leaves
+    outside them interleave by name: ``dense_blocks``, ``final_norm``,
+    ``lm_head``, ``moe_blocks``, ``mtp_blocks``, ``mtp_norm_e`` ...; a
+    block leaf is stacked over layers there, so its layers follow one
+    another here): ``name`` is the module's parameter name
+    (``blocks.3.attn.wq``), ``path`` the reference's key path (``("blocks",
+    "attn", "wq")``), ``layer`` the block's index in its stack (None
+    outside the stacks)."""
+    stacks = dict(params.named_children())
     out = []
-    if len(params.blocks):
-        b0 = params.blocks[0]
+    for top in sorted(list(stacks) + [n for n, _ in params.named_parameters(recurse=False)]):
+        if top not in stacks:
+            out.append((top, (top,), None))
+            continue
+        blocks = stacks[top]
+        if not len(blocks):
+            continue
+        b0 = blocks[0]
         for sub in sorted(("attn", "ln1", "ln2", b0.FFN)):
             keys = sorted(b0[sub].keys()) if isinstance(b0[sub], nn.ParameterDict) else [None]
             for k in keys:
-                path = ("blocks", sub) if k is None else ("blocks", sub, k)
-                for l in range(len(params.blocks)):
-                    out.append((".".join(("blocks", str(l)) + path[1:]), path, l))
-    for top in ("final_norm", "lm_head", "tok_emb"):
-        if hasattr(params, top):
-            out.append((top, (top,), None))
+                path = (top, sub) if k is None else (top, sub, k)
+                for l in range(len(blocks)):
+                    out.append((".".join((top, str(l)) + path[1:]), path, l))
     return out
 
 
@@ -333,7 +444,8 @@ def leaves(params: LM) -> Dict[str, torch.Tensor]:
 
 def ref_ndims(params: LM) -> Dict[str, int]:
     """{name: the leaf's rank in the reference's tree}: a block leaf is
-    stacked (L, ...) there, one rank more than its layer's tensor here."""
+    stacked (L, ...) there, one rank more than its layer's tensor here (so
+    AdamW decays a stacked ``q_ln``, not ``mtp_norm_h``)."""
     named = dict(params.named_parameters())
     return {name: named[name].ndim + (layer is not None)
             for name, _, layer in leaf_paths(params)}
@@ -356,24 +468,35 @@ def trainable(params: LM):
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> dict:
     """Zeroed cache for a context capacity of S tokens, on ``device``
-    (default the card); the same {"k", "v"} for both families."""
-    _block_type(cfg)
+    (default the card): {"k", "v"} (L, B, S, K, Dh) for the dense and MoE
+    families, {"latent_dense", "latent_moe"} (layers, B, S, kv_lora +
+    rope) for MLA."""
+    specs = dict((name, n) for name, _, n in _stacks(cfg))
     dev = resolve_device(device)
+    dt = _dtype(cfg)
+    if cfg.use_mla:
+        shape = (B, S, cfg.kv_lora_rank + cfg.qk_rope_dim)
+        return {_CACHE[name][0]: torch.zeros((specs[name],) + shape, dtype=dt, device=dev)
+                for name in ("dense_blocks", "moe_blocks")}
     shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
-def _block_decode(p, x, cfg: ModelConfig, ck, cv, pos: int):
-    """One block's step, the reference's ``_dense_block_decode`` and
-    ``_moe_block_decode``: an MoE block's FFN routes the step's B tokens
-    (capacity for B tokens: 8 slots an expert at a small batch), its aux
-    dropped."""
-    a, ck, cv = layers.attn_decode(p["attn"], layers.rmsnorm(x, p["ln1"], cfg.norm_eps),
-                                   cfg, ck, cv, pos)
+def _block_decode(p, x, cfg: ModelConfig, cache_slices, pos: int):
+    """One block's step, the reference's ``_dense_block_decode``,
+    ``_moe_block_decode`` and ``_mla_block_decode``: writes the layer's
+    cache slices (k and v, or the latent) at ``pos``; an MoE block's FFN
+    routes the step's B tokens (capacity for B tokens: 8 slots an expert at
+    a small batch), its aux dropped."""
+    h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if p.MLA:
+        a, _ = mla.mla_decode(p["attn"], h, cfg, cache_slices[0], pos)
+    else:
+        a, _, _ = layers.attn_decode(p["attn"], h, cfg, *cache_slices, pos)
     x = x + a
     y, _ = _ffn(p, layers.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
-    return x + y, ck, cv
+    return x + y
 
 
 def decode_step(params: LM, batch, cache, cfg: ModelConfig):
@@ -382,8 +505,10 @@ def decode_step(params: LM, batch, cache, cfg: ModelConfig):
     cache)."""
     pos = int(batch["pos"])
     x = _embed(params, batch["token"], cfg)
-    for l, lp in enumerate(params.blocks):
-        x, _, _ = _block_decode(lp, x, cfg, cache["k"][l], cache["v"][l], pos)
+    for name, blocks in _run_stacks(params):
+        entries = [cache[k] for k in _CACHE[name]]
+        for l, lp in enumerate(blocks):
+            x = _block_decode(lp, x, cfg, [c[l] for c in entries], pos)
     h = layers.rmsnorm(x, params.final_norm, cfg.norm_eps)
     return _logits(params, h[:, 0, :], cfg), cache
 

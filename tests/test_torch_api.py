@@ -4,6 +4,7 @@ the signatures of ``GP.optimize`` and the lane engine, the names
 ``repro_torch.core`` exports, and the refusals of what is not ported yet,
 each naming its current ROADMAP.md item."""
 import ast
+import dataclasses
 import inspect
 import os
 import re
@@ -204,8 +205,7 @@ def _lm_model(arch):
 
 REFUSALS = {
     "make_production_mesh": (lambda tp: t_mesh.make_production_mesh(), "A8", "LM"),
-    # the LM half past its dense and MoE paths
-    "get_model(mla)": (lambda tp: _lm_model("deepseek-v3-671b"), "A8", "LM"),
+    # the LM half past its dense, MoE and MLA paths
     "get_model(ssm)": (lambda tp: _lm_model("mamba2-130m"), "A8", "LM"),
     "get_model(hybrid)": (lambda tp: _lm_model("zamba2-7b"), "A8", "LM"),
     "get_model(audio)": (lambda tp: _lm_model("whisper-small"), "A8", "LM"),
@@ -284,7 +284,7 @@ def _sharded_fleet_matches_unsharded():
         abs(h["rmse"] - g["rmse"]) < 1e-5 for h, g in zip(out["rounds"], flat["rounds"]))
 
 
-# the calls ROADMAP A2, A3, A4, A5, A6 and A8's training and MoE parts
+# the calls ROADMAP A2, A3, A4, A5, A6 and A8's training, MoE and MLA parts
 # refused until they were ported, and what each now returns
 PORTED = {
     "GPBank.downdate": lambda tp: _bank()[0].downdate(
@@ -331,7 +331,31 @@ PORTED = {
     "make_train_step": lambda tp: _lm_loss()[1],
     # ROADMAP A8, the LM half's MoE part
     "get_model(moe)": lambda tp: _moe_model(),
+    # ROADMAP A8, the LM half's MLA and MTP part
+    "get_model(mla)": lambda tp: _mla_model(),
 }
+
+
+def _mla_model():
+    """deepseek-v3's SMOKE model serves (its two latent caches) and trains,
+    its MTP term in the loss."""
+    from repro_torch import optim as t_optim
+    from repro_torch.models import lm as t_lm
+
+    model = _lm_model("deepseek-v3-671b")
+    params = model.init_params(0, device="cpu")
+    logits, cache = model.prefill(params, {"tokens": torch.zeros((2, 8), dtype=torch.int32)},
+                                  cache_len=9)
+    batch = {"tokens": torch.ones((2, 8), dtype=torch.int32)}
+    loss, metrics = model.loss_fn(params, batch)
+    no_mtp = t_lm.loss_fn(params, batch, dataclasses.replace(model.cfg, mtp_depth=0))[0]
+    ocfg = t_optim.AdamWConfig()
+    before = params.mtp_proj.clone()
+    t_steps.make_train_step(model, ocfg)(params, t_optim.init(t_lm.leaves(params), ocfg),
+                                         batch)
+    return (model.cfg.use_mla and bool(torch.isfinite(logits).all())
+            and set(cache) == {"latent_dense", "latent_moe"} and float(metrics["aux"]) > 0
+            and float(loss) != float(no_mtp) and not torch.equal(before, params.mtp_proj))
 
 
 def _moe_model():
@@ -379,8 +403,8 @@ def _value_error(call) -> str:
 
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_formerly_refused_call_works(name, tmp_path):
-    """Each call that named ROADMAP A2, A3, A4, A5, A6 or A8's training or
-    MoE part in its refusal now runs (the window without a cold tier raises the JAX
+    """Each call that named ROADMAP A2, A3, A4, A5, A6 or A8's training, MoE
+    or MLA part in its refusal now runs (the window without a cold tier raises the JAX
     package's ValueError)."""
     assert PORTED[name](tmp_path)
 

@@ -24,8 +24,9 @@ from repro_torch.models.convert import lm_params_from_jax  # noqa: E402
 
 DENSE = ("qwen2-1.5b", "qwen2.5-3b", "smollm-360m", "starcoder2-3b")
 MOE = ("olmoe-1b-7b",)
+MLA = ("deepseek-v3-671b",)
 BIASES = ("bq", "bk", "bv", "b1", "b2")
-NORMS = ("ln1", "ln2", "final_norm")
+NORMS = ("ln1", "ln2", "final_norm", "q_ln", "kv_ln", "mtp_norm_h", "mtp_norm_e")
 # leaves the reference keeps in float32 in a bfloat16 model
 F32_LEAVES = NORMS + ("router",)
 
