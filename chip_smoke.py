@@ -15,7 +15,10 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    shapes and at one ragged shape, with the tolerance stated; times kernel,
    plain version and (where one exists) a single PyTorch library call
    computing the same function (CUDA events, 2 warm-up runs, median of 20
-   runs; the plain rank-K sweep is timed once, it takes over a minute);
+   runs); the single-system sweep (K = 64) is held against its plain
+   version on W's first 8 rows (K = 8, the plain sweep timed once there:
+   the kernels line's ``plain_ms``; at K = 64 it took 85-125 s) and at K =
+   64 against chol(LL^T + W^TW);
    the RFF fused fit (M = 8,192) is timed on a line of its own.  Diag-quad
    also runs at the RFF path's M = 8,192, on 1 and 200 queries and with a
    C that is not symmetric (its plan, the split S of the k axis, printed); the
@@ -234,7 +237,30 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    the parameters moved, beside the bound; (d) on the SMOKE config,
    straight runs, a restart from an async checkpoint and the checkpoint
    itself, bitwise.  TF32 checked off; no kernel of this repository runs
-   there (launch counts checked).
+   there (launch counts checked);
+16. the LM half's SSM and hybrid families (ROADMAP A8; ``phase16()``):
+   mamba2-130m and zamba2-7b at their published configurations, bf16,
+   random weights from a seed: (a) the card against the port's CPU run at
+   full width with the depth cut (mamba2 at 2 layers; zamba2 at 2 groups
+   of 1 mamba layer and a tail of 1, the shared block run twice): the
+   prefill of a 300-token prompt (two SSD chunks, the second padded) and 8
+   decode steps on the CPU's greedy tokens, then the loss and every
+   gradient entry at 1 x 128; gates twice the CPU's own bfloat16-vs-float32
+   distance; (b) both uncut (zamba2's 81 layers, 6.75e9 parameters)
+   through ``launch.serve.generate`` at batch 4, prompt 256, 32 tokens
+   (prefill, decode, tok/s, peak above the weights, the cache's bytes, a
+   decode step's and a prefill's device time from a CUDA graph and the
+   idle share, beside the bounds), prefill(256) + decode against
+   prefill(257) at 0.15 on the same weights in float32 (the bfloat16
+   distances printed beside: the reference's bfloat16 SSD, ROADMAP C10),
+   a 32,768-token mamba2 prompt whose cache has the 256-token prompt's
+   bytes; (c) both uncut through
+   ``launch.train.build(smoke=False)`` and ``train_loop`` at 4 x 1,024
+   (mamba2 20 steps, zamba2 8; memory reckoned first, the batch halved
+   until it fits and the cut printed), a falling loss, beside the step's
+   bound; (d) on both SMOKE configs, straight runs, a restart from an
+   async checkpoint and the checkpoint itself, bitwise.  TF32 checked
+   off; no kernel of this repository runs there (launch counts checked).
 
 Prints the features kernel's times by shape on a ``[features]`` line, one
 JSON line with every kernel's numbers (the features kernel's ``ms`` its
@@ -363,6 +389,10 @@ NO_LAUNCHES = {"phi_features": {}, "phi_gram": {}, "diag_quad": {}, "chol_update
                "scaled_gram": {}}
 GLOBAL_EXPECTED = dict(NO_LAUNCHES, phi_features={"": 1}, phi_gram={"scale": 1},
                        diag_quad={"": 1})
+# the plain rank-K sweep (a Python loop of K x M rotations, ~1.5 s a row of
+# W at M = 14,641) runs on W's first rows only: the kernel is held against
+# it there, and at the main path's K = 64 against chol(LL^T + W^TW)
+PLAIN_SWEEP_K = 8
 # phase 11, ROADMAP A5: phase 9a's fleet and traffic over 4 shards of this
 # card, and the row-sharded fit at MAIN's width (the Figure 1 point) over 4
 # row shards; nothing cut but the shards sharing one card
@@ -3289,6 +3319,577 @@ def phase15(dev, smi, compare) -> dict:
     return report
 
 
+# phase 16, ROADMAP A8 (the SSM and hybrid families): mamba2-130m
+# (repro_torch/configs/mamba2_130m.py: 24 layers, d_model 768, 24 SSD heads
+# of 64, state 128, chunk 256, vocab 50,280, tied) and zamba2-7b
+# (configs/zamba2_7b.py: 81 mamba layers, d_model 3,584, 112 heads of 64,
+# state 64, as 6 groups of 13 and a tail of 3, one shared attention + MLP
+# block of 32 heads and d_ff 14,336 before each group, vocab 32,000), bf16,
+# random weights from a seed; (a) the card against the CPU with the depth
+# cut (mamba2 at 2 layers; zamba2 at 2 groups of 1 and a tail of 1, so the
+# shared block runs twice), a 300-token prompt (two chunks, the second
+# padded) and the loss at 1 x 128; (b) both uncut through generate at batch
+# 4, prompt 256, 32 tokens, and a 32,768-token mamba2 prompt; (c) both
+# uncut through launch.train.build + train_loop at 4 x 1,024; (d) restarts
+# on the SMOKE configs
+SSMS = dict(mamba="mamba2-130m", zamba="zamba2-7b", cpu_mamba_layers=2, cpu_groups=2,
+            cpu_group_len=1, cpu_tail=1, cpu_batch=1, cpu_prompt=300, cpu_steps=8,
+            cpu_loss_batch=1, cpu_loss_seq=128, batch=4, prompt_len=256, gen=32,
+            long_prompt=32768, reckon_context=524288, train_batch=4, train_seq=1024,
+            mamba_train_steps=20, zamba_train_steps=8, ckpt_steps=10, ckpt_at=5,
+            ckpt_every=3, ckpt_seq=64, ckpt_batch=2, lr=3e-4, seed=0)
+
+
+def ssm_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase16(dev, smi, compare) -> dict:
+    """The LM half's SSM and hybrid families on the card, mamba2-130m and
+    zamba2-7b: (a) card against the port's CPU run at full width with the
+    depth cut (mamba2 at 2 layers; zamba2 at 2 groups of 1 layer and a
+    tail of 1, the shared block run twice): the prefill of a 300-token
+    prompt (two SSD chunks, the second padded) and 8 decode steps on the
+    CPU's greedy tokens, then the loss and every gradient entry (the shared
+    block's summed over its two invocations) at 1 x 128; gate twice the
+    CPU's own bfloat16-vs-float32 distance; (b) both uncut through
+    ``launch.serve.generate`` at batch 4, prompt 256, 32 tokens: prefill
+    first and warm, decode ms a token, a decode step's and a prefill's
+    device time from a CUDA graph and the idle share, peak above the
+    weights, the cache's bytes, beside the bounds; prefill(256) + decode
+    against prefill(257) at 0.15 on the same weights in float32, the
+    bfloat16 distances and their float32 witnesses printed (the
+    reference's bfloat16 SSD, ROADMAP C10); a 32,768-token mamba2 prefill whose
+    cache has the 256-token prompt's bytes; zamba2's cache at 524,288
+    tokens reckoned; (c) both uncut through ``launch.train.build`` and
+    ``train_loop`` at 4 x 1,024 (mamba2 20 steps, zamba2 8; the memory
+    reckoned first, the batch halved until it fits), warm step ms,
+    tokens/s, peak above the model and AdamW state, a falling loss, beside
+    the step's bound; (d) on both SMOKE configs, two straight runs, a
+    restart from an async checkpoint and the checkpoint itself, bitwise.
+    TF32 checked off; no kernel of this repository runs there (launch
+    counts 0)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch import checkpoint as tckpt
+    from repro_torch import optim
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import convert, get_model
+    from repro_torch.models import lm as tlm
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+
+    t_phase = time.perf_counter()
+    D = SSMS
+    fm, fz = ARCHS[D["mamba"]].CONFIG, ARCHS[D["zamba"]].CONFIG
+    check(fm.family == "ssm" and fm.n_layers == 24 and fm.d_model == 768 and fm.d_inner == 1536
+          and fm.ssm_heads == 24 and fm.ssm_headdim == 64 and fm.ssm_state == 128
+          and fm.ssm_chunk == 256 and fm.ssm_conv == 4 and fm.vocab == 50280
+          and fm.tie_embeddings and fm.dtype == "bfloat16" and fm.remat,
+          "phase 16 runs mamba2-130m's published configuration")
+    check(fz.family == "hybrid" and fz.hybrid_groups == 6 and fz.hybrid_group_len == 13
+          and fz.hybrid_tail == 3 and fz.d_model == 3584 and fz.d_inner == 7168
+          and fz.ssm_heads == 112 and fz.ssm_state == 64 and fz.n_heads == 32
+          and fz.n_kv_heads == 32 and fz.d_ff == 14336 and fz.vocab == 32000
+          and not fz.tie_embeddings and fz.dtype == "bfloat16" and fz.remat,
+          "phase 16 runs zamba2-7b's published configuration")
+    prec = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    check(prec == ("highest", False), f"TF32 is on for float32 products: {prec}")
+    free, total = torch.cuda.mem_get_info()
+    report = {"card": smi, "free_bytes_at_start": free,
+              "held_at_start": torch.cuda.memory_allocated(), "matmul_precision": prec[0]}
+    print(f"[phase 16] {smi}: {fm.arch_id} ({fm.n_layers} layers, d_model {fm.d_model}, "
+          f"{fm.ssm_heads} SSD heads of {fm.ssm_headdim}, state {fm.ssm_state}, chunk "
+          f"{fm.ssm_chunk}, vocab {fm.vocab}) and {fz.arch_id} ({fz.hybrid_groups} groups of "
+          f"{fz.hybrid_group_len} mamba layers + a tail of {fz.hybrid_tail}, d_model "
+          f"{fz.d_model}, {fz.ssm_heads} SSD heads, state {fz.ssm_state}, one shared block of "
+          f"{fz.n_heads} heads and d_ff {fz.d_ff}, vocab {fz.vocab}), {fz.dtype}; the card's "
+          f"free memory {free / 1e9:.2f} GB of {total / 1e9:.2f} GB, earlier phases hold "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    ops.reset_launch_counts()
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def nparams(params):
+        return sum(p.numel() for p in params.parameters())
+
+    def reads(params, cfg):
+        """The parameter bytes a serving call reads: all of them but an
+        untied embedding table (a gather of a few rows)."""
+        return sum(p.numel() * p.element_size() for n, p in params.named_parameters()
+                   if cfg.tie_embeddings or n != "tok_emb")
+
+    # -- (a) the card against the port's CPU run, the depth cut -------------
+    # without the per-block remat, which gives the same values bitwise
+    # (tests/test_torch_lm_ssm.py::test_ssm_remat_on_and_off_agree) and
+    # spares the CPU's gradients a second forward pass; (c) trains with it
+    cuts = {"mamba": dataclasses.replace(fm, n_layers=D["cpu_mamba_layers"], remat=False),
+            "zamba": dataclasses.replace(
+                fz, hybrid_groups=D["cpu_groups"], hybrid_group_len=D["cpu_group_len"],
+                hybrid_tail=D["cpu_tail"],
+                n_layers=D["cpu_groups"] * D["cpu_group_len"] + D["cpu_tail"], remat=False)}
+    report["card_vs_cpu"] = {}
+    rng = np.random.default_rng(D["seed"])
+    for key, cfg_a in cuts.items():
+        t_a = time.perf_counter()
+        m_a, m_a32 = get_model(cfg_a), get_model(dataclasses.replace(cfg_a, dtype="float32"))
+        t0 = time.perf_counter()
+        card_p = m_a.init_params(D["seed"], device=dev)
+        cpu_p = copy.deepcopy(card_p).to("cpu")
+        cpu_p32 = copy.deepcopy(cpu_p).float()
+        init_s = time.perf_counter() - t0
+        n_a = nparams(cpu_p)
+        toks = torch.from_numpy(rng.integers(0, cfg_a.vocab, size=(D["cpu_batch"],
+                                                                    D["cpu_prompt"])))
+        cap = D["cpu_prompt"] + D["cpu_steps"]
+
+        @torch.no_grad()
+        def run(model, params, feed):
+            """Prefill, then one decode step per token of ``feed`` (None: the
+            run's own greedy tokens): (logits per step, tokens fed, the final
+            SSM states)."""
+            d = params.device
+            logits, cache = model.prefill(params, {"tokens": toks.to(d)}, cache_len=cap)
+            out, fed = [logits.float().cpu()], []
+            for i in range(D["cpu_steps"]):
+                tok = (torch.argmax(logits, -1)[:, None] if feed is None else feed[i].to(d))
+                fed.append(tok.cpu())
+                logits, cache = model.decode_step(
+                    params, {"token": tok, "pos": D["cpu_prompt"] + i}, cache)
+                out.append(logits.float().cpu())
+            return out, fed, {k: v.float().cpu() for k, v in cache.items() if "ssm" in k}
+
+        t0 = time.perf_counter()
+        ref, fed, st_cpu = run(m_a, cpu_p, None)
+        t1 = time.perf_counter()
+        ref32, _, st_32 = run(m_a32, cpu_p32, fed)
+        serve_cpu_s = (t1 - t0, time.perf_counter() - t1)
+        got, _, st_card = run(m_a, card_p, fed)
+        bf16_vs_f32 = max(float((a - b).abs().max()) for a, b in zip(ref, ref32))
+        serve_err = compare(
+            f"{cfg_a.arch_id} card vs CPU (cut to {cfg_a.n_layers} mamba layers"
+            f"{', the shared block twice' if key == 'zamba' else ''}; prefill of "
+            f"{D['cpu_batch']} x {D['cpu_prompt']} + {D['cpu_steps']} decode steps on the "
+            f"CPU's greedy tokens, logits)", got, ref, rtol=0.0, atol=2.0 * bf16_vs_f32,
+            why=f"twice the CPU's bfloat16-vs-float32 distance, {bf16_vs_f32:.4e}")
+        states = {k: (float((st_card[k] - st_cpu[k]).abs().max()),
+                      float((st_32[k] - st_cpu[k]).abs().max())) for k in st_cpu}
+        del got, ref, ref32
+        ltoks = torch.from_numpy(rng.integers(0, cfg_a.vocab, size=(D["cpu_loss_batch"],
+                                                                     D["cpu_loss_seq"])))
+
+        def loss_grads(model, params):
+            with tlm.trainable(params):
+                loss, _ = model.loss_fn(params, {"tokens": ltoks.to(params.device)})
+                named = tlm.leaves(params)
+                grads = torch.autograd.grad(loss, list(named.values()))
+            sq = torch.zeros((), dtype=torch.float32, device=params.device)
+            for g in grads:
+                sq = sq + torch.sum(torch.square(g.float()))
+            return (float(loss.detach()), float(torch.sqrt(sq))), dict(zip(named, grads))
+
+        def grad_dist(ga, gb):
+            return max(float((ga[k].to(dev).float() - gb[k].to(dev).float()).abs().max())
+                       for k in ga)
+
+        t0 = time.perf_counter()
+        l_cpu, g_cpu = loss_grads(m_a, cpu_p)
+        t1 = time.perf_counter()
+        l_32, g_32 = loss_grads(m_a32, cpu_p32)
+        loss_cpu_s = (t1 - t0, time.perf_counter() - t1)
+        grad_bf16_vs_f32 = grad_dist(g_cpu, g_32)
+        del g_32
+        l_card, g_card = loss_grads(m_a, card_p)
+        grad_err = grad_dist(g_card, g_cpu)
+        shared = {}
+        if key == "zamba":         # the shared block's gradient: two invocations summed
+            shared = {k: float(g_card[k].float().abs().max()) for k in
+                      ("shared_attn.ln1", "shared_attn.attn.wq", "shared_attn.mlp.wd")}
+            check(all(v > 0 for v in shared.values()), f"(a) the shared block's gradients {shared}")
+        del g_card, g_cpu
+        check(all(math.isfinite(v) for v in l_card), "(a) the card's loss and grad norm finite")
+        loss_gap, loss_gap32 = abs(l_card[0] - l_cpu[0]), abs(l_cpu[0] - l_32[0])
+        check(loss_gap <= 2.0 * loss_gap32,
+              f"(a) {cfg_a.arch_id}: card loss {loss_gap:.3e} from the CPU's, over twice its "
+              f"bf16-vs-f32 {loss_gap32:.3e}")
+        ok = grad_err <= 2.0 * grad_bf16_vs_f32
+        print(f"[check] {cfg_a.arch_id} gradients card vs CPU (cut to {cfg_a.n_layers} mamba "
+              f"layers, 1 x {D['cpu_loss_seq']} tokens, every leaf): max_abs_err={grad_err:.3e} "
+              f"tol=rtol 0, atol {2.0 * grad_bf16_vs_f32:g} (twice the CPU's bfloat16-vs-float32 "
+              f"distance, {grad_bf16_vs_f32:.4e}); worst error/tolerance "
+              f"{grad_err / (2.0 * grad_bf16_vs_f32):.3f} -> {'ok' if ok else 'FAIL'}")
+        check(ok, f"(a) {cfg_a.arch_id}: the card's gradients disagree with the CPU's")
+        report["card_vs_cpu"][key] = {
+            "mamba_layers": cfg_a.n_layers, "params": n_a, "serve_max_abs_err": serve_err,
+            "serve_cpu_bf16_vs_f32": bf16_vs_f32, "ssm_state_card_vs_cpu_and_f32_vs_bf16": states,
+            "loss": {"card": l_card, "cpu": l_cpu, "cpu_f32": l_32},
+            "loss_gap": (loss_gap, loss_gap32), "grad_max_abs_err": (grad_err, grad_bf16_vs_f32),
+            "shared_grad_max": shared, "init_and_copies_s": init_s,
+            "serve_cpu_bf16_s": serve_cpu_s[0], "serve_cpu_f32_s": serve_cpu_s[1],
+            "loss_cpu_bf16_s": loss_cpu_s[0], "loss_cpu_f32_s": loss_cpu_s[1],
+            "seconds": time.perf_counter() - t_a}
+        print(f"[phase 16] (a) {cfg_a.arch_id} cut to {cfg_a.n_layers} mamba layers "
+              f"({n_a / 1e9:.3f}e9 parameters): loss card {l_card[0]:.6f} cpu {l_cpu[0]:.6f} "
+              f"cpu-f32 {l_32[0]:.6f}; grad norm card {l_card[1]:.6f} cpu {l_cpu[1]:.6f} cpu-f32 "
+              f"{l_32[1]:.6f}; final SSM states card vs CPU / CPU f32 vs bf16 "
+              f"{ {k: tuple(round(x, 5) for x in v) for k, v in states.items()} }; on the CPU "
+              f"({torch.get_num_threads()} threads) prefill + decode bf16 {serve_cpu_s[0]:.1f} s "
+              f"f32 {serve_cpu_s[1]:.1f} s, loss and gradients bf16 {loss_cpu_s[0]:.1f} s f32 "
+              f"{loss_cpu_s[1]:.1f} s; took {time.perf_counter() - t_a:.1f} s")
+        del cpu_p, cpu_p32, card_p
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (b) serving, both uncut ----------------------------------------------
+    B_, P, G = D["batch"], D["prompt_len"], D["gen"]
+    cap = P + G
+    report["serve"] = {}
+    for key, cfg in (("mamba", fm), ("zamba", fz)):
+        model = get_model(cfg)
+        base = torch.cuda.memory_allocated()
+        params, init_s = sync_s(lambda: model.init_params(D["seed"], device=dev))
+        held = ssm_bytes(params.parameters())
+        n_b = nparams(params)
+        toks = torch.from_numpy(np.random.default_rng(D["seed"]).integers(
+            0, cfg.vocab, size=(B_, P + 1))).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        served = tserve.generate(model, params, toks[:, :P], G)
+        serve_peak = torch.cuda.max_memory_allocated() - base
+        check(served["generated"].shape == (B_, G)
+              and ((served["generated"] >= 0) & (served["generated"] < cfg.vocab)).all(),
+              f"generate's tokens ({cfg.arch_id})")
+        with torch.no_grad():
+            pre_s = []
+            for _ in range(3):
+                (logits, cache), s_ = sync_s(lambda: model.prefill(
+                    params, {"tokens": toks[:, :P]}, cache_len=cap))
+                pre_s.append(s_)
+            cache_bytes = ssm_bytes(cache.values())
+            tok = torch.argmax(logits, -1)[:, None]
+            dec_s = []
+            for i in range(G):
+                (logits_d, cache), s_ = sync_s(lambda: model.decode_step(
+                    params, {"token": tok, "pos": P + i}, cache))
+                dec_s.append(s_)
+                tok = torch.argmax(logits_d, -1)[:, None]
+        check(bool(torch.isfinite(logits).all() and torch.isfinite(logits_d).all()),
+              f"non-finite {cfg.arch_id} logits")
+        warm_prefill_ms = statistics.median(pre_s[1:]) * 1e3
+        warm_decode_ms = statistics.median(dec_s) * 1e3
+        dec_dev = graph_device_ms(lambda: model.decode_step(
+            params, {"token": tok, "pos": P}, cache))
+        pre_dev = graph_device_ms(lambda: model.prefill(
+            params, {"tokens": toks[:, :P]}, cache_len=cap))
+        # a decode step reads the weights it uses and the cache (the
+        # attention's valid K/V, each SSM state and conv window read and
+        # written); a prefill's bf16 products: 2 x its weights a token (the
+        # LM head for the last position only), SSD's chunk products and
+        # the shared block's S x S float32 attention; and its bytes
+        state_bytes = ssm_bytes(v for k, v in cache.items() if not k.startswith("attn"))
+        kv_bytes = (cfg.hybrid_groups * B_ * (P + G // 2) * 2 * cfg.n_kv_heads * cfg.head_dim
+                    * 2 if key == "zamba" else 0)
+        read = reads(params, cfg)
+        bytes_decode = read + kv_bytes + 2 * state_bytes
+        bound_decode_ms = bytes_decode / PEAK_BYTES * 1e3
+        T_ = B_ * P
+        head = cfg.vocab * cfg.d_model
+        body = n_b - head * (1 if cfg.tie_embeddings else 2)
+        n_m = (cfg.n_layers if key == "mamba" else
+               cfg.hybrid_groups * cfg.hybrid_group_len + cfg.hybrid_tail)
+        q, nc = cfg.ssm_chunk, -(-P // cfg.ssm_chunk)
+        ssd = n_m * 2.0 * B_ * nc * cfg.ssm_heads * q * q * (cfg.ssm_state + cfg.ssm_headdim)
+        f_bf16 = 2.0 * body * T_ + 2.0 * head * B_ + ssd
+        f_f32 = (cfg.hybrid_groups * 2.0 * 2 * B_ * cfg.n_heads * P * P * cfg.head_dim
+                 if key == "zamba" else 0.0)
+        bound_prefill_ops_ms = (f_bf16 / PEAK_BF16 + f_f32 / PEAK_F32) * 1e3
+        bound_prefill_bytes_ms = (read + cache_bytes) / PEAK_BYTES * 1e3
+        bound_prefill_ms = max(bound_prefill_ops_ms, bound_prefill_bytes_ms)
+        del cache, logits, logits_d
+        torch.cuda.empty_cache()
+
+        # tests/test_arch_smoke.py:65-83 at full size, held on the same
+        # weights in float32: in bfloat16 the reference's SSD takes the
+        # cumulative sum of dA over a 256-long chunk and the exp of its
+        # differences in bfloat16 (ROADMAP section C, C10), so the chunked
+        # prefill(257) sits far from its float32 twin while the float32
+        # decode step does not; the bfloat16 distances are printed beside
+        def consistency(m, p):
+            with torch.no_grad():
+                _, c1 = m.prefill(p, {"tokens": toks[:, :P]}, cache_len=P + 1)
+                ld, _ = m.decode_step(p, {"token": toks[:, P:], "pos": P}, c1)
+                del c1
+                lf, _ = m.prefill(p, {"tokens": toks})
+            return ld.float().cpu(), lf.float().cpu()
+
+        ld, lf = consistency(model, params)
+        p32 = copy.deepcopy(params).float()
+        ld32, lf32 = consistency(get_model(dataclasses.replace(cfg, dtype="float32")), p32)
+        del p32
+        torch.cuda.empty_cache()
+        consist = compare(f"{cfg.arch_id} prefill({P}) + decode_step vs prefill({P + 1}) "
+                          f"(last-token logits, {n_m} mamba layers, batch {B_}, the weights in "
+                          f"float32)", [ld32], [lf32], rtol=0.15, atol=0.15,
+                          why="tests/test_arch_smoke.py:81-83 gate")
+        bf16_gap = {"decode_vs_prefill": float((ld - lf).abs().max()),
+                    "prefill_vs_float32": float((lf - lf32).abs().max()),
+                    "decode_vs_float32": float((ld - ld32).abs().max())}
+        print(f"[phase 16] {cfg.arch_id} in bfloat16 (ungated, C10): prefill({P}) + decode vs "
+              f"prefill({P + 1}) {bf16_gap['decode_vs_prefill']:.4f}; prefill({P + 1}) vs its "
+              f"float32 twin {bf16_gap['prefill_vs_float32']:.4f}; the decode step vs its "
+              f"float32 twin {bf16_gap['decode_vs_float32']:.4f}")
+        rec = {"params": n_b, "init_s": init_s, "batch": B_, "prompt_len": P, "gen": G,
+               "prefill_first_ms": served["prefill_s"] * 1e3, "prefill_warm_ms": warm_prefill_ms,
+               "decode_ms_per_token": served["decode_s_per_token"] * 1e3,
+               "decode_warm_median_ms": warm_decode_ms, "tokens_per_s": served["tokens_per_s"],
+               "decode_device_ms": dec_dev, "prefill_device_ms": pre_dev,
+               "decode_idle_share": 1.0 - dec_dev / warm_decode_ms,
+               "decode_idle_share_generate": 1.0 - dec_dev / (served["decode_s_per_token"] * 1e3),
+               "prefill_idle_share": 1.0 - pre_dev / warm_prefill_ms,
+               "param_bytes_held": held, "peak_bytes": serve_peak,
+               "peak_above_weights": serve_peak - held, "held_before_bytes": base,
+               "cache_bytes": cache_bytes, "cache_state_bytes": state_bytes,
+               "decode_bytes": bytes_decode, "bound_decode_ms": bound_decode_ms,
+               "prefill_bf16_tflop": f_bf16 / 1e12, "prefill_f32_tflop": f_f32 / 1e12,
+               "bound_prefill_ops_ms": bound_prefill_ops_ms,
+               "bound_prefill_bytes_ms": bound_prefill_bytes_ms,
+               "bound_prefill_ms": bound_prefill_ms, "consistency_max_abs_err_f32": consist,
+               "consistency_bf16": bf16_gap}
+        print(f"[phase 16] {smi}: generate({cfg.arch_id}, {n_m} mamba layers, "
+              f"{n_b / 1e9:.3f}e9 parameters, batch {B_}, prompt {P}, gen {G}): prefill "
+              f"{served['prefill_s'] * 1e3:.2f} ms first, {warm_prefill_ms:.2f} ms warm (bound "
+              f"{bound_prefill_ms:.3f} ms: operations {bound_prefill_ops_ms:.3f} ms, "
+              f"{f_bf16 / 1e12:.3f} TFLOP bf16 + {f_f32 / 1e12:.4f} TFLOP float32; bytes "
+              f"{bound_prefill_bytes_ms:.3f} ms); decode {served['decode_s_per_token'] * 1e3:.3f} "
+              f"ms a token in generate, {warm_decode_ms:.3f} ms warm median a step (bound "
+              f"{bound_decode_ms:.3f} ms: {bytes_decode / 1e9:.3f} GB at 3.35 TB/s); "
+              f"{served['tokens_per_s']:.1f} tok/s; generate's peak {serve_peak / 1e9:.3f} GB, "
+              f"{(serve_peak - held) / 1e9:.3f} GB above the {held / 1e9:.3f} GB of weights "
+              f"({base / 1e9:.3f} GB held before); the cache {cache_bytes / 1e6:.2f} MB "
+              f"({state_bytes / 1e6:.2f} MB of SSM states and conv windows); device time from a "
+              f"CUDA graph: decode step {dec_dev:.3f} ms (idle "
+              f"{100 * (1 - dec_dev / warm_decode_ms):.1f}% of the step timed alone, "
+              f"{100 * (1 - dec_dev / (served['decode_s_per_token'] * 1e3)):.1f}% of "
+              f"generate's), prefill {pre_dev:.3f} ms (idle "
+              f"{100 * (1 - pre_dev / warm_prefill_ms):.1f}%)")
+        if key == "mamba":
+            # the O(1)-state cache: a 32,768-token prompt's is the 256-token one's
+            with torch.no_grad():
+                _, short = model.prefill(params, {"tokens": toks[:1, :P]})
+                long = torch.from_numpy(np.random.default_rng(D["seed"] + 1).integers(
+                    0, cfg.vocab, size=(1, D["long_prompt"]))).to(dev)
+                torch.cuda.reset_peak_memory_stats()
+                base_l = torch.cuda.memory_allocated()
+                long_s = []
+                for _ in range(2):
+                    (ll, lc), s_ = sync_s(lambda: model.prefill(params, {"tokens": long}))
+                    long_s.append(s_)
+                long_peak = torch.cuda.max_memory_allocated() - base_l
+            check(bool(torch.isfinite(ll).all()), "non-finite long-prompt logits")
+            check(ssm_bytes(lc.values()) == ssm_bytes(short.values()),
+                  f"the {D['long_prompt']}-token prompt's cache ({ssm_bytes(lc.values())} B) is "
+                  f"not the {P}-token prompt's ({ssm_bytes(short.values())} B)")
+            rec["long"] = {"prompt": D["long_prompt"], "prefill_first_ms": long_s[0] * 1e3,
+                           "prefill_warm_ms": long_s[1] * 1e3, "peak_bytes": long_peak,
+                           "cache_bytes": ssm_bytes(lc.values())}
+            print(f"[phase 16] {smi}: {cfg.arch_id} prefill of 1 x {D['long_prompt']} tokens: "
+                  f"{long_s[0] * 1e3:.2f} ms first, {long_s[1] * 1e3:.2f} ms warm, peak "
+                  f"{long_peak / 1e9:.3f} GB; its cache {ssm_bytes(lc.values())} B = the "
+                  f"{P}-token prompt's")
+            del short, long, ll, lc
+        else:
+            ctx = D["reckon_context"]
+            kv_long = cfg.hybrid_groups * 2 * ctx * cfg.n_kv_heads * cfg.head_dim * 2
+            rec["reckoned_kv_bytes_at"] = {str(ctx): kv_long}
+            print(f"[phase 16] {cfg.arch_id}: at {ctx} tokens (batch 1) the shared block's K/V "
+                  f"would take {cfg.hybrid_groups} x 2 x {ctx} x {cfg.n_kv_heads} x "
+                  f"{cfg.head_dim} x 2 B = {kv_long / 1e9:.1f} GB beside "
+                  f"{state_bytes / B_ / 1e6:.1f} MB of states a sequence (reckoned, not run)")
+        report["serve"][key] = rec
+        del params, model, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (c) training, both uncut ---------------------------------------------
+    S_ = D["train_seq"]
+    report["train"] = {}
+    for key, cfg, steps in (("mamba", fm, D["mamba_train_steps"]),
+                            ("zamba", fz, D["zamba_train_steps"])):
+        n_c = cfg.param_count()
+        state_bytes = 8 * n_c           # bf16 weights, gradients, AdamW's m and v
+        n_blk = (cfg.n_layers if key == "mamba" else
+                 cfg.hybrid_groups * (cfg.hybrid_group_len + 1) + cfg.hybrid_tail)
+        n_m = (cfg.n_layers if key == "mamba" else
+               cfg.hybrid_groups * cfg.hybrid_group_len + cfg.hybrid_tail)
+
+        def act_bytes(b):
+            """What a step holds beside the state, reckoned: each block's
+            input (per-block remat), one mamba block's recomputed
+            projections and SSD tiles (decay, scores and their product,
+            their gradients: 6 (b, c, h, q, q) tensors) or the shared
+            block's float32 S x S scores, probabilities and gradient, and a
+            loss chunk's float32 logits, their softmax and gradient."""
+            T = b * S_
+            mamba = (6 * b * (-(-S_ // cfg.ssm_chunk)) * cfg.ssm_heads * cfg.ssm_chunk ** 2 * 2
+                     + 8 * T * (2 * cfg.d_inner) * 2)
+            attn = 3 * b * cfg.n_heads * S_ * S_ * 4 if key == "zamba" else 0
+            return (n_blk * T * cfg.d_model * 2 + max(mamba, attn)
+                    + 3 * b * min(cfg.logits_chunk, S_) * cfg.vocab * 4)
+
+        free = torch.cuda.mem_get_info()[0]
+        bt = D["train_batch"]
+        while bt > 1 and state_bytes + act_bytes(bt) > free:
+            bt //= 2
+        cut = "" if bt == D["train_batch"] else f" (cut from {D['train_batch']} to fit)"
+        print(f"[phase 16] (c) {cfg.arch_id}: {n_c / 1e9:.3f}e9 parameters; memory reckoned: "
+              f"weights, gradients and AdamW state {state_bytes / 1e9:.2f} GB + a step's "
+              f"activations {act_bytes(bt) / 1e9:.2f} GB at batch {bt} x {S_}{cut}; free "
+              f"{free / 1e9:.2f} GB")
+        T_ = bt * S_
+        head = cfg.vocab * cfg.d_model
+        body = n_c - head * (1 if cfg.tie_embeddings else 2)
+        ssd = n_m * 2.0 * bt * (S_ // cfg.ssm_chunk) * cfg.ssm_heads * cfg.ssm_chunk ** 2 * (
+            cfg.ssm_state + cfg.ssm_headdim)
+        # forward, backward (twice the forward), the blocks' remat forward
+        # and the loss chunks' recomputed logits: 4 forwards of each
+        bf16_flop = 4.0 * (2.0 * body * T_ + 2.0 * head * T_ + ssd)
+        f32_flop = (4.0 * cfg.hybrid_groups * 2.0 * 2 * bt * cfg.n_heads * S_ * S_ * cfg.head_dim
+                    if key == "zamba" else 0.0)
+        bound_ms = (bf16_flop / PEAK_BF16 + f32_flop / PEAK_F32) * 1e3
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cfg_b, model, params, opt_state, step_fn, stream, extras, _ = ttrain.build(
+            cfg.arch_id, smoke=False, batch=bt, seq=S_, lr=D["lr"], seed=D["seed"], device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(cfg_b == cfg, f"build's config is {cfg.arch_id}'s")
+        held_c = torch.cuda.memory_allocated() - base
+        watch_names = ([n for n in tlm.leaves(params) if n.endswith(("ssm.A_log", "ssm.in_x"))][:2]
+                       + ["final_norm"] + (["shared_attn.attn.wq", "shared_attn.ln1"]
+                                           if key == "zamba" else []))
+        watch = {k_: tlm.leaves(params)[k_].detach().clone() for k_ in watch_names}
+        torch.cuda.reset_peak_memory_stats()
+        params, opt_state, rep = train_loop(
+            step_fn, params, opt_state, lambda s: stream.batch(s, extras, device=dev),
+            TrainLoopConfig(steps=steps, ckpt_dir=None, log_every=1, handle_signals=False),
+            log_fn=lambda s: None)
+        peak = torch.cuda.max_memory_allocated() - base
+        hist = rep["history"]
+        check(len(hist) == steps and rep["final_step"] == steps,
+              f"(c) {cfg.arch_id} ran every step")
+        check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist),
+              f"(c) {cfg.arch_id}: every loss and grad norm finite")
+        check(hist[-1]["loss"] < hist[0]["loss"],
+              f"(c) {cfg.arch_id}: the loss did not fall ({hist[0]['loss']} -> {hist[-1]['loss']})")
+        moved = {k_: not torch.equal(v, tlm.leaves(params)[k_]) for k_, v in watch.items()}
+        check(all(moved.values()), f"(c) {cfg.arch_id}: the parameters moved: {moved}")
+        secs = [h["sec_per_step"] for h in hist]
+        warm = statistics.median(secs[1:])
+        report["train"][key] = {
+            "params": n_c, "batch": bt, "batch_cut": bt != D["train_batch"], "seq": S_,
+            "steps": steps, "build_s": build_s, "first_step_s": secs[0], "warm_median_s": warm,
+            "warm_min_s": min(secs[1:]), "warm_max_s": max(secs[1:]), "tokens_per_s": T_ / warm,
+            "losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist],
+            "stragglers": rep["stragglers"], "held_bytes": held_c, "peak_bytes": peak,
+            "peak_above_state": peak - held_c, "held_before_bytes": base,
+            "reckoned_state_bytes": state_bytes, "reckoned_act_bytes": act_bytes(bt),
+            "bf16_tflop": bf16_flop / 1e12, "f32_tflop": f32_flop / 1e12, "bound_ms": bound_ms}
+        print(f"[phase 16] {smi}: train({cfg.arch_id}, build(smoke=False), batch {bt} x {S_}"
+              f"{cut}, {steps} steps): first step {secs[0]:.3f} s, warm median {warm * 1e3:.1f} "
+              f"ms ({min(secs[1:]) * 1e3:.1f}-{max(secs[1:]) * 1e3:.1f}), {T_ / warm:.0f} "
+              f"tokens/s; loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; bound "
+              f"{bound_ms:.1f} ms ({bf16_flop / 1e12:.2f} TFLOP bf16 at 989 TFLOP/s + "
+              f"{f32_flop / 1e12:.3f} TFLOP float32 at 67 TFLOP/s, remat included); model and "
+              f"AdamW state held {held_c / 1e9:.3f} GB, the steps' peak "
+              f"{(peak - held_c) / 1e9:.3f} GB above it ({base / 1e9:.3f} GB held before); built "
+              f"in {build_s:.1f} s")
+        del params, opt_state, step_fn, model, watch, stream
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (d) checkpoint and restart on the SMOKE configs -------------------------
+    report["restart"] = {}
+    ocfg = optim.AdamWConfig(lr=optim.warmup_cosine(D["lr"], 20, 10_000))
+    tops = {"mamba": {"blocks", "final_norm", "tok_emb"},
+            "zamba": {"final_norm", "lm_head", "mamba_groups", "mamba_tail", "shared_attn",
+                      "tok_emb"}}
+    for key in ("mamba", "zamba"):
+        cfg_d = ARCHS[D[key]].SMOKE
+        m_d = get_model(cfg_d)
+        n, at = D["ckpt_steps"], D["ckpt_at"]
+        stream_d = TokenStream(vocab=cfg_d.vocab, seq=D["ckpt_seq"],
+                               global_batch=D["ckpt_batch"], seed=D["seed"])
+
+        def fresh():
+            p = m_d.init_params(D["seed"], device=dev)
+            return p, optim.init(tlm.leaves(p), ocfg)
+
+        def host(params):
+            return [t.detach().float().cpu() for t in tlm.leaves(params).values()]
+
+        def loop(params, opt, n_steps, ckpt_dir=None, every=D["ckpt_every"]):
+            return train_loop(make_train_step(m_d, ocfg), params, opt,
+                              lambda s: stream_d.batch(s, device=dev),
+                              TrainLoopConfig(steps=n_steps, ckpt_dir=ckpt_dir, ckpt_every=every,
+                                              log_every=1000, handle_signals=False),
+                              log_fn=lambda s: None)
+
+        t0 = time.perf_counter()
+        straight = [host(loop(*fresh(), n)[0]) for _ in range(2)]
+        straight_s = time.perf_counter() - t0
+        bitwise = all(torch.equal(a, b) for a, b in zip(*straight))
+        check(bitwise, f"(d) {cfg_d.arch_id}: two straight runs on the card are not bitwise equal")
+        with tempfile.TemporaryDirectory() as td:
+            loop(*fresh(), at, td)                        # async at step 3, sync at 5
+            check(tckpt.latest_step(td) == at, "(d) the checkpoint of step 5")
+            p3, o3 = fresh()
+            loop(p3, o3, D["ckpt_every"])
+            keys = convert.train_state_keys(p3)
+            check(set(keys["params"]) == tops[key],
+                  f"(d) the checkpoint's tree: {sorted(keys['params'])}")
+            _, tree3 = tckpt.restore(td, keys, step=D["ckpt_every"], device="cpu")
+            p_chk, o_chk = fresh()
+            convert.load_train_state(p_chk, o_chk, tree3)
+            async_bitwise = all(torch.equal(a, b) for a, b in zip(host(p_chk), host(p3)))
+            del tree3, p3, o3, p_chk, o_chk
+            resumed, _, rep_d = loop(*fresh(), n, td, every=n)   # writes step 10 only
+            check(rep_d["final_step"] == n, "(d) the resumed run reached step 10")
+            got = host(resumed)
+        resume_bitwise = all(torch.equal(a, b) for a, b in zip(got, straight[0]))
+        check(resume_bitwise, f"(d) {cfg_d.arch_id}: the resumed run is not bitwise the "
+                              f"straight run")
+        check(async_bitwise, f"(d) {cfg_d.arch_id}: the async step-3 checkpoint is not bitwise "
+                             f"a straight 3-step run")
+        report["restart"][key] = {"config": cfg_d.arch_id, "straight_bitwise": bitwise,
+                                  "resume_bitwise": resume_bitwise,
+                                  "async_ckpt_bitwise": async_bitwise,
+                                  "straight_two_runs_s": straight_s}
+        print(f"[phase 16] {smi}: restart ({cfg_d.arch_id}, batch {D['ckpt_batch']} x "
+              f"{D['ckpt_seq']}): two straight {n}-step runs bitwise {bitwise}; {at} steps, a "
+              f"fresh model restored, {n - at} more = straight bitwise {resume_bitwise}; the "
+              f"async step-3 checkpoint = a straight 3-step run bitwise {async_bitwise}")
+        del straight, got, resumed
+    check(ops.launch_counts() == NO_LAUNCHES,
+          f"the SSM and hybrid paths launched a kernel: {ops.launch_counts()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print("[phase 16] " + json.dumps(report))
+    print(f"[phase 16] took {report['seconds']:.1f} s")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -3650,20 +4251,29 @@ def main() -> int:
             rtol=2e-3, atol=1e-5, why="tests/test_kernels.py:168 variance gate"))
     del C, Cn, C_rff, Ar, A200
 
-    # rank-K sweep: L = chol(B), W = Phi_new D / sigma (K = 64)
+    # rank-K sweep: L = chol(B), W = Phi_new D / sigma (K = 64).  The plain
+    # sweep (a Python loop of K x M rotations) is held against the kernel on
+    # W's first PLAIN_SWEEP_K rows and timed once there; the kernel at K = 64
+    # is held against chol(LL^T + W^TW) and timed below
     W = (ops.expansion_phi(Xn, tile) * sqrtlam[None, :] / spec.noise).contiguous()
     K = W.shape[0]
-    L1 = ops.chol_update(chol, W)
+    W8 = W[:PLAIN_SWEEP_K].contiguous()
+    L8 = ops.chol_update(chol, W8)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    Lp = kchol.chol_update_plain(chol, W)
+    Lp = kchol.chol_update_plain(chol, W8)
     torch.cuda.synchronize()
     plain_sweep_ms = (time.perf_counter() - t0) * 1e3
     tol_chol = dict(rtol=5e-3, atol=1e-3, why="tests/test_streaming_fit.py:214 chol gate")
-    err = compare(f"chol_update vs plain sweep (M={M}, K={K})", [L1], [Lp], **tol_chol)
-    del Lp
+    err = compare(f"chol_update vs plain sweep (M={M}, K={PLAIN_SWEEP_K}: W's first "
+                  f"{PLAIN_SWEEP_K} rows)", [L8], [Lp], **tol_chol)
+    print(f"[chol_update] the plain sweep at M={M}, K={PLAIN_SWEEP_K}: {plain_sweep_ms:.1f} ms, "
+          f"timed once (the kernels line's plain_ms)")
+    del Lp, L8, W8
+    L1 = ops.chol_update(chol, W)
     lib_L = torch.linalg.cholesky(chol @ chol.T + W.T @ W)
-    compare(f"chol_update vs chol(LL^T + W^TW) (M={M}, K={K})", [L1], [lib_L], **tol_chol)
+    err = max(err, compare(f"chol_update vs chol(LL^T + W^TW) (M={M}, K={K})", [L1], [lib_L],
+                           **tol_chol))
     del lib_L, L1
     s_flops = 6 * K * M * (M - 1) / 2
     s_bytes = 4 * (2 * M * (M + 1) / 2 + K * M)
@@ -3671,7 +4281,7 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/chol_update.cu",
         replaces="src/repro/core/fagp.py:1052", max_abs_err=err,
         ms=cuda_ms(lambda: ops.chol_update(chol, W), reps=20, warmup=1),
-        plain_ms=plain_sweep_ms,
+        plain_ms=plain_sweep_ms, plain_K=PLAIN_SWEEP_K,
         library_ms=cuda_ms(lambda: torch.linalg.cholesky(chol @ chol.T + W.T @ W),
                            reps=20, warmup=1),
         bound=bound(s_flops, s_bytes))
@@ -4953,6 +5563,9 @@ def main() -> int:
     # -- 15. the LM half's MLA family: deepseek-v3 (ROADMAP A8) ---------------
     phase15(dev, smi, compare)
 
+    # -- 16. the LM half's SSM and hybrid families (ROADMAP A8) -----------------
+    phase16(dev, smi, compare)
+
     # -- results --------------------------------------------------------------
     kernels = []
     for name, r in rows.items():
@@ -4964,8 +5577,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
-        if "call_ms" in r:
-            kernels[-1]["call_ms"] = r["call_ms"]
+        for extra in ("call_ms", "plain_K"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     print("[features] " + json.dumps({
         label: {k: (v[0] if k == "bound" else v) for k, v in r.items()}
         for label, r in features.items()}))

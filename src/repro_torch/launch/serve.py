@@ -3,14 +3,19 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \\
       --batch 4 --prompt-len 64 --gen 32 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --full
 
 Runs on the card unless ``--device cpu``; weights are random, drawn from
 ``--seed``.  Times are on the card's clock: ``torch.cuda.synchronize()``
 closes each timed region (the reference's ``block_until_ready``).  The
 cache is written in place by every decode step.  The dense family, the
-MoE family (olmoe-1b-7b) and the MLA family (deepseek-v3: its latent
-cache, the absorbed form at every step) are ported
-(``repro_torch.models.get_model`` refuses the others, ROADMAP A8).
+MoE family (olmoe-1b-7b), the MLA family (deepseek-v3: its latent cache,
+the absorbed form at every step), the SSM family (mamba2-130m: an O(1)
+state cache, conv windows and SSD states) and the hybrid family
+(zamba2-7b: those states and the shared attention block's K/V, one a
+group) are ported (``repro_torch.models.get_model`` refuses the audio and
+VLM families, ROADMAP A8).  An SSM or hybrid prompt needs at least
+``ssm_conv - 1`` tokens.
 """
 from __future__ import annotations
 

@@ -8,8 +8,10 @@ Runs on the card unless ``--device cpu``; weights are random, drawn from
 is ``warmup_cosine(lr, 20, 10_000)``.  The train step updates the model
 and the AdamW state in place; checkpoints are the reference's tree, so a
 run started by either package resumes in the other.  The dense family,
-the MoE family (olmoe-1b-7b, its load-balance aux loss added to the loss)
-and the MLA family (deepseek-v3, its MTP term in the loss) are ported
+the MoE family (olmoe-1b-7b, its load-balance aux loss added to the loss),
+the MLA family (deepseek-v3, its MTP term in the loss), the SSM family
+(mamba2-130m) and the hybrid family (zamba2-7b: the shared block's
+gradient summed over its invocations) are ported
 (``repro_torch.models.get_model`` refuses the others, and with them the
 audio and VLM extras); a production mesh (``mesh=``) comes with A8's
 ``parallel/`` part.

@@ -6,10 +6,10 @@ One dataclass parameterizes: dense decoder LMs (llama/qwen/starcoder style),
 MoE (olmoe, deepseek-v3 w/ MLA+MTP), SSM (mamba2 SSD), hybrid (zamba2),
 encoder-decoder audio (whisper, stub frontend) and VLM (llama-3.2-vision,
 stub vision tower).  Exact per-arch values live in
-``repro_torch/configs/<id>.py``.  Only the dense family and the MoE family
-without MLA run in the port so far (``repro_torch.models.get_model``
-refuses the others, ROADMAP A8); the fields of the others are kept so that
-every config is the reference's.
+``repro_torch/configs/<id>.py``.  The dense, MoE (with and without MLA),
+SSM and hybrid families run in the port so far (``repro_torch.models.
+get_model`` refuses the audio and VLM families, ROADMAP A8); the fields of
+those are kept so that every config is the reference's.
 """
 from __future__ import annotations
 

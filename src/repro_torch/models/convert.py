@@ -3,14 +3,17 @@
 ``lm_params_from_jax`` takes the reference's ``init_params`` pytree with
 its leaves as numpy arrays (``jax.tree.map(np.asarray, params)``; the
 blocks stacked (L, ...) over layers in each stack, ``blocks`` for the
-dense and MoE families, ``dense_blocks``, ``moe_blocks`` and
+dense, MoE and SSM families, ``dense_blocks``, ``moe_blocks`` and
 ``mtp_blocks`` beside ``mtp_proj``, ``mtp_norm_h`` and ``mtp_norm_e`` for
-MLA; bfloat16 leaves as ``ml_dtypes`` arrays) and returns the port's
+MLA, ``mamba_groups`` stacked (G, L, ...) and ``mamba_tail`` beside the
+unstacked ``shared_attn`` for the hybrid; bfloat16 leaves as
+``ml_dtypes`` arrays) and returns the port's
 :class:`~repro_torch.models.lm.LM` holding the same values, so that the
 tests hand both packages one set of weights.
 
 The reverse: ``lm_params_to_jax`` gives the port's parameters as the
-reference's nested numpy tree (float32 arrays holding the values exactly),
+reference's nested numpy tree (float32 arrays holding the values exactly,
+each stack restacked (L, ...) or (G, L, ...)),
 and ``train_state_to_jax`` the parameters and AdamW state as the
 reference's train-loop checkpoint tree, ``{"params": ..., "opt": {"mu":
 ..., "step"}}`` (``mu`` mirroring the parameters with ``{"m", "v"}``
@@ -28,7 +31,7 @@ import torch
 
 from ..device import resolve_device
 from .config import ModelConfig
-from .lm import LM, MTP_TOP, _dtype, _stacks, leaf_paths
+from .lm import LM, MTP_TOP, _assemble, _dtype, _stacks, leaf_paths
 
 __all__ = ["lm_params_from_jax", "lm_params_to_jax", "train_state_to_jax",
            "train_state_keys", "load_train_state"]
@@ -42,30 +45,34 @@ def _t(a, dtype, device) -> torch.Tensor:
 
 # leaves the reference keeps in float32 whatever the model dtype
 F32_LEAVES = ("ln1", "ln2", "final_norm", "router", "q_ln", "kv_ln", "mtp_norm_h",
-              "mtp_norm_e")
+              "mtp_norm_e", "A_log", "D", "dt_bias", "norm_w")
 
 
 def lm_params_from_jax(tree: Mapping, cfg: ModelConfig, device=None) -> LM:
-    """The dense, MoE or MLA family's parameters on ``device`` (default the
-    card): weights and biases in the model dtype, the norms (an MLA
-    block's ``q_ln`` and ``kv_ln`` and the MTP head's two among them) and
-    the MoE router in float32, as the reference keeps them; each stack of
-    the tree (``blocks``; or ``dense_blocks``, ``moe_blocks`` and
-    ``mtp_blocks``) unstacked into its layers, an MoE block's expert
-    leaves still stacked (E, ...) over experts."""
+    """The dense, MoE, MLA, SSM or hybrid family's parameters on ``device``
+    (default the card): weights and biases in the model dtype, the norms
+    (an MLA block's ``q_ln`` and ``kv_ln``, the MTP head's two and a mamba
+    block's ``norm_w`` among them), the MoE router and a mamba block's
+    ``A_log``, ``D`` and ``dt_bias`` in float32, as the reference keeps
+    them; each stack of the tree (``blocks``; ``dense_blocks``,
+    ``moe_blocks`` and ``mtp_blocks``; ``mamba_groups`` (G, L, ...) and
+    ``mamba_tail``) unstacked into its layers, the hybrid's
+    ``shared_attn`` taken as it is, an MoE block's expert leaves still
+    stacked (E, ...) over experts."""
     device = resolve_device(device)
     dt = _dtype(cfg)
 
     def leaf(name, a):
         return _t(a, torch.float32 if name in F32_LEAVES else dt, device)
 
-    def block(Block, bl, l):
-        def sub(name):
-            return {k: leaf(k, v[l]) for k, v in bl[name].items()}
-        return Block(leaf("ln1", bl["ln1"][l]), sub("attn"), leaf("ln2", bl["ln2"][l]),
-                     sub(Block.FFN))
+    def block(Block, bl, idx):
+        def at(a):
+            return a if idx is None else a[idx]
+        return Block(**{sub: ({k: leaf(k, at(v)) for k, v in node.items()}
+                              if isinstance(node, Mapping) else leaf(sub, at(node)))
+                        for sub, node in bl.items()})
 
-    stacks = {name: [block(Block, tree[name], l) for l in range(n)]
+    stacks = {name: _assemble(n, lambda idx, B=Block, bl=tree[name]: block(B, bl, idx))
               for name, Block, n in _stacks(cfg)}
     top = {k: leaf(k, tree[k]) for k in MTP_TOP if k in tree}
     head = None if cfg.tie_embeddings else leaf("lm_head", tree["lm_head"])
@@ -84,40 +91,51 @@ def _nest(flat: dict) -> dict:
 
 
 def _stacked(params: LM, leaf) -> dict:
-    """{reference path: leaf(tensors)} where ``tensors`` are a block leaf's
-    layers in order, or the one tensor of a leaf outside the blocks."""
+    """{reference path: leaf(tensors, lead)} where ``tensors`` are a block
+    leaf's layers in order and ``lead`` the reference's stacked leading
+    shape ((L,) or (G, L)), or the one tensor of a leaf outside the stacks
+    (or of the hybrid's shared block) and None."""
     named = dict(params.named_parameters())
     groups: dict = {}
     for name, path, layer in leaf_paths(params):
         groups.setdefault(path, []).append((named[name], layer))
-    return {path: leaf([t for t, _ in ts], ts[0][1] is not None)
+
+    def lead(layers):
+        if layers[0] is None:
+            return None
+        return tuple(int(i) + 1 for i in np.max(np.array(layers).reshape(len(layers), -1), 0))
+
+    return {path: leaf([t for t, _ in ts], lead([l for _, l in ts]))
             for path, ts in groups.items()}
 
 
-def _host(ts, stacked: bool, of=lambda t: t) -> torch.Tensor:
+def _host(ts, lead, of=lambda t: t) -> torch.Tensor:
     # a fresh host copy (``.to`` copies a card tensor; ``copy=True`` a CPU one)
-    if stacked:
-        return torch.stack([of(t).detach().to("cpu") for t in ts])
+    if lead is not None:
+        return torch.stack([of(t).detach().to("cpu") for t in ts]).reshape(
+            lead + tuple(ts[0].shape))
     return of(ts[0]).detach().to("cpu", copy=True)
 
 
 def lm_params_to_jax(params: LM) -> dict:
     """The reference's ``init_params`` tree of the port's parameters: numpy
     float32 arrays (every bfloat16 value exactly), the blocks stacked
-    (L, ...); cast each leaf to the reference's dtype to feed JAX."""
-    return _nest(_stacked(params, lambda ts, st: _host(ts, st).to(torch.float32).numpy()))
+    (L, ...) or (G, L, ...); cast each leaf to the reference's dtype to feed
+    JAX."""
+    return _nest(_stacked(params, lambda ts, lead: _host(ts, lead).to(torch.float32).numpy()))
 
 
 def train_state_to_jax(params: LM, opt_state: dict) -> dict:
     """The reference train loop's checkpoint tree of the port's model and
     AdamW state (``optim.init(lm.leaves(params), ...)``): every leaf a
-    fresh host tensor in its own dtype, the blocks stacked (L, ...).  The
+    fresh host tensor in its own dtype, the blocks stacked (L, ...) or
+    (G, L, ...).  The
     copies from the card have finished when this returns."""
     mu = opt_state["mu"]
     names = {id(p): n for n, p in params.named_parameters()}
 
     def moment(key):
-        return lambda ts, st: _host(ts, st, of=lambda t: mu[names[id(t)]][key])
+        return lambda ts, lead: _host(ts, lead, of=lambda t: mu[names[id(t)]][key])
 
     m = _stacked(params, moment("m"))
     v = _stacked(params, moment("v"))
@@ -131,7 +149,7 @@ def train_state_keys(params: LM) -> dict:
     """The keys of :func:`train_state_to_jax`'s tree with placeholder
     leaves: the ``like`` that ``checkpoint.restore`` reads, without copying
     the model."""
-    paths = list(_stacked(params, lambda ts, st: 0))
+    paths = list(_stacked(params, lambda ts, lead: 0))
     return {"params": _nest({p: 0 for p in paths}),
             "opt": {"mu": _nest({p + (k,): 0 for p in paths for k in ("m", "v")}),
                     "step": 0}}
@@ -147,8 +165,8 @@ def _at(tree, path):
 def load_train_state(params: LM, opt_state: dict, tree: Mapping) -> None:
     """Write a train-loop checkpoint tree (``{"params", "opt"}`` in the
     reference's layout, written by either package) into ``params`` and
-    ``opt_state`` in place, layer by layer, each leaf cast to the dtype it
-    has here."""
+    ``opt_state`` in place, layer by layer (a (G, L, ...) leaf at [g, l]),
+    each leaf cast to the dtype it has here."""
     named = dict(params.named_parameters())
     for name, path, layer in leaf_paths(params):
         def src(t):

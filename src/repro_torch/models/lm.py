@@ -1,52 +1,62 @@
-"""Decoder-only LM assembly, the dense, MoE and MLA families: the port of
-the dense, MoE and MLA parts of ``repro/models/lm.py`` (``_dtype``, the
-"dense", "moe", "mla_dense" and "mla_moe" blocks' init and apply,
-``init_params``, ``forward`` with its per-block remat and its aux loss,
-``_unembed``, ``xent_chunked``, ``loss_fn`` with the MLA family's MTP
-term, ``init_cache``, ``_dense_block_decode``, ``_moe_block_decode`` and
-``_mla_block_decode`` (one ``_block_decode`` here), ``decode_step`` and
-``prefill``).
+"""Decoder-only LM assembly, the dense, MoE, MLA, SSM and hybrid families:
+the port of those parts of ``repro/models/lm.py`` (``_dtype``, the
+"dense", "moe", "mla_dense", "mla_moe" and "mamba" blocks' init and
+apply, ``init_params``, ``forward`` with its per-block remat and its aux
+loss, ``_unembed``, ``xent_chunked``, ``loss_fn`` with the MLA family's
+MTP term, ``init_cache``, ``_dense_block_decode``, ``_moe_block_decode``,
+``_mla_block_decode`` and ``_mamba_block_decode`` (one ``_block_decode``
+here), ``decode_step``, ``prefill`` and ``_ssm_prefill_cache``).
 
 The model is an ``nn.Module`` (:class:`LM`) holding the reference's
-stacks as ``ModuleList``\\ s of blocks: ``blocks`` (:class:`DenseBlock` or
-:class:`MoEBlock`) for the dense and MoE families; ``dense_blocks``
-(:class:`MLADenseBlock`, the first ``moe_layer_start`` layers),
-``moe_blocks`` (:class:`MLAMoEBlock`, the rest) and, with
-``cfg.mtp_depth``, ``mtp_blocks`` (:class:`MLAMoEBlock`) beside
-``mtp_proj``, ``mtp_norm_h`` and ``mtp_norm_e`` for the MLA family
-(deepseek-v3).  Every parameter keeps the reference's leaf name
-(``tok_emb``, ``final_norm``, ``lm_head``, ``blocks.<l>.attn.wq``,
-``moe_blocks.<l>.attn.wkv_b``, ``moe_blocks.<l>.moe.wg`` ...) and its
-orientation, and a block reads like the reference's parameter dict
-(``lp["attn"]["wq"]``, ``lp["moe"]["router"]``).  An MoE block's FFN is
-:func:`repro_torch.models.moe.moe_dispatch` over the block's (B * S, d)
-tokens; its aux loss is summed over the layers in layer order, a stack at
-a time, as the reference's scans carry it.  An MLA block's attention is
-:mod:`repro_torch.models.mla`: the expanded form over a sequence, the
-absorbed form for a decode step.
-The reference stacks the blocks (L, ...) and scans over them; here a loop
-over the list does the same.  The cache is the reference's: ``{"k", "v"}``
-of shape (L, B, S, K, Dh), or for MLA ``{"latent_dense", "latent_moe"}``
-of shape (layers, B, S, kv_lora + rope).
+stacks as ``ModuleList``\\ s of blocks: ``blocks`` (:class:`DenseBlock`,
+:class:`MoEBlock` or :class:`MambaBlock`) for the dense, MoE and SSM
+families; ``dense_blocks`` (:class:`MLADenseBlock`, the first
+``moe_layer_start`` layers), ``moe_blocks`` (:class:`MLAMoEBlock`, the
+rest) and, with ``cfg.mtp_depth``, ``mtp_blocks`` (:class:`MLAMoEBlock`)
+beside ``mtp_proj``, ``mtp_norm_h`` and ``mtp_norm_e`` for the MLA family
+(deepseek-v3); for the hybrid family (zamba2) ``mamba_groups``, G
+``ModuleList``\\ s of L :class:`MambaBlock`\\ s (stacked (G, L, ...) in the
+reference), ``shared_attn``, **one** :class:`DenseBlock` that runs before
+every group, and ``mamba_tail``.  Every parameter keeps the reference's
+leaf name (``tok_emb``, ``final_norm``, ``lm_head``, ``blocks.<l>.attn.wq``,
+``moe_blocks.<l>.moe.wg``, ``mamba_groups.<g>.<l>.ssm.A_log``,
+``shared_attn.mlp.wg`` ...) and its orientation, and a block reads like
+the reference's parameter dict (``lp["attn"]["wq"]``, ``lp["ssm"]["D"]``).
+An MoE block's FFN is :func:`repro_torch.models.moe.moe_dispatch` over the
+block's (B * S, d) tokens; its aux loss is summed over the layers in layer
+order, a stack at a time, as the reference's scans carry it.  An MLA
+block's attention is :mod:`repro_torch.models.mla`: the expanded form over
+a sequence, the absorbed form for a decode step.  A mamba block is
+:mod:`repro_torch.models.ssm`'s.  The reference stacks the blocks and
+scans over them; here a loop over the list does the same.  The cache is
+the reference's: ``{"k", "v"}`` of shape (L, B, S, K, Dh); for MLA
+``{"latent_dense", "latent_moe"}`` of shape (layers, B, S, kv_lora +
+rope); for SSM ``{"conv_x", "conv_BC", "ssm"}`` of shapes (L, B, K - 1,
+d_inner), (L, B, K - 1, 2 g n) and (L, B, h, p, n), whatever the context;
+for the hybrid ``attn_k`` / ``attn_v`` (G, B, S, K, Dh), one a shared
+invocation, the three mamba entries (G, L, ...) and their ``*_tail``
+twins (T, ...).
 
 ``prefill`` fuses the reference's two passes (``forward`` for the logits,
 then a second pass over the blocks for the cache): the second pass
-recomputes the first's keys and values from the same inputs with the
-same operations, so one pass that keeps them gives the same logits and
-cache (an MLA block writes ``mla_prefill_cache`` of its normed input, as
-the reference's second pass does).  ``decode_step`` writes the cache in
-place (the reference donates it).
+recomputes the first's keys and values (a mamba block's raw projections
+and SSD state) from the same inputs with the same operations, so one pass
+that keeps them gives the same logits and cache (an MLA block writes
+``mla_prefill_cache`` of its normed input, a mamba block the last K - 1
+rows of its raw x and BC projections and SSD's final state, as the
+reference's second pass does).  ``decode_step`` writes the cache in place
+(the reference donates it).
 
 Training: the parameters are built with ``requires_grad=False``, so no
 serving call records a graph; :func:`trainable` switches gradients on for
 the length of a train step.  With ``cfg.remat`` and gradients on, each
 block runs under ``torch.utils.checkpoint`` (the reference scans its
-blocks under ``jax.checkpoint``), the MTP blocks too, and
-:func:`xent_chunked` recomputes each chunk's logits in the backward pass,
-so neither pass holds a (B, S, V) tensor.  :func:`leaves` names the
-trainable tensors in the reference's tree order.
+blocks under ``jax.checkpoint``), the MTP blocks and the hybrid's shared
+block too, and :func:`xent_chunked` recomputes each chunk's logits in the
+backward pass, so neither pass holds a (B, S, V) tensor.  :func:`leaves`
+names the trainable tensors in the reference's tree order.
 
-The SSM/hybrid, audio and VLM families come with A8's later parts
+The audio and VLM families come with A8's later parts
 (``repro_torch.models`` refuses them).
 """
 from __future__ import annotations
@@ -54,15 +64,17 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from . import layers, mla, moe
+from . import layers, mla, moe, ssm
 from .config import ModelConfig
 
-__all__ = ["LM", "DenseBlock", "MoEBlock", "MLADenseBlock", "MLAMoEBlock", "init_params",
+__all__ = ["LM", "DenseBlock", "MoEBlock", "MLADenseBlock", "MLAMoEBlock", "MambaBlock",
+           "init_params",
            "forward", "prefill", "decode_step", "init_cache", "xent_chunked", "loss_fn",
            "leaves", "leaf_paths", "ref_ndims", "trainable"]
 
@@ -77,19 +89,21 @@ def _pdict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class _Block(nn.Module):
-    """ln1, attn, ln2 and the FFN (named ``FFN``) under the reference's
-    names; ``block["attn"]`` reads like the reference's parameter dict.
-    ``MLA``: the attention is :mod:`repro_torch.models.mla`'s."""
+    """A block's leaves under the reference's names (``ln1``, ``attn``,
+    ``ln2`` and the FFN, named ``FFN``; or ``ln1`` and ``ssm``), each given
+    as a tensor or a dict of tensors; ``block["attn"]`` reads like the
+    reference's parameter dict.  ``MLA``: the attention is
+    :mod:`repro_torch.models.mla`'s; ``SSM``: a mamba block."""
 
     FFN = ""
     MLA = False
+    SSM = False
 
-    def __init__(self, ln1, attn: dict, ln2, ffn: dict):
+    def __init__(self, **leaves):
         super().__init__()
-        self.ln1 = nn.Parameter(ln1, requires_grad=False)
-        self.attn = _pdict(attn)
-        self.ln2 = nn.Parameter(ln2, requires_grad=False)
-        setattr(self, self.FFN, _pdict(ffn))
+        for name, v in leaves.items():
+            setattr(self, name, _pdict(v) if isinstance(v, dict)
+                    else nn.Parameter(v, requires_grad=False))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -125,10 +139,20 @@ class MLAMoEBlock(_Block):
     MLA = True
 
 
+class MambaBlock(_Block):
+    """One "mamba" block: ln1, ssm (``in_z``, ``in_x``, ``in_BC``,
+    ``in_dt``, the two convs' weights and biases, ``out_proj``; ``A_log``,
+    ``D``, ``dt_bias`` and ``norm_w`` float32)."""
+
+    SSM = True
+
+
 def _stacks(cfg: ModelConfig) -> list:
-    """(name, block class, layers) of each stack of ``cfg``'s family, the
-    stacks ``forward`` runs in their order, then ``mtp_blocks`` (run by the
-    loss only); raises for the families that ``lm`` does not build."""
+    """(name, block class, layers) of each stack of ``cfg``'s family, in the
+    reference's init order: ``layers`` is a count, (G, L) for the hybrid's
+    groups, or None for its one shared block; ``mtp_blocks`` (run by the
+    loss only) last.  Raises for the families that ``lm`` does not
+    build."""
     if cfg.family == "dense":
         return [("blocks", DenseBlock, cfg.n_layers)]
     if cfg.family == "moe" and not cfg.use_mla:
@@ -140,14 +164,35 @@ def _stacks(cfg: ModelConfig) -> list:
         if cfg.mtp_depth:
             out.append(("mtp_blocks", MLAMoEBlock, cfg.mtp_depth))
         return out
-    raise ValueError(f"lm builds the dense family and the moe family (with or without "
-                     f"MLA), not {cfg.arch_id!r} (family {cfg.family!r})")
+    if cfg.family == "ssm":
+        return [("blocks", MambaBlock, cfg.n_layers)]
+    if cfg.family == "hybrid":
+        out = [("mamba_groups", MambaBlock, (cfg.hybrid_groups, cfg.hybrid_group_len)),
+               ("shared_attn", DenseBlock, None)]
+        if cfg.hybrid_tail:
+            out.append(("mamba_tail", MambaBlock, cfg.hybrid_tail))
+        return out
+    raise ValueError(f"lm builds the dense, moe (with or without MLA), ssm and hybrid "
+                     f"families, not {cfg.arch_id!r} (family {cfg.family!r})")
+
+
+def _assemble(layers_, make) -> nn.Module:
+    """A stack's module from ``make(index)``: the one block (``layers_``
+    None, index None), a ``ModuleList`` of ``layers_`` blocks (index l), or
+    of G ``ModuleList``\\ s of L (``layers_`` (G, L), index (g, l))."""
+    if layers_ is None:
+        return make(None)
+    if isinstance(layers_, tuple):
+        G, L = layers_
+        return nn.ModuleList(nn.ModuleList(make((g, l)) for l in range(L)) for g in range(G))
+    return nn.ModuleList(make(l) for l in range(layers_))
 
 
 # the stacks forward runs, in order, and the cache entries each one's
-# layers write: k and v, or the MLA latent
+# layers write: k and v, or the MLA latent (a mamba stack writes MAMBA_CACHE)
 _CACHE = {"blocks": ("k", "v"), "dense_blocks": ("latent_dense",),
           "moe_blocks": ("latent_moe",)}
+MAMBA_CACHE = ("conv_x", "conv_BC", "ssm")
 # the MTP head's leaves outside its blocks
 MTP_TOP = ("mtp_proj", "mtp_norm_h", "mtp_norm_e")
 
@@ -155,9 +200,9 @@ MTP_TOP = ("mtp_proj", "mtp_norm_h", "mtp_norm_e")
 class LM(nn.Module):
     """Token embedding, the stacks of blocks, the final norm, (untied) the
     LM head and (MLA with MTP) the MTP head; parameters under the
-    reference's leaf names.  ``stacks`` is {stack name: list of blocks};
-    ``top`` holds the MTP head's ``mtp_proj``, ``mtp_norm_h`` and
-    ``mtp_norm_e``."""
+    reference's leaf names.  ``stacks`` is {stack name: its module, as
+    :func:`_assemble` builds it}; ``top`` holds the MTP head's
+    ``mtp_proj``, ``mtp_norm_h`` and ``mtp_norm_e``."""
 
     def __init__(self, cfg: ModelConfig, tok_emb, final_norm, stacks, lm_head=None, **top):
         super().__init__()
@@ -168,29 +213,50 @@ class LM(nn.Module):
             self.lm_head = nn.Parameter(lm_head, requires_grad=False)
         for name, t in top.items():
             setattr(self, name, nn.Parameter(t, requires_grad=False))
-        for name, blocks in stacks.items():
-            setattr(self, name, nn.ModuleList(blocks))
+        for name, module in stacks.items():
+            setattr(self, name, module)
 
     @property
     def device(self) -> torch.device:
         return self.tok_emb.device
 
 
-def _run_stacks(params: LM) -> list:
-    """(name, blocks) of the stacks ``forward`` runs, in order."""
-    return [(name, getattr(params, name)) for name in _CACHE if hasattr(params, name)]
+def _segments(params: LM, cache=None) -> list:
+    """(blocks, cache entries) of each run of blocks ``forward`` takes, in
+    order: a stack, or for the hybrid family the shared block before each
+    group, the group, then the tail.  The entries are the cache tensors
+    whose leading axis follows the run's blocks (None without a cache):
+    the shared block's run at group g reads ``attn_k[g:g + 1]``."""
+    def entries(keys, at=slice(None)):
+        return None if cache is None else [cache[k][at] for k in keys]
+
+    if hasattr(params, "shared_attn"):
+        out = []
+        for g, group in enumerate(params.mamba_groups):
+            out.append(([params.shared_attn], entries(("attn_k", "attn_v"), slice(g, g + 1))))
+            out.append((group, entries(MAMBA_CACHE, g)))
+        if hasattr(params, "mamba_tail"):
+            out.append((params.mamba_tail, entries(tuple(k + "_tail" for k in MAMBA_CACHE))))
+        return out
+    return [(blocks, entries(MAMBA_CACHE if blocks[0].SSM else _CACHE[name]))
+            for name, blocks in ((n, getattr(params, n)) for n in _CACHE if hasattr(params, n))]
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, Block) -> _Block:
     dt = _dtype(cfg)
     d = cfg.d_model
+
+    def ln():
+        return layers.norm_init(d, device=gen.device)
+
+    if Block.SSM:
+        return Block(ln1=ln(), ssm=ssm.mamba_init(gen, cfg, dt))
     attn = mla.mla_init(gen, cfg, dt) if Block.MLA else layers.attn_init(gen, cfg, dt)
     if Block.FFN == "moe":
         ffn = moe.moe_init(gen, cfg, dt)
     else:        # the reference's mla_dense MLP is gated whatever cfg.mlp_gated
         ffn = layers.mlp_init(gen, d, cfg.d_ff, dt, gated=cfg.mlp_gated or Block.MLA)
-    return Block(layers.norm_init(d, device=gen.device), attn,
-                 layers.norm_init(d, device=gen.device), ffn)
+    return Block(ln1=ln(), attn=attn, ln2=ln(), **{Block.FFN: ffn})
 
 
 def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
@@ -200,7 +266,8 @@ def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
     projections N(0, 1) / sqrt(d_in) (``wo`` / sqrt(H Dh) or, MLA, /
     sqrt(H dv), ``wd`` and ``w2`` / sqrt(f)), biases 0, norms 1; an MoE
     block's FFN as :func:`repro_torch.models.moe.moe_init` draws it, an MLA
-    block's attention as :func:`repro_torch.models.mla.mla_init`; with
+    block's attention as :func:`repro_torch.models.mla.mla_init`, a mamba
+    block's leaves as :func:`repro_torch.models.ssm.mamba_init`; with
     ``cfg.mtp_depth`` the MTP head (``mtp_proj`` (2d, d), two norms,
     ``mtp_depth`` "mla_moe" blocks).  ``gen`` is a ``torch.Generator`` (its
     device is the model's) or a seed for one on ``device`` (default the
@@ -220,7 +287,7 @@ def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
 
     tok_emb = emb()
     lm_head = None if cfg.tie_embeddings else emb()
-    stacks = {name: [_block_init(gen, cfg, Block) for _ in range(n)]
+    stacks = {name: _assemble(n, lambda _, B=Block: _block_init(gen, cfg, B))
               for name, Block, n in specs}
     top = {}
     if "mtp_blocks" in stacks:
@@ -248,9 +315,18 @@ def _ffn(lp, h, cfg: ModelConfig):
 
 def _block_apply(lp, x, cfg: ModelConfig, cache_out=None):
     """Full-sequence block: (x, aux), aux None for a block without MoE;
-    ``cache_out``, this layer's cache slices (k and v, or the MLA latent),
-    if given, receive the block's keys and values (its latents)."""
+    ``cache_out``, this layer's cache slices (k and v, the MLA latent, or a
+    mamba block's two conv windows and SSM state), if given, receive the
+    block's keys and values (its latents; the states a decode continues
+    from)."""
     h = layers.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    if lp.SSM:
+        if cache_out is None:
+            return x + ssm.mamba_apply(lp["ssm"], h, cfg), None
+        y, *states = ssm.mamba_prefill(lp["ssm"], h, cfg)
+        for dst, src in zip(cache_out, states):
+            dst.copy_(src)
+        return x + y, None
     if lp.MLA:
         a = mla.mla_apply(lp["attn"], h, cfg)
         new = () if cache_out is None else (mla.mla_prefill_cache(lp["attn"], h, cfg),)
@@ -276,7 +352,7 @@ def _remat(x, lp) -> bool:
 def _run_stack(blocks, x, cfg: ModelConfig, cache_entries=None):
     """x through one stack: (x, the stack's aux summed in layer order from
     0, as the reference's scan carries it).  ``cache_entries``: the
-    stack's cache tensors (L, B, S, ...), written at positions [0, S)."""
+    stack's cache tensors (L, B, ...), layer l's written at [l]."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, lp in enumerate(blocks):
         if cache_entries is None and cfg.remat and _remat(x, lp):
@@ -293,15 +369,15 @@ def _run_stack(blocks, x, cfg: ModelConfig, cache_entries=None):
 def forward(params: LM, batch, cfg: ModelConfig, *, cache=None):
     """Token inputs -> final hidden states (B, S, d), aux loss (float32;
     the MoE blocks' aux summed in layer order, a stack at a time, 0 for
-    the dense family).  ``cache`` (from :func:`init_cache`), if given,
+    the other families).  ``cache`` (from :func:`init_cache`), if given,
     receives every layer's keys and values (MLA: latents) at positions
-    [0, S).  With ``cfg.remat`` and gradients on (a train step), each
-    block's activations are recomputed in the backward pass."""
+    [0, S), and every mamba layer's conv windows and SSM state.  With
+    ``cfg.remat`` and gradients on (a train step), each block's
+    activations are recomputed in the backward pass."""
     x = _embed(params, batch["tokens"], cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for name, blocks in _run_stacks(params):
-        x, a = _run_stack(blocks, x, cfg,
-                          None if cache is None else [cache[k] for k in _CACHE[name]])
+    for blocks, entries in _segments(params, cache):
+        x, a = _run_stack(blocks, x, cfg, entries)
         aux = aux + a
     return layers.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
 
@@ -404,32 +480,52 @@ def loss_fn(params: LM, batch, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def _indexed_blocks(module) -> list:
+    """[(index, block)] of a stack in order: its one block (index None),
+    each block of a ``ModuleList`` (l), or of a list of groups ((g, l))."""
+    if isinstance(module, _Block):
+        return [(None, module)]
+    out = []
+    for i, m in enumerate(module):
+        if isinstance(m, nn.ModuleList):
+            out += [((i, l), b) for l, b in enumerate(m)]
+        else:
+            out.append((i, m))
+    return out
+
+
 def leaf_paths(params: LM) -> list:
     """``(name, path, layer)`` for every parameter, in the reference's tree
-    order (``jax.tree_util`` sorts dict keys, so the stacks and the leaves
-    outside them interleave by name: ``dense_blocks``, ``final_norm``,
-    ``lm_head``, ``moe_blocks``, ``mtp_blocks``, ``mtp_norm_e`` ...; a
-    block leaf is stacked over layers there, so its layers follow one
-    another here): ``name`` is the module's parameter name
-    (``blocks.3.attn.wq``), ``path`` the reference's key path (``("blocks",
-    "attn", "wq")``), ``layer`` the block's index in its stack (None
-    outside the stacks)."""
+    order (``jax.tree_util`` sorts dict keys, upper case first, so the
+    stacks and the leaves outside them interleave by name: ``dense_blocks``,
+    ``final_norm``, ``lm_head``, ``moe_blocks``, ``mtp_blocks``,
+    ``mtp_norm_e`` ...; or ``final_norm``, ``lm_head``, ``mamba_groups``,
+    ``mamba_tail``, ``shared_attn``, ``tok_emb``; a block leaf is stacked
+    over layers there, so its layers follow one another here, g-major for
+    the hybrid's groups): ``name`` is the module's parameter name
+    (``blocks.3.attn.wq``, ``mamba_groups.1.0.ssm.A_log``), ``path`` the
+    reference's key path (``("blocks", "attn", "wq")``), ``layer`` the
+    block's index in its stack: l, (g, l) in the hybrid's groups, None
+    outside the stacks and for its shared block, which is not stacked."""
     stacks = dict(params.named_children())
     out = []
     for top in sorted(list(stacks) + [n for n, _ in params.named_parameters(recurse=False)]):
         if top not in stacks:
             out.append((top, (top,), None))
             continue
-        blocks = stacks[top]
-        if not len(blocks):
+        blocks = _indexed_blocks(stacks[top])
+        if not blocks:
             continue
-        b0 = blocks[0]
-        for sub in sorted(("attn", "ln1", "ln2", b0.FFN)):
+        b0 = blocks[0][1]
+        subs = [n for n, _ in b0.named_parameters(recurse=False)] + [
+            n for n, _ in b0.named_children()]
+        for sub in sorted(subs):
             keys = sorted(b0[sub].keys()) if isinstance(b0[sub], nn.ParameterDict) else [None]
             for k in keys:
                 path = (top, sub) if k is None else (top, sub, k)
-                for l in range(len(blocks)):
-                    out.append((".".join((top, str(l)) + path[1:]), path, l))
+                for idx, _ in blocks:
+                    at = () if idx is None else tuple(map(str, np.atleast_1d(idx)))
+                    out.append((".".join((top,) + at + path[1:]), path, idx))
     return out
 
 
@@ -444,10 +540,12 @@ def leaves(params: LM) -> Dict[str, torch.Tensor]:
 
 def ref_ndims(params: LM) -> Dict[str, int]:
     """{name: the leaf's rank in the reference's tree}: a block leaf is
-    stacked (L, ...) there, one rank more than its layer's tensor here (so
-    AdamW decays a stacked ``q_ln``, not ``mtp_norm_h``)."""
+    stacked (L, ...) there, one rank more than its layer's tensor here, two
+    in the hybrid's (G, L, ...) groups, none in its shared block (so AdamW
+    decays a stacked ``q_ln`` or ``A_log``, not ``mtp_norm_h`` or the shared
+    block's ``ln1``)."""
     named = dict(params.named_parameters())
-    return {name: named[name].ndim + (layer is not None)
+    return {name: named[name].ndim + len(np.atleast_1d(layer) if layer is not None else ())
             for name, _, layer in leaf_paths(params)}
 
 
@@ -470,26 +568,53 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> dict:
     """Zeroed cache for a context capacity of S tokens, on ``device``
     (default the card): {"k", "v"} (L, B, S, K, Dh) for the dense and MoE
     families, {"latent_dense", "latent_moe"} (layers, B, S, kv_lora +
-    rope) for MLA."""
+    rope) for MLA, {"conv_x", "conv_BC", "ssm"} (L, B, K - 1, d_inner),
+    (L, B, K - 1, 2 g n), (L, B, h, p, n) for SSM (no S); for the hybrid
+    "attn_k" / "attn_v" (G, B, S, K, Dh), the three mamba entries (G, L,
+    B, ...) and, with a tail, "conv_x_tail", "conv_BC_tail", "ssm_tail"
+    (T, B, ...)."""
     specs = dict((name, n) for name, _, n in _stacks(cfg))
     dev = resolve_device(device)
     dt = _dtype(cfg)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
     if cfg.use_mla:
         shape = (B, S, cfg.kv_lora_rank + cfg.qk_rope_dim)
-        return {_CACHE[name][0]: torch.zeros((specs[name],) + shape, dtype=dt, device=dev)
+        return {_CACHE[name][0]: zeros(specs[name], *shape)
                 for name in ("dense_blocks", "moe_blocks")}
+    if cfg.family in ("ssm", "hybrid"):
+        Kc, gn2 = cfg.ssm_conv - 1, 2 * cfg.ssm_ngroups * cfg.ssm_state
+
+        def mamba(*lead):
+            return dict(zip(MAMBA_CACHE, (
+                zeros(*lead, B, Kc, cfg.d_inner), zeros(*lead, B, Kc, gn2),
+                zeros(*lead, B, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state))))
+
+        if cfg.family == "ssm":
+            return mamba(cfg.n_layers)
+        G = cfg.hybrid_groups
+        kv = (G, B, S, cfg.n_kv_heads, cfg.head_dim)
+        out = {"attn_k": zeros(*kv), "attn_v": zeros(*kv),
+               **mamba(G, cfg.hybrid_group_len)}
+        if cfg.hybrid_tail:
+            out.update({k + "_tail": v for k, v in mamba(cfg.hybrid_tail).items()})
+        return out
     shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    return {"k": zeros(*shape), "v": zeros(*shape)}
 
 
 def _block_decode(p, x, cfg: ModelConfig, cache_slices, pos: int):
     """One block's step, the reference's ``_dense_block_decode``,
-    ``_moe_block_decode`` and ``_mla_block_decode``: writes the layer's
-    cache slices (k and v, or the latent) at ``pos``; an MoE block's FFN
-    routes the step's B tokens (capacity for B tokens: 8 slots an expert at
-    a small batch), its aux dropped."""
+    ``_moe_block_decode``, ``_mla_block_decode`` and
+    ``_mamba_block_decode``: writes the layer's cache slices (k and v, or
+    the latent, at ``pos``; a mamba block's conv windows and SSM state) in
+    place; an MoE block's FFN routes the step's B tokens (capacity for B
+    tokens: 8 slots an expert at a small batch), its aux dropped."""
     h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if p.SSM:
+        return x + ssm.mamba_decode(p["ssm"], h, cfg, *cache_slices)[0]
     if p.MLA:
         a, _ = mla.mla_decode(p["attn"], h, cfg, cache_slices[0], pos)
     else:
@@ -501,12 +626,12 @@ def _block_decode(p, x, cfg: ModelConfig, cache_slices, pos: int):
 
 def decode_step(params: LM, batch, cache, cfg: ModelConfig):
     """One serve step: batch {'token': (B, 1) integer, 'pos': int}.  Writes
-    the cache at ``pos`` in place and returns (logits (B, vocab) float32,
-    cache)."""
+    the cache in place (at ``pos`` for attention; the hybrid's shared
+    block at group g into ``attn_k[g]`` / ``attn_v[g]``) and returns
+    (logits (B, vocab) float32, cache)."""
     pos = int(batch["pos"])
     x = _embed(params, batch["token"], cfg)
-    for name, blocks in _run_stacks(params):
-        entries = [cache[k] for k in _CACHE[name]]
+    for blocks, entries in _segments(params, cache):
         for l, lp in enumerate(blocks):
             x = _block_decode(lp, x, cfg, [c[l] for c in entries], pos)
     h = layers.rmsnorm(x, params.final_norm, cfg.norm_eps)
@@ -516,7 +641,12 @@ def decode_step(params: LM, batch, cache, cfg: ModelConfig):
 def prefill(params: LM, batch, cfg: ModelConfig, cache_len: Optional[int] = None):
     """Forward over the prompt, building the decode cache (capacity
     ``cache_len``, default the prompt's length; positions past the prompt
-    stay 0).  Returns (last-token logits (B, vocab) float32, cache)."""
+    stay 0; the SSM states hold no positions).  Returns (last-token logits
+    (B, vocab) float32, cache).  A mamba layer's conv window is the
+    prompt's last ``ssm_conv - 1`` raw projections, so an SSM or hybrid
+    prompt shorter than that raises ``ValueError``
+    (:func:`repro_torch.models.ssm.mamba_prefill`; the reference has no
+    cache for it either)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     cache = init_cache(cfg, B, cache_len or S, device=params.device)

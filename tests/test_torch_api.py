@@ -205,9 +205,7 @@ def _lm_model(arch):
 
 REFUSALS = {
     "make_production_mesh": (lambda tp: t_mesh.make_production_mesh(), "A8", "LM"),
-    # the LM half past its dense, MoE and MLA paths
-    "get_model(ssm)": (lambda tp: _lm_model("mamba2-130m"), "A8", "LM"),
-    "get_model(hybrid)": (lambda tp: _lm_model("zamba2-7b"), "A8", "LM"),
+    # the LM half past its dense, MoE, MLA, SSM and hybrid paths
     "get_model(audio)": (lambda tp: _lm_model("whisper-small"), "A8", "LM"),
     "get_model(vlm)": (lambda tp: _lm_model("llama-3.2-vision-11b"), "A8", "LM"),
     # the LM half's training path runs on one device; a mesh is parallel/'s
@@ -284,8 +282,8 @@ def _sharded_fleet_matches_unsharded():
         abs(h["rmse"] - g["rmse"]) < 1e-5 for h, g in zip(out["rounds"], flat["rounds"]))
 
 
-# the calls ROADMAP A2, A3, A4, A5, A6 and A8's training, MoE and MLA parts
-# refused until they were ported, and what each now returns
+# the calls ROADMAP A2, A3, A4, A5, A6 and A8's training, MoE, MLA and SSM
+# parts refused until they were ported, and what each now returns
 PORTED = {
     "GPBank.downdate": lambda tp: _bank()[0].downdate(
         [0], tt(gp_data(16, 2, 0)[0][None, :2]), tt(gp_data(16, 2, 0)[1][None, :2]))[1].tolist()
@@ -333,7 +331,33 @@ PORTED = {
     "get_model(moe)": lambda tp: _moe_model(),
     # ROADMAP A8, the LM half's MLA and MTP part
     "get_model(mla)": lambda tp: _mla_model(),
+    # ROADMAP A8, the LM half's SSM and hybrid part
+    "get_model(ssm)": lambda tp: _ssm_model("mamba2-130m"),
+    "get_model(hybrid)": lambda tp: _ssm_model("zamba2-7b"),
 }
+
+
+def _ssm_model(arch):
+    """mamba2's or zamba2's SMOKE model serves (its O(1) state cache; the
+    hybrid's shared block's K/V) and trains."""
+    from repro_torch import optim as t_optim
+    from repro_torch.models import lm as t_lm
+
+    model = _lm_model(arch)
+    params = model.init_params(0, device="cpu")
+    logits, cache = model.prefill(params, {"tokens": torch.zeros((2, 8), dtype=torch.int32)},
+                                  cache_len=9)
+    ocfg = t_optim.AdamWConfig()
+    before = params.final_norm.clone()
+    _, _, m = t_steps.make_train_step(model, ocfg)(
+        params, t_optim.init(t_lm.leaves(params), ocfg),
+        {"tokens": torch.ones((2, 8), dtype=torch.int32)})
+    want = {"conv_x", "conv_BC", "ssm"}
+    if model.cfg.family == "hybrid":
+        want |= {"attn_k", "attn_v", "conv_x_tail", "conv_BC_tail", "ssm_tail"}
+    return (model.cfg.family in ("ssm", "hybrid") and bool(torch.isfinite(logits).all())
+            and set(cache) == want and bool(torch.isfinite(m["loss"]))
+            and not torch.equal(before, params.final_norm))
 
 
 def _mla_model():
@@ -403,9 +427,9 @@ def _value_error(call) -> str:
 
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_formerly_refused_call_works(name, tmp_path):
-    """Each call that named ROADMAP A2, A3, A4, A5, A6 or A8's training, MoE
-    or MLA part in its refusal now runs (the window without a cold tier raises the JAX
-    package's ValueError)."""
+    """Each call that named ROADMAP A2, A3, A4, A5, A6 or A8's training, MoE,
+    MLA or SSM part in its refusal now runs (the window without a cold tier
+    raises the JAX package's ValueError)."""
     assert PORTED[name](tmp_path)
 
 

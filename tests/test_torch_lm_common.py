@@ -25,10 +25,13 @@ from repro_torch.models.convert import lm_params_from_jax  # noqa: E402
 DENSE = ("qwen2-1.5b", "qwen2.5-3b", "smollm-360m", "starcoder2-3b")
 MOE = ("olmoe-1b-7b",)
 MLA = ("deepseek-v3-671b",)
-BIASES = ("bq", "bk", "bv", "b1", "b2")
-NORMS = ("ln1", "ln2", "final_norm", "q_ln", "kv_ln", "mtp_norm_h", "mtp_norm_e")
+SSM = ("mamba2-130m", "zamba2-7b")
+BIASES = ("bq", "bk", "bv", "b1", "b2", "conv_x_b", "conv_BC_b")
+# norm weights and the mamba block's skip D: ones in the reference's init
+NORMS = ("ln1", "ln2", "final_norm", "q_ln", "kv_ln", "mtp_norm_h", "mtp_norm_e", "norm_w",
+         "D")
 # leaves the reference keeps in float32 in a bfloat16 model
-F32_LEAVES = NORMS + ("router",)
+F32_LEAVES = NORMS + ("router", "A_log", "dt_bias")
 
 
 def f32(a):
