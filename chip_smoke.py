@@ -260,6 +260,27 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    until it fits and the cut printed), a falling loss, beside the step's
    bound; (d) on both SMOKE configs, straight runs, a restart from an
    async checkpoint and the checkpoint itself, bitwise.  TF32 checked
+   off; no kernel of this repository runs there (launch counts checked);
+17. the LM half's audio and VLM families (ROADMAP A8; ``phase17()``):
+   whisper-small and llama-3.2-vision-11b at their published
+   configurations, bf16, random weights from a seed, the cross blocks'
+   gates set off zero (``GATES``): (a) the card against the port's CPU run
+   at full width with the depth cut (whisper at 2 encoder + 2 decoder
+   layers on the published 1,500 frames; the VLM at one group of 1 cross
+   + 4 self blocks on the published 1,601 image tokens): the prefill of a
+   64-token prompt and 8 decode steps on the CPU's greedy tokens, then the
+   loss and every gradient entry at 1 x 128; gates twice the CPU's own
+   bfloat16-vs-float32 distance; (b) both uncut through
+   ``launch.serve.generate`` at batch 4, prompt 64, 32 tokens (prefill,
+   decode, tok/s, peak above the weights, the cache's and the cross /
+   image K/V's bytes, a decode step's and a prefill's device time from a
+   CUDA graph and the idle share, beside the bounds), prefill(64) +
+   decode against prefill(65) at 0.15 in bfloat16; (c) both through
+   ``launch.train.build(smoke=False)`` and ``train_loop`` at 4 x 1,024
+   (whisper uncut, 20 steps; the VLM 8 steps, whole groups cut until the
+   reckoned memory fits, the cut printed), a falling loss, beside the
+   step's bound; (d) on both SMOKE configs, straight runs, a restart from
+   an async checkpoint and the checkpoint itself, bitwise.  TF32 checked
    off; no kernel of this repository runs there (launch counts checked).
 
 Prints the features kernel's times by shape on a ``[features]`` line, one
@@ -1583,6 +1604,230 @@ def graph_device_ms(fn, replays: int = 5) -> float:
     return statistics.median(times)
 
 
+def sync_s(fn):
+    """(``fn()``, the wall seconds it took between two synchronisations of
+    the card)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def nparams(params) -> int:
+    return sum(p.numel() for p in params.parameters())
+
+
+def card_vs_cpu(dev, compare, tag, cfg_a, cut: str, D, rng, *, prepare=None,
+                watch=lambda name: False) -> dict:
+    """(a) of phases 16 and 17 for one config cut in depth (full width, no
+    remat): weights drawn on the card at ``D["seed"]`` (``prepare(params)``
+    edits them in place) and copied to the CPU, in bfloat16 and float32;
+    the prefill of a ``cpu_batch`` x ``cpu_prompt`` prompt from ``rng``
+    (with the family's extras, drawn next) and ``cpu_steps`` decode steps
+    on the CPU's greedy tokens, then the loss and every gradient entry at
+    ``cpu_loss_batch`` x ``cpu_loss_seq``: the card's logits, loss and
+    gradients each within twice the CPU's own bfloat16-vs-float32
+    distance.  The gradient leaves that ``watch`` names must not be zero;
+    the final cache entries named ``*ssm*`` are reported card vs CPU and
+    CPU float32 vs bfloat16."""
+    import copy
+
+    import torch
+
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import get_model
+    from repro_torch.models import lm as tlm
+
+    t_a = time.perf_counter()
+    m_a, m_a32 = get_model(cfg_a), get_model(dataclasses.replace(cfg_a, dtype="float32"))
+    t0 = time.perf_counter()
+    card_p = m_a.init_params(D["seed"], device=dev)
+    if prepare is not None:
+        prepare(card_p)
+    cpu_p = copy.deepcopy(card_p).to("cpu")
+    cpu_p32 = copy.deepcopy(cpu_p).float()
+    init_s = time.perf_counter() - t0
+    n_a = nparams(cpu_p)
+    toks = torch.from_numpy(rng.integers(0, cfg_a.vocab, size=(D["cpu_batch"], D["cpu_prompt"])))
+    extras = tserve.draw_extras(cfg_a, D["cpu_batch"], rng)
+    cap = D["cpu_prompt"] + D["cpu_steps"]
+
+    def on(ex, d):
+        return {k: v.to(d) for k, v in ex.items()}
+
+    @torch.no_grad()
+    def run(model, params, feed):
+        """Prefill, then one decode step per token of ``feed`` (None: the
+        run's own greedy tokens): (logits per step, tokens fed, the final
+        SSM states)."""
+        d = params.device
+        logits, cache = model.prefill(params, {"tokens": toks.to(d), **on(extras, d)},
+                                      cache_len=cap)
+        out, fed = [logits.float().cpu()], []
+        for i in range(D["cpu_steps"]):
+            tok = (torch.argmax(logits, -1)[:, None] if feed is None else feed[i].to(d))
+            fed.append(tok.cpu())
+            logits, cache = model.decode_step(
+                params, {"token": tok, "pos": D["cpu_prompt"] + i}, cache)
+            out.append(logits.float().cpu())
+        return out, fed, {k: v.float().cpu() for k, v in cache.items() if "ssm" in k}
+
+    t0 = time.perf_counter()
+    ref, fed, st_cpu = run(m_a, cpu_p, None)
+    t1 = time.perf_counter()
+    ref32, _, st_32 = run(m_a32, cpu_p32, fed)
+    serve_cpu_s = (t1 - t0, time.perf_counter() - t1)
+    got, _, st_card = run(m_a, card_p, fed)
+    bf16_vs_f32 = max(float((a - b).abs().max()) for a, b in zip(ref, ref32))
+    serve_err = compare(
+        f"{cfg_a.arch_id} card vs CPU (cut to {cut}; prefill of {D['cpu_batch']} x "
+        f"{D['cpu_prompt']} + {D['cpu_steps']} decode steps on the CPU's greedy tokens, "
+        f"logits)", got, ref, rtol=0.0, atol=2.0 * bf16_vs_f32,
+        why=f"twice the CPU's bfloat16-vs-float32 distance, {bf16_vs_f32:.4e}")
+    states = {k: (float((st_card[k] - st_cpu[k]).abs().max()),
+                  float((st_32[k] - st_cpu[k]).abs().max())) for k in st_cpu}
+    del got, ref, ref32
+    ltoks = torch.from_numpy(rng.integers(0, cfg_a.vocab, size=(D["cpu_loss_batch"],
+                                                                 D["cpu_loss_seq"])))
+    lextras = tserve.draw_extras(cfg_a, D["cpu_loss_batch"], rng)
+
+    def loss_grads(model, params):
+        d = params.device
+        with tlm.trainable(params):
+            loss, _ = model.loss_fn(params, {"tokens": ltoks.to(d), **on(lextras, d)})
+            named = tlm.leaves(params)
+            grads = torch.autograd.grad(loss, list(named.values()))
+        sq = torch.zeros((), dtype=torch.float32, device=d)
+        for g in grads:
+            sq = sq + torch.sum(torch.square(g.float()))
+        return (float(loss.detach()), float(torch.sqrt(sq))), dict(zip(named, grads))
+
+    def grad_dist(ga, gb):
+        return max(float((ga[k].to(dev).float() - gb[k].to(dev).float()).abs().max())
+                   for k in ga)
+
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = loss_grads(m_a, cpu_p)
+    t1 = time.perf_counter()
+    l_32, g_32 = loss_grads(m_a32, cpu_p32)
+    loss_cpu_s = (t1 - t0, time.perf_counter() - t1)
+    grad_bf16_vs_f32 = grad_dist(g_cpu, g_32)
+    del g_32
+    l_card, g_card = loss_grads(m_a, card_p)
+    grad_err = grad_dist(g_card, g_cpu)
+    moved = {k: float(g_card[k].float().abs().max()) for k in g_card if watch(k)}
+    check(all(v > 0 for v in moved.values()), f"(a) {cfg_a.arch_id}: zero gradients: {moved}")
+    del g_card, g_cpu
+    check(all(math.isfinite(v) for v in l_card), "(a) the card's loss and grad norm finite")
+    loss_gap, loss_gap32 = abs(l_card[0] - l_cpu[0]), abs(l_cpu[0] - l_32[0])
+    check(loss_gap <= 2.0 * loss_gap32,
+          f"(a) {cfg_a.arch_id}: card loss {loss_gap:.3e} from the CPU's, over twice its "
+          f"bf16-vs-f32 {loss_gap32:.3e}")
+    ok = grad_err <= 2.0 * grad_bf16_vs_f32
+    print(f"[check] {cfg_a.arch_id} gradients card vs CPU (cut to {cut}, "
+          f"{D['cpu_loss_batch']} x {D['cpu_loss_seq']} tokens, every leaf): "
+          f"max_abs_err={grad_err:.3e} tol=rtol 0, atol {2.0 * grad_bf16_vs_f32:g} (twice the "
+          f"CPU's bfloat16-vs-float32 distance, {grad_bf16_vs_f32:.4e}); worst error/tolerance "
+          f"{grad_err / (2.0 * grad_bf16_vs_f32):.3f} -> {'ok' if ok else 'FAIL'}")
+    check(ok, f"(a) {cfg_a.arch_id}: the card's gradients disagree with the CPU's")
+    rec = {"cut": cut, "params": n_a, "serve_max_abs_err": serve_err,
+           "serve_cpu_bf16_vs_f32": bf16_vs_f32,
+           "loss": {"card": l_card, "cpu": l_cpu, "cpu_f32": l_32},
+           "loss_gap": (loss_gap, loss_gap32), "grad_max_abs_err": (grad_err, grad_bf16_vs_f32),
+           "grad_max_watched": moved, "ssm_state_card_vs_cpu_and_f32_vs_bf16": states,
+           "init_and_copies_s": init_s, "serve_cpu_bf16_s": serve_cpu_s[0],
+           "serve_cpu_f32_s": serve_cpu_s[1], "loss_cpu_bf16_s": loss_cpu_s[0],
+           "loss_cpu_f32_s": loss_cpu_s[1], "seconds": time.perf_counter() - t_a}
+    st = (f"; final SSM states card vs CPU / CPU f32 vs bf16 "
+          f"{ {k: tuple(round(x, 5) for x in v) for k, v in states.items()} }" if states else "")
+    print(f"[phase {tag}] (a) {cfg_a.arch_id} cut to {cut} ({n_a / 1e9:.3f}e9 parameters): "
+          f"loss card {l_card[0]:.6f} cpu {l_cpu[0]:.6f} cpu-f32 {l_32[0]:.6f}; grad norm "
+          f"card {l_card[1]:.6f} cpu {l_cpu[1]:.6f} cpu-f32 {l_32[1]:.6f}{st}; on the CPU "
+          f"({torch.get_num_threads()} threads) prefill + decode bf16 {serve_cpu_s[0]:.1f} s "
+          f"f32 {serve_cpu_s[1]:.1f} s, loss and gradients bf16 {loss_cpu_s[0]:.1f} s f32 "
+          f"{loss_cpu_s[1]:.1f} s; took {rec['seconds']:.1f} s")
+    del cpu_p, cpu_p32, card_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def restart_bitwise(tag, label: str, D, fresh, tops=None) -> dict:
+    """(d) of phases 14-17: with ``fresh()`` -> (params, AdamW state, step
+    function, batch function) on the card, two straight ``ckpt_steps``-step
+    runs through ``train_loop``; a run of ``ckpt_at`` steps writing a
+    checkpoint every ``ckpt_every`` (async, the last sync), its async one
+    restored into a fresh model against a straight ``ckpt_every``-step run;
+    a fresh model resumed from it to ``ckpt_steps`` against the straight
+    runs: each bitwise, or the phase fails.  ``tops``, where given, is the
+    checkpoint's set of top-level parameter names."""
+    import torch
+
+    from repro_torch import checkpoint as tckpt
+    from repro_torch.models import convert
+    from repro_torch.models import lm as tlm
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+
+    n, at, every = D["ckpt_steps"], D["ckpt_at"], D["ckpt_every"]
+
+    def host(params):
+        return [t.detach().float().cpu() for t in tlm.leaves(params).values()]
+
+    def loop(n_steps, ckpt_dir=None, every=every, run=None):
+        p, o, step, batch = run or fresh()
+        return train_loop(step, p, o, batch,
+                          TrainLoopConfig(steps=n_steps, ckpt_dir=ckpt_dir, ckpt_every=every,
+                                          log_every=1000, handle_signals=False),
+                          log_fn=lambda s: None)
+
+    t0 = time.perf_counter()
+    straight = [host(loop(n)[0]) for _ in range(2)]
+    straight_s = time.perf_counter() - t0
+    bitwise = all(torch.equal(a, b) for a, b in zip(*straight))
+    check(bitwise, f"(d) {label}: two straight runs on the card are not bitwise equal")
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        loop(at, td)                                  # async at step 3, sync at 5
+        first_s = time.perf_counter() - t0
+        check(tckpt.latest_step(td) == at, f"(d) {label}: the checkpoint of step {at}")
+        ckpt_bytes = sum(f.stat().st_size for f in Path(td).rglob("*") if f.is_file())
+        run3 = fresh()
+        loop(every, run=run3)
+        keys = convert.train_state_keys(run3[0])
+        check(tops is None or set(keys["params"]) == tops,
+              f"(d) {label}: the checkpoint's tree: {sorted(keys['params'])}")
+        _, tree3 = tckpt.restore(td, keys, step=every, device="cpu")
+        p_chk, o_chk = fresh()[:2]
+        convert.load_train_state(p_chk, o_chk, tree3)
+        async_bitwise = all(torch.equal(a, b) for a, b in zip(host(p_chk), host(run3[0])))
+        del tree3, run3, p_chk, o_chk
+        t0 = time.perf_counter()
+        resumed, _, rep_d = loop(n, td, every=n)      # writes step 10 only
+        resume_s = time.perf_counter() - t0
+        check(rep_d["final_step"] == n, f"(d) {label}: the resumed run reached step {n}")
+        got = host(resumed)
+        del resumed
+    resume_bitwise = all(torch.equal(a, b) for a, b in zip(got, straight[0]))
+    check(resume_bitwise, f"(d) {label}: the resumed run is not bitwise the straight run")
+    check(async_bitwise, f"(d) {label}: the async step-{every} checkpoint is not bitwise a "
+                         f"straight {every}-step run")
+    print(f"[phase {tag}] restart ({label}): two straight {n}-step runs bitwise {bitwise} "
+          f"({straight_s:.1f} s); {at} steps, a fresh model restored, {n - at} more = straight "
+          f"bitwise {resume_bitwise}; the async step-{every} checkpoint = a straight "
+          f"{every}-step run bitwise {async_bitwise}; the checkpoints of steps {every} and "
+          f"{at} {ckpt_bytes / 1e9:.3f} GB; {at} steps and both writes {first_s:.1f} s; the "
+          f"restore, {n - at} steps and the write of step {n} {resume_s:.1f} s")
+    del straight, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"straight_bitwise": bitwise, "resume_bitwise": resume_bitwise,
+            "async_ckpt_bitwise": async_bitwise, "ckpt_bytes_both": ckpt_bytes,
+            "straight_two_runs_s": straight_s, "first_half_s": first_s, "resume_s": resume_s}
+
+
 # phase 12, ROADMAP A8 (dense serving): qwen2-1.5b at full width
 # (repro_torch/configs/qwen2_1p5b.py: 28 layers, d_model 1,536, 12/2 heads
 # of 128, d_ff 8,960, vocab 151,936, bfloat16, tied embeddings), random
@@ -1623,13 +1868,6 @@ def phase12(dev, smi, compare) -> dict:
     print(f"[phase 12] {smi}: {cfg.arch_id}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab}, {cfg.dtype}")
-
-    def sync_s(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
 
     device_ms = graph_device_ms
 
@@ -2165,7 +2403,6 @@ def phase14(dev, smi, compare) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch import checkpoint as tckpt
     from repro_torch import optim
     from repro_torch.configs import ARCHS
     from repro_torch.data import TokenStream
@@ -2173,7 +2410,7 @@ def phase14(dev, smi, compare) -> dict:
     from repro_torch.launch import serve as tserve
     from repro_torch.launch import train as ttrain
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import convert, get_model
+    from repro_torch.models import get_model
     from repro_torch.models import lm as tlm
     from repro_torch.models import moe as tmoe
     from repro_torch.runtime import TrainLoopConfig, train_loop
@@ -2196,13 +2433,6 @@ def phase14(dev, smi, compare) -> dict:
           f"hold {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     ops.reset_launch_counts()
     E, k = cfg.n_experts, cfg.top_k
-
-    def sync_s(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
 
     # -- (a) the card against the port's CPU run, 2 layers at full width --------
     cfg2 = dataclasses.replace(cfg, n_layers=MOE["cpu_layers"])
@@ -2585,61 +2815,16 @@ def phase14(dev, smi, compare) -> dict:
     torch.cuda.empty_cache()
 
     # -- (d) checkpoint and restart on (a)'s cut ----------------------------------
-    n, at = MOE["ckpt_steps"], MOE["ckpt_at"]
-
     def fresh():
         p = m2.init_params(MOE["seed"], device=dev)
-        return p, optim.init(tlm.leaves(p), ocfg)
+        return (p, optim.init(tlm.leaves(p), ocfg), make_train_step(m2, ocfg),
+                lambda s: stream2.batch(s, device=dev))
 
-    def loop(params, opt, n_steps, ckpt_dir=None, every=MOE["ckpt_every"]):
-        return train_loop(make_train_step(m2, ocfg), params, opt,
-                          lambda s: stream2.batch(s, device=dev),
-                          TrainLoopConfig(steps=n_steps, ckpt_dir=ckpt_dir, ckpt_every=every,
-                                          log_every=1000, handle_signals=False),
-                          log_fn=lambda s: None)
-
-    t0 = time.perf_counter()
-    straight = [host(loop(*fresh(), n)[0]) for _ in range(2)]
-    straight_s = time.perf_counter() - t0
-    bitwise = all(torch.equal(a, b) for a, b in zip(*straight))
-    check(bitwise, "(d) two straight runs on the card are not bitwise equal")
-    with tempfile.TemporaryDirectory() as td:
-        t0 = time.perf_counter()
-        loop(*fresh(), at, td)                        # async at step 3, sync at 5
-        first_s = time.perf_counter() - t0
-        check(tckpt.latest_step(td) == at, "(d) the checkpoint of step 5")
-        ckpt_bytes = sum(f.stat().st_size for f in Path(td).rglob("*") if f.is_file())
-        p3, o3 = fresh()
-        steps(m2, p3, MOE["ckpt_every"], opt=o3)
-        _, tree3 = tckpt.restore(td, convert.train_state_keys(p3), step=MOE["ckpt_every"],
-                                 device="cpu")
-        p_chk, o_chk = fresh()
-        convert.load_train_state(p_chk, o_chk, tree3)
-        async_bitwise = all(torch.equal(a, b) for a, b in zip(host(p_chk), host(p3)))
-        del tree3, p3, o3, p_chk, o_chk
-        t0 = time.perf_counter()
-        resumed, resumed_o, rep_d = loop(*fresh(), n, td, every=n)   # writes step 10 only
-        resume_s = time.perf_counter() - t0
-        check(rep_d["final_step"] == n, "(d) the resumed run reached step 10")
-        got = host(resumed)
-        del resumed, resumed_o
-    resume_bitwise = all(torch.equal(a, b) for a, b in zip(got, straight[0]))
-    check(resume_bitwise, "(d) the resumed run is not bitwise the straight run")
-    check(async_bitwise, "(d) the async step-3 checkpoint is not bitwise a straight 3-step run")
-    report["restart"] = {"straight_bitwise": bitwise, "resume_bitwise": resume_bitwise,
-                         "async_ckpt_bitwise": async_bitwise, "ckpt_bytes_both": ckpt_bytes,
-                         "straight_two_runs_s": straight_s, "first_half_s": first_s,
-                         "resume_s": resume_s}
-    print(f"[phase 14] {smi}: restart ({L2} layers at full width, batch "
-          f"{MOE['cpu_train_batch']} x {MOE['cpu_train_seq']}): two straight {n}-step runs "
-          f"bitwise {bitwise} ({straight_s:.1f} s); {at} steps, a fresh model restored, "
-          f"{n - at} more = straight bitwise {resume_bitwise}; the async step-3 checkpoint = "
-          f"a straight 3-step run bitwise {async_bitwise}; the checkpoints of steps 3 and 5 "
-          f"{ckpt_bytes / 1e9:.2f} GB; 5 steps and both writes {first_s:.1f} s; the restore, "
-          f"5 steps and the write of step 10 {resume_s:.1f} s")
+    report["restart"] = restart_bitwise(
+        14, f"{L2} layers at full width, batch {MOE['cpu_train_batch']} x "
+            f"{MOE['cpu_train_seq']}", MOE, fresh)
     check(ops.launch_counts() == NO_LAUNCHES,
           f"the MoE path launched a kernel: {ops.launch_counts()}")
-    del straight, got
     gc.collect()
     torch.cuda.empty_cache()
     report["seconds"] = time.perf_counter() - t_phase
@@ -2708,14 +2893,13 @@ def phase15(dev, smi, compare) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch import checkpoint as tckpt
     from repro_torch import optim
     from repro_torch.configs import ARCHS
     from repro_torch.data import TokenStream
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as tserve
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import convert, get_model
+    from repro_torch.models import get_model
     from repro_torch.models import layers as tl
     from repro_torch.models import lm as tlm
     from repro_torch.models import mla as tmla
@@ -2750,16 +2934,6 @@ def phase15(dev, smi, compare) -> dict:
           f"{total / 1e9:.2f} GB, earlier phases hold "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
     ops.reset_launch_counts()
-
-    def sync_s(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    def nparams(params):
-        return sum(p.numel() for p in params.parameters())
 
     # -- (a) the card against the port's CPU run, 2 layers and 16 experts ------
     # without the per-block remat, which gives the same values bitwise
@@ -3256,61 +3430,21 @@ def phase15(dev, smi, compare) -> dict:
     # -- (d) checkpoint and restart on the SMOKE config ---------------------------
     cfg_d = ARCHS[D["arch"]].SMOKE
     m_d = get_model(cfg_d)
-    n, at = D["ckpt_steps"], D["ckpt_at"]
     stream_d = TokenStream(vocab=cfg_d.vocab, seq=D["ckpt_seq"], global_batch=D["ckpt_batch"],
                            seed=D["seed"])
 
     def fresh():
         p = m_d.init_params(D["seed"], device=dev)
-        return p, optim.init(tlm.leaves(p), ocfg)
+        return (p, optim.init(tlm.leaves(p), ocfg), make_train_step(m_d, ocfg),
+                lambda s: stream_d.batch(s, device=dev))
 
-    def host(params):
-        return [t.detach().float().cpu() for t in tlm.leaves(params).values()]
-
-    def loop(params, opt, n_steps, ckpt_dir=None, every=D["ckpt_every"]):
-        return train_loop(make_train_step(m_d, ocfg), params, opt,
-                          lambda s: stream_d.batch(s, device=dev),
-                          TrainLoopConfig(steps=n_steps, ckpt_dir=ckpt_dir, ckpt_every=every,
-                                          log_every=1000, handle_signals=False),
-                          log_fn=lambda s: None)
-
-    t0 = time.perf_counter()
-    straight = [host(loop(*fresh(), n)[0]) for _ in range(2)]
-    straight_s = time.perf_counter() - t0
-    bitwise = all(torch.equal(a, b) for a, b in zip(*straight))
-    check(bitwise, "(d) two straight runs on the card are not bitwise equal")
-    with tempfile.TemporaryDirectory() as td:
-        loop(*fresh(), at, td)                        # async at step 3, sync at 5
-        check(tckpt.latest_step(td) == at, "(d) the checkpoint of step 5")
-        p3, o3 = fresh()
-        loop(p3, o3, D["ckpt_every"])
-        keys = convert.train_state_keys(p3)
-        check(set(keys["params"]) == {"dense_blocks", "final_norm", "lm_head", "moe_blocks",
-                                      "mtp_blocks", "mtp_norm_e", "mtp_norm_h", "mtp_proj",
-                                      "tok_emb"},
-              f"(d) the checkpoint's tree: {sorted(keys['params'])}")
-        _, tree3 = tckpt.restore(td, keys, step=D["ckpt_every"], device="cpu")
-        p_chk, o_chk = fresh()
-        convert.load_train_state(p_chk, o_chk, tree3)
-        async_bitwise = all(torch.equal(a, b) for a, b in zip(host(p_chk), host(p3)))
-        del tree3, p3, o3, p_chk, o_chk
-        resumed, _, rep_d = loop(*fresh(), n, td, every=n)   # writes step 10 only
-        check(rep_d["final_step"] == n, "(d) the resumed run reached step 10")
-        got = host(resumed)
-    resume_bitwise = all(torch.equal(a, b) for a, b in zip(got, straight[0]))
-    check(resume_bitwise, "(d) the resumed run is not bitwise the straight run")
-    check(async_bitwise, "(d) the async step-3 checkpoint is not bitwise a straight 3-step run")
-    report["restart"] = {"config": cfg_d.arch_id, "straight_bitwise": bitwise,
-                         "resume_bitwise": resume_bitwise, "async_ckpt_bitwise": async_bitwise,
-                         "straight_two_runs_s": straight_s}
-    print(f"[phase 15] {smi}: restart ({cfg_d.arch_id}, batch {D['ckpt_batch']} x "
-          f"{D['ckpt_seq']}, the MTP leaves in the reference's tree): two straight {n}-step "
-          f"runs bitwise {bitwise}; {at} steps, a fresh model restored, {n - at} more = "
-          f"straight bitwise {resume_bitwise}; the async step-3 checkpoint = a straight 3-step "
-          f"run bitwise {async_bitwise}")
+    report["restart"] = {"config": cfg_d.arch_id, **restart_bitwise(
+        15, f"{cfg_d.arch_id}, batch {D['ckpt_batch']} x {D['ckpt_seq']}, the MTP leaves in "
+            f"the reference's tree", D, fresh,
+        tops={"dense_blocks", "final_norm", "lm_head", "moe_blocks", "mtp_blocks", "mtp_norm_e",
+              "mtp_norm_h", "mtp_proj", "tok_emb"})}
     check(ops.launch_counts() == NO_LAUNCHES,
           f"the MLA path launched a kernel: {ops.launch_counts()}")
-    del straight, got, resumed
     gc.collect()
     torch.cuda.empty_cache()
     report["seconds"] = time.perf_counter() - t_phase
@@ -3374,7 +3508,6 @@ def phase16(dev, smi, compare) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch import checkpoint as tckpt
     from repro_torch import optim
     from repro_torch.configs import ARCHS
     from repro_torch.data import TokenStream
@@ -3382,7 +3515,7 @@ def phase16(dev, smi, compare) -> dict:
     from repro_torch.launch import serve as tserve
     from repro_torch.launch import train as ttrain
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import convert, get_model
+    from repro_torch.models import get_model
     from repro_torch.models import lm as tlm
     from repro_torch.runtime import TrainLoopConfig, train_loop
 
@@ -3415,16 +3548,6 @@ def phase16(dev, smi, compare) -> dict:
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
     ops.reset_launch_counts()
 
-    def sync_s(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    def nparams(params):
-        return sum(p.numel() for p in params.parameters())
-
     def reads(params, cfg):
         """The parameter bytes a serving call reads: all of them but an
         untied embedding table (a gather of a few rows)."""
@@ -3442,115 +3565,13 @@ def phase16(dev, smi, compare) -> dict:
                 n_layers=D["cpu_groups"] * D["cpu_group_len"] + D["cpu_tail"], remat=False)}
     report["card_vs_cpu"] = {}
     rng = np.random.default_rng(D["seed"])
+    shared = ("shared_attn.ln1", "shared_attn.attn.wq", "shared_attn.mlp.wd")
     for key, cfg_a in cuts.items():
-        t_a = time.perf_counter()
-        m_a, m_a32 = get_model(cfg_a), get_model(dataclasses.replace(cfg_a, dtype="float32"))
-        t0 = time.perf_counter()
-        card_p = m_a.init_params(D["seed"], device=dev)
-        cpu_p = copy.deepcopy(card_p).to("cpu")
-        cpu_p32 = copy.deepcopy(cpu_p).float()
-        init_s = time.perf_counter() - t0
-        n_a = nparams(cpu_p)
-        toks = torch.from_numpy(rng.integers(0, cfg_a.vocab, size=(D["cpu_batch"],
-                                                                    D["cpu_prompt"])))
-        cap = D["cpu_prompt"] + D["cpu_steps"]
-
-        @torch.no_grad()
-        def run(model, params, feed):
-            """Prefill, then one decode step per token of ``feed`` (None: the
-            run's own greedy tokens): (logits per step, tokens fed, the final
-            SSM states)."""
-            d = params.device
-            logits, cache = model.prefill(params, {"tokens": toks.to(d)}, cache_len=cap)
-            out, fed = [logits.float().cpu()], []
-            for i in range(D["cpu_steps"]):
-                tok = (torch.argmax(logits, -1)[:, None] if feed is None else feed[i].to(d))
-                fed.append(tok.cpu())
-                logits, cache = model.decode_step(
-                    params, {"token": tok, "pos": D["cpu_prompt"] + i}, cache)
-                out.append(logits.float().cpu())
-            return out, fed, {k: v.float().cpu() for k, v in cache.items() if "ssm" in k}
-
-        t0 = time.perf_counter()
-        ref, fed, st_cpu = run(m_a, cpu_p, None)
-        t1 = time.perf_counter()
-        ref32, _, st_32 = run(m_a32, cpu_p32, fed)
-        serve_cpu_s = (t1 - t0, time.perf_counter() - t1)
-        got, _, st_card = run(m_a, card_p, fed)
-        bf16_vs_f32 = max(float((a - b).abs().max()) for a, b in zip(ref, ref32))
-        serve_err = compare(
-            f"{cfg_a.arch_id} card vs CPU (cut to {cfg_a.n_layers} mamba layers"
-            f"{', the shared block twice' if key == 'zamba' else ''}; prefill of "
-            f"{D['cpu_batch']} x {D['cpu_prompt']} + {D['cpu_steps']} decode steps on the "
-            f"CPU's greedy tokens, logits)", got, ref, rtol=0.0, atol=2.0 * bf16_vs_f32,
-            why=f"twice the CPU's bfloat16-vs-float32 distance, {bf16_vs_f32:.4e}")
-        states = {k: (float((st_card[k] - st_cpu[k]).abs().max()),
-                      float((st_32[k] - st_cpu[k]).abs().max())) for k in st_cpu}
-        del got, ref, ref32
-        ltoks = torch.from_numpy(rng.integers(0, cfg_a.vocab, size=(D["cpu_loss_batch"],
-                                                                     D["cpu_loss_seq"])))
-
-        def loss_grads(model, params):
-            with tlm.trainable(params):
-                loss, _ = model.loss_fn(params, {"tokens": ltoks.to(params.device)})
-                named = tlm.leaves(params)
-                grads = torch.autograd.grad(loss, list(named.values()))
-            sq = torch.zeros((), dtype=torch.float32, device=params.device)
-            for g in grads:
-                sq = sq + torch.sum(torch.square(g.float()))
-            return (float(loss.detach()), float(torch.sqrt(sq))), dict(zip(named, grads))
-
-        def grad_dist(ga, gb):
-            return max(float((ga[k].to(dev).float() - gb[k].to(dev).float()).abs().max())
-                       for k in ga)
-
-        t0 = time.perf_counter()
-        l_cpu, g_cpu = loss_grads(m_a, cpu_p)
-        t1 = time.perf_counter()
-        l_32, g_32 = loss_grads(m_a32, cpu_p32)
-        loss_cpu_s = (t1 - t0, time.perf_counter() - t1)
-        grad_bf16_vs_f32 = grad_dist(g_cpu, g_32)
-        del g_32
-        l_card, g_card = loss_grads(m_a, card_p)
-        grad_err = grad_dist(g_card, g_cpu)
-        shared = {}
-        if key == "zamba":         # the shared block's gradient: two invocations summed
-            shared = {k: float(g_card[k].float().abs().max()) for k in
-                      ("shared_attn.ln1", "shared_attn.attn.wq", "shared_attn.mlp.wd")}
-            check(all(v > 0 for v in shared.values()), f"(a) the shared block's gradients {shared}")
-        del g_card, g_cpu
-        check(all(math.isfinite(v) for v in l_card), "(a) the card's loss and grad norm finite")
-        loss_gap, loss_gap32 = abs(l_card[0] - l_cpu[0]), abs(l_cpu[0] - l_32[0])
-        check(loss_gap <= 2.0 * loss_gap32,
-              f"(a) {cfg_a.arch_id}: card loss {loss_gap:.3e} from the CPU's, over twice its "
-              f"bf16-vs-f32 {loss_gap32:.3e}")
-        ok = grad_err <= 2.0 * grad_bf16_vs_f32
-        print(f"[check] {cfg_a.arch_id} gradients card vs CPU (cut to {cfg_a.n_layers} mamba "
-              f"layers, 1 x {D['cpu_loss_seq']} tokens, every leaf): max_abs_err={grad_err:.3e} "
-              f"tol=rtol 0, atol {2.0 * grad_bf16_vs_f32:g} (twice the CPU's bfloat16-vs-float32 "
-              f"distance, {grad_bf16_vs_f32:.4e}); worst error/tolerance "
-              f"{grad_err / (2.0 * grad_bf16_vs_f32):.3f} -> {'ok' if ok else 'FAIL'}")
-        check(ok, f"(a) {cfg_a.arch_id}: the card's gradients disagree with the CPU's")
-        report["card_vs_cpu"][key] = {
-            "mamba_layers": cfg_a.n_layers, "params": n_a, "serve_max_abs_err": serve_err,
-            "serve_cpu_bf16_vs_f32": bf16_vs_f32, "ssm_state_card_vs_cpu_and_f32_vs_bf16": states,
-            "loss": {"card": l_card, "cpu": l_cpu, "cpu_f32": l_32},
-            "loss_gap": (loss_gap, loss_gap32), "grad_max_abs_err": (grad_err, grad_bf16_vs_f32),
-            "shared_grad_max": shared, "init_and_copies_s": init_s,
-            "serve_cpu_bf16_s": serve_cpu_s[0], "serve_cpu_f32_s": serve_cpu_s[1],
-            "loss_cpu_bf16_s": loss_cpu_s[0], "loss_cpu_f32_s": loss_cpu_s[1],
-            "seconds": time.perf_counter() - t_a}
-        print(f"[phase 16] (a) {cfg_a.arch_id} cut to {cfg_a.n_layers} mamba layers "
-              f"({n_a / 1e9:.3f}e9 parameters): loss card {l_card[0]:.6f} cpu {l_cpu[0]:.6f} "
-              f"cpu-f32 {l_32[0]:.6f}; grad norm card {l_card[1]:.6f} cpu {l_cpu[1]:.6f} cpu-f32 "
-              f"{l_32[1]:.6f}; final SSM states card vs CPU / CPU f32 vs bf16 "
-              f"{ {k: tuple(round(x, 5) for x in v) for k, v in states.items()} }; on the CPU "
-              f"({torch.get_num_threads()} threads) prefill + decode bf16 {serve_cpu_s[0]:.1f} s "
-              f"f32 {serve_cpu_s[1]:.1f} s, loss and gradients bf16 {loss_cpu_s[0]:.1f} s f32 "
-              f"{loss_cpu_s[1]:.1f} s; took {time.perf_counter() - t_a:.1f} s")
-        del cpu_p, cpu_p32, card_p
-        gc.collect()
-        torch.cuda.empty_cache()
+        # zamba2's shared block: its gradient is summed over its two invocations
+        report["card_vs_cpu"][key] = card_vs_cpu(
+            dev, compare, 16, cfg_a, f"{cfg_a.n_layers} mamba layers"
+            f"{', the shared block twice' if key == 'zamba' else ''}", D, rng,
+            watch=lambda n: key == "zamba" and n in shared)
 
     # -- (b) serving, both uncut ----------------------------------------------
     B_, P, G = D["batch"], D["prompt_len"], D["gen"]
@@ -3827,59 +3848,17 @@ def phase16(dev, smi, compare) -> dict:
     for key in ("mamba", "zamba"):
         cfg_d = ARCHS[D[key]].SMOKE
         m_d = get_model(cfg_d)
-        n, at = D["ckpt_steps"], D["ckpt_at"]
         stream_d = TokenStream(vocab=cfg_d.vocab, seq=D["ckpt_seq"],
                                global_batch=D["ckpt_batch"], seed=D["seed"])
 
         def fresh():
             p = m_d.init_params(D["seed"], device=dev)
-            return p, optim.init(tlm.leaves(p), ocfg)
+            return (p, optim.init(tlm.leaves(p), ocfg), make_train_step(m_d, ocfg),
+                    lambda s: stream_d.batch(s, device=dev))
 
-        def host(params):
-            return [t.detach().float().cpu() for t in tlm.leaves(params).values()]
-
-        def loop(params, opt, n_steps, ckpt_dir=None, every=D["ckpt_every"]):
-            return train_loop(make_train_step(m_d, ocfg), params, opt,
-                              lambda s: stream_d.batch(s, device=dev),
-                              TrainLoopConfig(steps=n_steps, ckpt_dir=ckpt_dir, ckpt_every=every,
-                                              log_every=1000, handle_signals=False),
-                              log_fn=lambda s: None)
-
-        t0 = time.perf_counter()
-        straight = [host(loop(*fresh(), n)[0]) for _ in range(2)]
-        straight_s = time.perf_counter() - t0
-        bitwise = all(torch.equal(a, b) for a, b in zip(*straight))
-        check(bitwise, f"(d) {cfg_d.arch_id}: two straight runs on the card are not bitwise equal")
-        with tempfile.TemporaryDirectory() as td:
-            loop(*fresh(), at, td)                        # async at step 3, sync at 5
-            check(tckpt.latest_step(td) == at, "(d) the checkpoint of step 5")
-            p3, o3 = fresh()
-            loop(p3, o3, D["ckpt_every"])
-            keys = convert.train_state_keys(p3)
-            check(set(keys["params"]) == tops[key],
-                  f"(d) the checkpoint's tree: {sorted(keys['params'])}")
-            _, tree3 = tckpt.restore(td, keys, step=D["ckpt_every"], device="cpu")
-            p_chk, o_chk = fresh()
-            convert.load_train_state(p_chk, o_chk, tree3)
-            async_bitwise = all(torch.equal(a, b) for a, b in zip(host(p_chk), host(p3)))
-            del tree3, p3, o3, p_chk, o_chk
-            resumed, _, rep_d = loop(*fresh(), n, td, every=n)   # writes step 10 only
-            check(rep_d["final_step"] == n, "(d) the resumed run reached step 10")
-            got = host(resumed)
-        resume_bitwise = all(torch.equal(a, b) for a, b in zip(got, straight[0]))
-        check(resume_bitwise, f"(d) {cfg_d.arch_id}: the resumed run is not bitwise the "
-                              f"straight run")
-        check(async_bitwise, f"(d) {cfg_d.arch_id}: the async step-3 checkpoint is not bitwise "
-                             f"a straight 3-step run")
-        report["restart"][key] = {"config": cfg_d.arch_id, "straight_bitwise": bitwise,
-                                  "resume_bitwise": resume_bitwise,
-                                  "async_ckpt_bitwise": async_bitwise,
-                                  "straight_two_runs_s": straight_s}
-        print(f"[phase 16] {smi}: restart ({cfg_d.arch_id}, batch {D['ckpt_batch']} x "
-              f"{D['ckpt_seq']}): two straight {n}-step runs bitwise {bitwise}; {at} steps, a "
-              f"fresh model restored, {n - at} more = straight bitwise {resume_bitwise}; the "
-              f"async step-3 checkpoint = a straight 3-step run bitwise {async_bitwise}")
-        del straight, got, resumed
+        report["restart"][key] = {"config": cfg_d.arch_id, **restart_bitwise(
+            16, f"{cfg_d.arch_id}, batch {D['ckpt_batch']} x {D['ckpt_seq']}", D, fresh,
+            tops=tops[key])}
     check(ops.launch_counts() == NO_LAUNCHES,
           f"the SSM and hybrid paths launched a kernel: {ops.launch_counts()}")
     gc.collect()
@@ -3887,6 +3866,444 @@ def phase16(dev, smi, compare) -> dict:
     report["seconds"] = time.perf_counter() - t_phase
     print("[phase 16] " + json.dumps(report))
     print(f"[phase 16] took {report['seconds']:.1f} s")
+    return report
+
+
+# phase 17, ROADMAP A8 (audio and VLM): whisper-small
+# (repro_torch/configs/whisper_small.py: 12 encoder + 12 decoder layers,
+# d_model 768, 12 heads, d_ff 3,072, vocab 51,865, 1,500 frames, tied
+# embeddings) and llama-3.2-vision-11b (llama32_vision_11b.py: 8 groups of
+# 1 gated cross block + 4 self blocks, d_model 4,096, 32/8 heads of 128,
+# d_ff 14,336, vocab 128,256, 1,601 image tokens, RoPE 500,000), bfloat16,
+# random weights from a seed, the cross blocks' gates set to GATES (zero at
+# init, where the image would change no logit); (c) trains the VLM at a
+# fixed 5 of its 8 groups (full width): its weights, gradients and AdamW
+# state at 8 B a parameter and a step's activations, reckoned, fit beside
+# the ~3.9 GB that the earlier phases of this script still hold, where 6
+# groups do not
+AV = dict(audio="whisper-small", vlm="llama-3.2-vision-11b", cpu_enc_layers=2,
+          cpu_dec_layers=2, cpu_groups=1, cpu_cross_every=4, cpu_batch=1, cpu_prompt=64,
+          cpu_steps=8, cpu_loss_batch=1, cpu_loss_seq=128, batch=4, prompt_len=64, gen=32,
+          train_batch=4, train_seq=1024, audio_train_steps=20, vlm_train_steps=8,
+          vlm_train_groups=5, ckpt_steps=10, ckpt_at=5, ckpt_every=3, ckpt_seq=64,
+          ckpt_batch=2, lr=3e-4, seed=0)
+GATES = (0.6, -0.45)     # gate_attn, gate_mlp: tanh 0.54 and -0.42
+
+
+def set_gates(params) -> None:
+    """Each cross block's gates to ``GATES`` (the model's own, in place)."""
+    import torch
+
+    with torch.no_grad():
+        for blk in getattr(params, "cross_blocks", []):
+            blk.gate_attn.fill_(GATES[0])
+            blk.gate_mlp.fill_(GATES[1])
+
+
+def phase17(dev, smi, compare) -> dict:
+    """The LM half's audio and VLM families on the card, whisper-small and
+    llama-3.2-vision-11b, the cross blocks' gates set to ``GATES``: (a) card
+    against the port's CPU run at full width with the depth cut (whisper at
+    2 encoder + 2 decoder layers on the published 1,500 frames; the VLM at
+    one group, 1 cross block + ``cpu_cross_every`` self blocks, on the
+    published 1,601 image tokens): the prefill of a 64-token prompt and 8
+    decode steps on the CPU's greedy tokens, then the loss and every
+    gradient entry at 1 x 128; gate twice the CPU's own bfloat16-vs-float32
+    distance; (b) both uncut through ``launch.serve.generate`` at batch 4,
+    prompt 64, 32 tokens: prefill first and warm, decode ms a token, a
+    decode step's and a prefill's device time from a CUDA graph and the
+    idle share, peak above the weights, the cache's bytes, beside the
+    bounds; prefill(64) + decode against prefill(65) at 0.15; (c) both
+    through ``train_loop`` at 4 x 1,024 (whisper uncut from
+    ``launch.train.build(smoke=False)``, 20 steps; the VLM 8 steps at
+    ``vlm_train_groups`` of its 8 groups, from the pieces ``build``
+    assembles, the phase failing if its reckoned memory does not fit), warm
+    step ms, tokens/s, peak above the model and AdamW state, a falling
+    loss, beside the step's bound; (d) on
+    both SMOKE configs, two straight runs, a restart from an async
+    checkpoint and the checkpoint itself, bitwise.  TF32 checked off; no
+    kernel of this repository runs there (launch counts 0)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.models import lm as tlm
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+
+    t_phase = time.perf_counter()
+    D = AV
+    fa, fv = ARCHS[D["audio"]].CONFIG, ARCHS[D["vlm"]].CONFIG
+    check(fa.family == "audio" and fa.n_layers == 12 and fa.n_enc_layers == 12
+          and fa.d_model == 768 and fa.n_heads == 12 and fa.d_ff == 3072 and fa.vocab == 51865
+          and fa.enc_len == 1500 and fa.tie_embeddings and not fa.mlp_gated
+          and fa.dtype == "bfloat16" and fa.remat,
+          "phase 17 runs whisper-small's published configuration")
+    check(fv.family == "vlm" and fv.n_layers == 40 and fv.cross_every == 4
+          and fv.d_model == 4096 and fv.n_heads == 32 and fv.n_kv_heads == 8
+          and fv.head_dim == 128 and fv.d_ff == 14336 and fv.vocab == 128256
+          and fv.n_img_tokens == 1601 and fv.rope_theta == 500000.0
+          and not fv.tie_embeddings and fv.dtype == "bfloat16" and fv.remat,
+          "phase 17 runs llama-3.2-vision-11b's published configuration")
+    prec = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    check(prec == ("highest", False), f"TF32 is on for float32 products: {prec}")
+    free, total = torch.cuda.mem_get_info()
+    report = {"card": smi, "free_bytes_at_start": free, "gates": GATES,
+              "held_at_start": torch.cuda.memory_allocated(), "matmul_precision": prec[0]}
+    print(f"[phase 17] {smi}: {fa.arch_id} ({fa.n_enc_layers} encoder + {fa.n_layers} decoder "
+          f"layers, d_model {fa.d_model}, {fa.n_heads} heads, d_ff {fa.d_ff}, vocab {fa.vocab}, "
+          f"{fa.enc_len} frames) and {fv.arch_id} ({tlm.vlm_groups(fv)} groups of 1 cross + "
+          f"{fv.cross_every} self blocks, d_model {fv.d_model}, {fv.n_heads}/{fv.n_kv_heads} "
+          f"heads, d_ff {fv.d_ff}, vocab {fv.vocab}, {fv.n_img_tokens} image tokens), "
+          f"{fv.dtype}, gates tanh({GATES[0]}), tanh({GATES[1]}); the card's free memory "
+          f"{free / 1e9:.2f} GB of {total / 1e9:.2f} GB, earlier phases hold "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    ops.reset_launch_counts()
+
+    def on(extras, d, dtype=None):
+        return {k: v.to(device=d, dtype=dtype or v.dtype) for k, v in extras.items()}
+
+    # -- (a) the card against the port's CPU run, the depth cut -------------
+    # without the per-block remat, which gives the same values bitwise
+    # (tests/test_torch_lm_audio.py, tests/test_torch_lm_vlm.py: remat on
+    # and off agree) and spares the CPU's gradients a second forward pass
+    G1 = D["cpu_groups"]
+    cuts = {"audio": dataclasses.replace(fa, n_enc_layers=D["cpu_enc_layers"],
+                                         n_layers=D["cpu_dec_layers"], remat=False),
+            "vlm": dataclasses.replace(fv, cross_every=D["cpu_cross_every"],
+                                       n_layers=G1 * (D["cpu_cross_every"] + 1), remat=False)}
+    report["card_vs_cpu"] = {}
+    rng = np.random.default_rng(D["seed"])
+    watched = {"audio": lambda n: n in ("enc_blocks.0.ln1.b", "dec_blocks.1.cross_attn.wk",
+                                        "dec_pos", "ln_enc.w"),
+               "vlm": lambda n: ".gate_" in n or n.startswith("cross_blocks.0.attn.wk")}
+    for key, cfg_a in cuts.items():
+        cut = (f"{cfg_a.n_enc_layers} encoder + {cfg_a.n_layers} decoder layers, "
+               f"{cfg_a.enc_len} frames" if key == "audio" else
+               f"{G1} group of 1 cross + {cfg_a.cross_every} self blocks, "
+               f"{cfg_a.n_img_tokens} image tokens")
+        report["card_vs_cpu"][key] = card_vs_cpu(dev, compare, 17, cfg_a, cut, D, rng,
+                                                 prepare=set_gates, watch=watched[key])
+
+    # -- (b) serving, both uncut ----------------------------------------------
+    B_, P, G = D["batch"], D["prompt_len"], D["gen"]
+    cap = P + G
+    report["serve"] = {}
+    for key, cfg in (("audio", fa), ("vlm", fv)):
+        model = get_model(cfg)
+        base = torch.cuda.memory_allocated()
+        params, init_s = sync_s(lambda: model.init_params(D["seed"], device=dev))
+        set_gates(params)
+        held = ssm_bytes(params.parameters())
+        n_b = nparams(params)
+        trng = np.random.default_rng(D["seed"])
+        toks = torch.from_numpy(trng.integers(0, cfg.vocab, size=(B_, P + 1))).to(dev)
+        extras = on(tserve.draw_extras(cfg, B_, trng), dev)
+        torch.cuda.reset_peak_memory_stats()
+        served = tserve.generate(model, params, toks[:, :P], G, extras=extras)
+        serve_peak = torch.cuda.max_memory_allocated() - base
+        check(served["generated"].shape == (B_, G)
+              and ((served["generated"] >= 0) & (served["generated"] < cfg.vocab)).all(),
+              f"generate's tokens ({cfg.arch_id})")
+        batch_p = {"tokens": toks[:, :P], **extras}
+        with torch.no_grad():
+            pre_s = []
+            for _ in range(3):
+                (logits, cache), s_ = sync_s(lambda: model.prefill(params, batch_p,
+                                                                   cache_len=cap))
+                pre_s.append(s_)
+            cache_bytes = ssm_bytes(cache.values())
+            tok = torch.argmax(logits, -1)[:, None]
+            dec_s = []
+            for i in range(G):
+                (logits_d, cache), s_ = sync_s(lambda: model.decode_step(
+                    params, {"token": tok, "pos": P + i}, cache))
+                dec_s.append(s_)
+                tok = torch.argmax(logits_d, -1)[:, None]
+        check(bool(torch.isfinite(logits).all() and torch.isfinite(logits_d).all()),
+              f"non-finite {cfg.arch_id} logits")
+        warm_prefill_ms = statistics.median(pre_s[1:]) * 1e3
+        warm_decode_ms = statistics.median(dec_s) * 1e3
+        dec_dev = graph_device_ms(lambda: model.decode_step(
+            params, {"token": tok, "pos": P}, cache))
+        pre_dev = graph_device_ms(lambda: model.prefill(params, batch_p, cache_len=cap))
+        # a decode step reads the weights it uses (whisper's decoder and
+        # tied head, not its encoder; every VLM weight but the untied
+        # embedding table, a gather of a few rows; neither family's cross
+        # K/V projections, whose products the prefill cached) and the
+        # cache: the valid self K/V and the whole cross / image K/V
+        named = dict(params.named_parameters())
+        cross_kv = (".cross_attn.wk", ".cross_attn.wv") if key == "audio" else (
+            ".attn.wk", ".attn.wv")
+        if key == "audio":
+            read = sum(p.numel() * p.element_size() for n, p in named.items()
+                       if n.startswith(("dec_blocks.", "tok_emb", "ln_dec"))
+                       and not n.endswith(cross_kv))
+            ctx_keys, self_keys = ("cross_k", "cross_v"), ("self_k", "self_v")
+        else:
+            read = sum(p.numel() * p.element_size() for n, p in named.items()
+                       if n != "tok_emb" and not (n.startswith("cross_blocks.")
+                                                  and n.endswith(cross_kv)))
+            ctx_keys, self_keys = ("img_k", "img_v"), ("k", "v")
+        ctx_bytes = ssm_bytes(cache[k] for k in ctx_keys)
+        self_valid = ssm_bytes(cache[k] for k in self_keys) * (P + G // 2) / cap
+        bytes_decode = read + ctx_bytes + self_valid
+        bound_decode_ms = bytes_decode / PEAK_BYTES * 1e3
+        # a prefill's bf16 products (2 x weights x tokens: the encoder's on
+        # the frames, the cross K/V projections on the frames or the image,
+        # the rest on the prompt, the head on the last position) and its
+        # float32 attention products (QK^T and PV)
+        T_, d, KD = B_ * P, cfg.d_model, cfg.n_kv_heads * cfg.head_dim
+        H, Dh = cfg.n_heads, cfg.head_dim
+        head = cfg.vocab * d
+        if key == "audio":
+            E = cfg.enc_len
+            enc = sum(p.numel() for n, p in named.items() if n.startswith("enc_blocks."))
+            dec = sum(p.numel() for n, p in named.items() if n.startswith("dec_blocks."))
+            kv_ctx = cfg.n_layers * 2 * d * KD
+            f_bf16 = 2.0 * (enc * B_ * E + (dec - kv_ctx) * T_ + kv_ctx * B_ * E + head * B_)
+            f_f32 = 4.0 * B_ * H * Dh * (cfg.n_enc_layers * E * E
+                                         + cfg.n_layers * (P * P + P * E))
+        else:
+            E, Gv = cfg.n_img_tokens, tlm.vlm_groups(cfg)
+            body = n_b - 2 * head
+            kv_ctx = Gv * 2 * d * KD
+            f_bf16 = 2.0 * ((body - kv_ctx) * T_ + kv_ctx * B_ * E + head * B_)
+            f_f32 = 4.0 * B_ * H * Dh * (Gv * cfg.cross_every * P * P + Gv * P * E)
+        bound_prefill_ops_ms = (f_bf16 / PEAK_BF16 + f_f32 / PEAK_F32) * 1e3
+        bound_prefill_bytes_ms = (held + cache_bytes) / PEAK_BYTES * 1e3
+        bound_prefill_ms = max(bound_prefill_ops_ms, bound_prefill_bytes_ms)
+        del cache, logits, logits_d
+        torch.cuda.empty_cache()
+
+        # tests/test_arch_smoke.py:65-83 at full size: neither family has an
+        # SSD, so it is held in bfloat16; a float32 witness only if it fails
+        def consistency(m, p):
+            with torch.no_grad():
+                _, c1 = m.prefill(p, {"tokens": toks[:, :P], **extras}, cache_len=P + 1)
+                ld, _ = m.decode_step(p, {"token": toks[:, P:], "pos": P}, c1)
+                del c1
+                lf, _ = m.prefill(p, {"tokens": toks, **extras})
+            return ld.float().cpu(), lf.float().cpu()
+
+        ld, lf = consistency(model, params)
+        gap = float((ld - lf).abs().max())
+        consist_f32 = None
+        if gap > 0.15:
+            p32 = copy.deepcopy(params).float()
+            ld32, lf32 = consistency(get_model(dataclasses.replace(cfg, dtype="float32")), p32)
+            del p32
+            torch.cuda.empty_cache()
+            print(f"[phase 17] {cfg.arch_id}: prefill({P}) + decode vs prefill({P + 1}) in "
+                  f"bfloat16 {gap:.4f} > 0.15; its float32 witness follows")
+            consist_f32 = compare(f"{cfg.arch_id} prefill({P}) + decode_step vs prefill({P + 1}) "
+                                  f"(the weights in float32)", [ld32], [lf32], rtol=0.15,
+                                  atol=0.15, why="tests/test_arch_smoke.py:81-83 gate")
+        else:
+            compare(f"{cfg.arch_id} prefill({P}) + decode_step vs prefill({P + 1}) (last-token "
+                    f"logits, batch {B_}, bfloat16)", [ld], [lf], rtol=0.15, atol=0.15,
+                    why="tests/test_arch_smoke.py:81-83 gate")
+        rec = {"params": n_b, "init_s": init_s, "batch": B_, "prompt_len": P, "gen": G,
+               "prefill_first_ms": served["prefill_s"] * 1e3, "prefill_warm_ms": warm_prefill_ms,
+               "decode_ms_per_token": served["decode_s_per_token"] * 1e3,
+               "decode_warm_median_ms": warm_decode_ms, "tokens_per_s": served["tokens_per_s"],
+               "decode_device_ms": dec_dev, "prefill_device_ms": pre_dev,
+               "decode_idle_share": 1.0 - dec_dev / warm_decode_ms,
+               "decode_idle_share_generate": 1.0 - dec_dev / (served["decode_s_per_token"] * 1e3),
+               "prefill_idle_share": 1.0 - pre_dev / warm_prefill_ms,
+               "param_bytes_held": held, "peak_bytes": serve_peak,
+               "peak_above_weights": serve_peak - held, "held_before_bytes": base,
+               "cache_bytes": cache_bytes, "cross_cache_bytes": ctx_bytes,
+               "decode_bytes": bytes_decode, "bound_decode_ms": bound_decode_ms,
+               "prefill_bf16_tflop": f_bf16 / 1e12, "prefill_f32_tflop": f_f32 / 1e12,
+               "bound_prefill_ops_ms": bound_prefill_ops_ms,
+               "bound_prefill_bytes_ms": bound_prefill_bytes_ms,
+               "bound_prefill_ms": bound_prefill_ms, "consistency_bf16": gap,
+               "consistency_f32": consist_f32}
+        print(f"[phase 17] {smi}: generate({cfg.arch_id}, {n_b / 1e9:.3f}e9 parameters, batch "
+              f"{B_}, prompt {P}, gen {G}): prefill {served['prefill_s'] * 1e3:.2f} ms first, "
+              f"{warm_prefill_ms:.2f} ms warm (bound {bound_prefill_ms:.3f} ms: operations "
+              f"{bound_prefill_ops_ms:.3f} ms, {f_bf16 / 1e12:.3f} TFLOP bf16 + "
+              f"{f_f32 / 1e12:.4f} TFLOP float32; bytes {bound_prefill_bytes_ms:.3f} ms); decode "
+              f"{served['decode_s_per_token'] * 1e3:.3f} ms a token in generate, "
+              f"{warm_decode_ms:.3f} ms warm median a step (bound {bound_decode_ms:.3f} ms: "
+              f"{bytes_decode / 1e9:.3f} GB at 3.35 TB/s); {served['tokens_per_s']:.1f} tok/s; "
+              f"generate's peak {serve_peak / 1e9:.3f} GB, {(serve_peak - held) / 1e9:.3f} GB "
+              f"above the {held / 1e9:.3f} GB of weights ({base / 1e9:.3f} GB held before); the "
+              f"cache {cache_bytes / 1e6:.2f} MB ({ctx_bytes / 1e6:.2f} MB of "
+              f"{'/'.join(ctx_keys)}); device time from a CUDA graph: decode step "
+              f"{dec_dev:.3f} ms (idle {100 * (1 - dec_dev / warm_decode_ms):.1f}% of the step "
+              f"timed alone, {100 * (1 - dec_dev / (served['decode_s_per_token'] * 1e3)):.1f}% "
+              f"of generate's), prefill {pre_dev:.3f} ms (idle "
+              f"{100 * (1 - pre_dev / warm_prefill_ms):.1f}%); prefill({P}) + decode vs "
+              f"prefill({P + 1}) {gap:.4f} in bfloat16")
+        report["serve"][key] = rec
+        del params, named, model, toks, extras, batch_p
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (c) training --------------------------------------------------------
+    S_, bt = D["train_seq"], D["train_batch"]
+    T_ = bt * S_
+    report["train"] = {}
+    for key, cfg, steps in (("audio", fa, D["audio_train_steps"]),
+                            ("vlm", fv, D["vlm_train_steps"])):
+        d, H, Dh, KD = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+
+        def act_bytes(c):
+            """What a step holds beside the state, reckoned: each block's
+            input (per-block remat), one block's recomputed float32 scores,
+            probabilities and their gradient (the whisper encoder's E x E,
+            the VLM's S x S or S x 1,601 in a cross block), a loss chunk's
+            float32 logits, their softmax and gradient, and AdamW's float32
+            temporaries of the largest leaf."""
+            if key == "audio":
+                n_blk, tok = c.n_enc_layers + c.n_layers, bt * max(c.enc_len, S_)
+                att = 3 * bt * H * max(c.enc_len ** 2, S_ * (S_ + c.enc_len)) * 4
+            else:
+                n_blk, tok = c.n_layers, T_
+                att = 3 * bt * H * S_ * max(S_, c.n_img_tokens) * 4
+            return (n_blk * tok * d * 2 + att + 3 * bt * min(c.logits_chunk, S_) * c.vocab * 4
+                    + 3 * 4 * c.vocab * d)
+
+        free = torch.cuda.mem_get_info()[0]
+        cfg_c = cfg if key == "audio" else dataclasses.replace(
+            cfg, n_layers=D["vlm_train_groups"] * (cfg.cross_every + 1))
+        n_c = cfg_c.param_count()
+        state_bytes = 8 * n_c            # bf16 weights, gradients, AdamW's m and v
+        check(state_bytes + act_bytes(cfg_c) <= free - 2e9,
+              f"(c) {cfg_c.arch_id} at {cfg_c.n_layers} layers: the step's reckoned "
+              f"{(state_bytes + act_bytes(cfg_c)) / 1e9:.2f} GB and 2 GB to spare do not fit in "
+              f"{free / 1e9:.2f} GB")
+        cut = ("" if cfg_c == cfg else
+               f" (cut to {tlm.vlm_groups(cfg_c)} of {tlm.vlm_groups(cfg)} groups)")
+        print(f"[phase 17] (c) {cfg.arch_id}: {n_c / 1e9:.3f}e9 parameters{cut}; memory "
+              f"reckoned: weights, gradients and AdamW state {state_bytes / 1e9:.2f} GB + a "
+              f"step's activations {act_bytes(cfg_c) / 1e9:.2f} GB at batch {bt} x {S_}; free "
+              f"{free / 1e9:.2f} GB")
+        head = cfg_c.vocab * d
+        if key == "audio":
+            E = cfg_c.enc_len
+            dec_kv = cfg_c.n_layers * 2 * d * KD
+            enc = cfg_c.n_enc_layers * (4 * d * d + 2 * d * cfg_c.d_ff)
+            body = n_c - head - cfg_c.max_seq * d - enc - dec_kv
+            fwd_bf16 = 2.0 * (body * T_ + head * T_ + (enc + dec_kv) * bt * E)
+            fwd_f32 = 4.0 * bt * H * Dh * (cfg_c.n_enc_layers * E * E
+                                           + cfg_c.n_layers * (S_ * S_ + S_ * E))
+        else:
+            E, Gc = cfg_c.n_img_tokens, tlm.vlm_groups(cfg_c)
+            kv_ctx = Gc * 2 * d * KD
+            body = n_c - 2 * head - kv_ctx
+            fwd_bf16 = 2.0 * (body * T_ + head * T_ + kv_ctx * bt * E)
+            fwd_f32 = 4.0 * bt * H * Dh * (Gc * cfg_c.cross_every * S_ * S_ + Gc * S_ * E)
+        # forward, backward (twice the forward), the blocks' remat forward:
+        # 4 forwards of each
+        bf16_flop, f32_flop = 4.0 * fwd_bf16, 4.0 * fwd_f32
+        bound_ms = (bf16_flop / PEAK_BF16 + f32_flop / PEAK_F32) * 1e3
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if key == "audio":
+            cfg_b, model, params, opt_state, step_fn, stream, extras, _ = ttrain.build(
+                cfg.arch_id, smoke=False, batch=bt, seq=S_, lr=D["lr"], seed=D["seed"],
+                device=dev)
+            check(cfg_b == cfg, f"build's config is {cfg.arch_id}'s")
+        else:        # the pieces launch/train.py's build assembles, at the cut depth
+            model = get_model(cfg_c)
+            params = model.init_params(D["seed"], device=dev)
+            ocfg = optim.AdamWConfig(lr=optim.warmup_cosine(D["lr"], 20, 10_000))
+            opt_state = optim.init(tlm.leaves(params), ocfg)
+            step_fn = make_train_step(model, ocfg)
+            stream = TokenStream(vocab=cfg_c.vocab, seq=S_, global_batch=bt, seed=D["seed"])
+            name, shape = tserve.extra_input(cfg_c, bt)
+            x = np.random.default_rng(D["seed"]).standard_normal(shape).astype(np.float32)
+            extras = {name: torch.from_numpy(x).to(dev).to(torch.bfloat16)}
+            del x
+        set_gates(params)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(set(extras) == ({"frames"} if key == "audio" else {"img"}),
+              f"(c) build's extras {sorted(extras)}")
+        held_c = torch.cuda.memory_allocated() - base
+        names = list(tlm.leaves(params))
+        watch_names = ([n for n in names if n.startswith("enc_blocks.0.")][:2]
+                       + ["dec_pos", "ln_enc.b"] if key == "audio" else
+                       ["cross_blocks.0.gate_attn", "cross_blocks.0.attn.wk",
+                        "self_groups.0.0.attn.wq", "final_norm"])
+        watch = {k_: tlm.leaves(params)[k_].detach().clone() for k_ in watch_names}
+        torch.cuda.reset_peak_memory_stats()
+        params, opt_state, rep = train_loop(
+            step_fn, params, opt_state, lambda s: stream.batch(s, extras, device=dev),
+            TrainLoopConfig(steps=steps, ckpt_dir=None, log_every=1, handle_signals=False),
+            log_fn=lambda s: None)
+        peak = torch.cuda.max_memory_allocated() - base
+        hist = rep["history"]
+        check(len(hist) == steps and rep["final_step"] == steps,
+              f"(c) {cfg.arch_id} ran every step")
+        check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist),
+              f"(c) {cfg.arch_id}: every loss and grad norm finite")
+        check(hist[-1]["loss"] < hist[0]["loss"],
+              f"(c) {cfg.arch_id}: the loss did not fall ({hist[0]['loss']} -> {hist[-1]['loss']})")
+        moved = {k_: not torch.equal(v, tlm.leaves(params)[k_]) for k_, v in watch.items()}
+        check(all(moved.values()), f"(c) {cfg.arch_id}: the parameters moved: {moved}")
+        secs = [h["sec_per_step"] for h in hist]
+        warm = statistics.median(secs[1:])
+        report["train"][key] = {
+            "params": n_c, "layers": cfg_c.n_layers, "cut": cfg_c != cfg, "batch": bt,
+            "seq": S_, "steps": steps, "build_s": build_s, "first_step_s": secs[0],
+            "warm_median_s": warm, "warm_min_s": min(secs[1:]), "warm_max_s": max(secs[1:]),
+            "tokens_per_s": T_ / warm, "losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist], "stragglers": rep["stragglers"],
+            "held_bytes": held_c, "peak_bytes": peak, "peak_above_state": peak - held_c,
+            "held_before_bytes": base, "reckoned_state_bytes": state_bytes,
+            "reckoned_act_bytes": act_bytes(cfg_c), "bf16_tflop": bf16_flop / 1e12,
+            "f32_tflop": f32_flop / 1e12, "bound_ms": bound_ms}
+        src = "build(smoke=False)" if key == "audio" else "build's pieces"
+        print(f"[phase 17] {smi}: train({cfg.arch_id}, {src}{cut}, batch {bt} x "
+              f"{S_}, {steps} steps): first step {secs[0]:.3f} s, warm median {warm * 1e3:.1f} "
+              f"ms ({min(secs[1:]) * 1e3:.1f}-{max(secs[1:]) * 1e3:.1f}), {T_ / warm:.0f} "
+              f"tokens/s; loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; bound "
+              f"{bound_ms:.1f} ms ({bf16_flop / 1e12:.2f} TFLOP bf16 at 989 TFLOP/s + "
+              f"{f32_flop / 1e12:.3f} TFLOP float32 at 67 TFLOP/s, remat included); model and "
+              f"AdamW state held {held_c / 1e9:.3f} GB, the steps' peak "
+              f"{(peak - held_c) / 1e9:.3f} GB above it ({base / 1e9:.3f} GB held before); built "
+              f"in {build_s:.1f} s")
+        del params, opt_state, step_fn, model, watch, stream, extras
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (d) checkpoint and restart on the SMOKE configs -------------------------
+    report["restart"] = {}
+    tops = {"audio": {"dec_blocks", "dec_pos", "enc_blocks", "ln_dec", "ln_enc", "tok_emb"},
+            "vlm": {"cross_blocks", "final_norm", "lm_head", "self_groups", "tok_emb"}}
+    for key in ("audio", "vlm"):
+        def fresh():
+            """(params, AdamW state, step, batches) as ``launch.train.build``
+            gives them on the SMOKE config, the gates set."""
+            _, _, p, o, step, stream, ex, _ = ttrain.build(
+                D[key], smoke=True, batch=D["ckpt_batch"], seq=D["ckpt_seq"], lr=D["lr"],
+                seed=D["seed"], device=dev)
+            set_gates(p)
+            return p, o, step, lambda s: stream.batch(s, ex, device=dev)
+
+        cfg_d = ARCHS[D[key]].SMOKE
+        report["restart"][key] = {"config": cfg_d.arch_id, **restart_bitwise(
+            17, f"{cfg_d.arch_id}, batch {D['ckpt_batch']} x {D['ckpt_seq']}", D, fresh,
+            tops=tops[key])}
+    check(ops.launch_counts() == NO_LAUNCHES,
+          f"the audio and VLM paths launched a kernel: {ops.launch_counts()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print("[phase 17] " + json.dumps(report))
+    print(f"[phase 17] took {report['seconds']:.1f} s")
     return report
 
 
@@ -5565,6 +5982,9 @@ def main() -> int:
 
     # -- 16. the LM half's SSM and hybrid families (ROADMAP A8) -----------------
     phase16(dev, smi, compare)
+
+    # -- 17. the LM half's audio and VLM families (ROADMAP A8) ------------------
+    phase17(dev, smi, compare)
 
     # -- results --------------------------------------------------------------
     kernels = []

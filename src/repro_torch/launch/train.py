@@ -7,18 +7,21 @@ Runs on the card unless ``--device cpu``; weights are random, drawn from
 ``--seed``; batches come from the synthetic ``TokenStream``; the schedule
 is ``warmup_cosine(lr, 20, 10_000)``.  The train step updates the model
 and the AdamW state in place; checkpoints are the reference's tree, so a
-run started by either package resumes in the other.  The dense family,
-the MoE family (olmoe-1b-7b, its load-balance aux loss added to the loss),
-the MLA family (deepseek-v3, its MTP term in the loss), the SSM family
-(mamba2-130m) and the hybrid family (zamba2-7b: the shared block's
-gradient summed over its invocations) are ported
-(``repro_torch.models.get_model`` refuses the others, and with them the
-audio and VLM extras); a production mesh (``mesh=``) comes with A8's
-``parallel/`` part.
+run started by either package resumes in the other.  Every family is
+ported: dense, MoE (olmoe-1b-7b, its load-balance aux loss added to the
+loss), MLA (deepseek-v3, its MTP term in the loss), SSM (mamba2-130m),
+hybrid (zamba2-7b: the shared block's gradient summed over its
+invocations), VLM (llama-3.2-vision-11b) and audio (whisper-small); the
+latter two train on fixed ``extras`` (image embeddings or frames, drawn
+once from ``--seed``, bfloat16), merged into every batch.  A production
+mesh (``mesh=``) comes with A8's ``parallel/`` part.
 """
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
+import torch
 
 from .. import optim
 from ..configs import ARCHS
@@ -27,6 +30,7 @@ from ..data import TokenStream
 from ..device import resolve_device
 from ..models import get_model, lm
 from ..runtime import TrainLoopConfig, train_loop
+from .serve import extra_input
 from .steps import make_train_step
 
 __all__ = ["build", "main"]
@@ -36,7 +40,11 @@ def build(arch_id: str, *, smoke: bool, batch: int, seq: int, lr: float,
           mesh=None, seed: int = 0, device=None):
     """(cfg, model, params, opt_state, step_fn, stream, extras, shardings)
     as the reference's ``build`` returns them, on ``device`` (default the
-    card); ``shardings`` is ``(None, None)``."""
+    card); ``shardings`` is ``(None, None)``.  ``extras`` holds the audio
+    family's ``frames`` (batch, enc_len, d) or the VLM's ``img`` (batch,
+    n_img_tokens, d): standard normal from numpy's generator at ``seed``,
+    cast to float32 then bfloat16, as the reference draws them; {} for the
+    other families."""
     if mesh is not None:
         _not_ported("launch.train.build(mesh=...)", "LM half's parallel/ part (ROADMAP A8)")
     dev = resolve_device(device)
@@ -48,7 +56,12 @@ def build(arch_id: str, *, smoke: bool, batch: int, seq: int, lr: float,
     opt_state = optim.init(lm.leaves(params), ocfg)
     step_fn = make_train_step(model, ocfg)
     stream = TokenStream(vocab=cfg.vocab, seq=seq, global_batch=batch, seed=seed)
-    return cfg, model, params, opt_state, step_fn, stream, {}, (None, None)
+    extras = {}
+    spec = extra_input(cfg, batch)
+    if spec is not None:
+        x = np.random.default_rng(seed).standard_normal(spec[1]).astype(np.float32)
+        extras[spec[0]] = torch.from_numpy(x).to(dev).to(torch.bfloat16)
+    return cfg, model, params, opt_state, step_fn, stream, extras, (None, None)
 
 
 def main(argv=None):

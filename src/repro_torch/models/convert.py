@@ -6,10 +6,13 @@ blocks stacked (L, ...) over layers in each stack, ``blocks`` for the
 dense, MoE and SSM families, ``dense_blocks``, ``moe_blocks`` and
 ``mtp_blocks`` beside ``mtp_proj``, ``mtp_norm_h`` and ``mtp_norm_e`` for
 MLA, ``mamba_groups`` stacked (G, L, ...) and ``mamba_tail`` beside the
-unstacked ``shared_attn`` for the hybrid; bfloat16 leaves as
-``ml_dtypes`` arrays) and returns the port's
-:class:`~repro_torch.models.lm.LM` holding the same values, so that the
-tests hand both packages one set of weights.
+unstacked ``shared_attn`` for the hybrid, ``cross_blocks`` (G, ...) and
+``self_groups`` (G, cross_every, ...) for the VLM, ``enc_blocks`` and
+``dec_blocks`` beside ``dec_pos``, ``ln_enc`` and ``ln_dec`` for the
+audio family; bfloat16 leaves as ``ml_dtypes`` arrays) and returns the
+port's :class:`~repro_torch.models.lm.LM` (for the audio family its
+:class:`~repro_torch.models.encdec.EncDec`) holding the same values, so
+that the tests hand both packages one set of weights.
 
 The reverse: ``lm_params_to_jax`` gives the port's parameters as the
 reference's nested numpy tree (float32 arrays holding the values exactly,
@@ -31,6 +34,7 @@ import torch
 
 from ..device import resolve_device
 from .config import ModelConfig
+from . import encdec
 from .lm import LM, MTP_TOP, _assemble, _dtype, _stacks, leaf_paths
 
 __all__ = ["lm_params_from_jax", "lm_params_to_jax", "train_state_to_jax",
@@ -43,9 +47,11 @@ def _t(a, dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
-# leaves the reference keeps in float32 whatever the model dtype
+# leaves the reference keeps in float32 whatever the model dtype (``w`` and
+# ``b``: a LayerNorm's)
 F32_LEAVES = ("ln1", "ln2", "final_norm", "router", "q_ln", "kv_ln", "mtp_norm_h",
-              "mtp_norm_e", "A_log", "D", "dt_bias", "norm_w")
+              "mtp_norm_e", "A_log", "D", "dt_bias", "norm_w", "gate_attn", "gate_mlp",
+              "w", "b")
 
 
 def lm_params_from_jax(tree: Mapping, cfg: ModelConfig, device=None) -> LM:
@@ -56,9 +62,11 @@ def lm_params_from_jax(tree: Mapping, cfg: ModelConfig, device=None) -> LM:
     ``A_log``, ``D`` and ``dt_bias`` in float32, as the reference keeps
     them; each stack of the tree (``blocks``; ``dense_blocks``,
     ``moe_blocks`` and ``mtp_blocks``; ``mamba_groups`` (G, L, ...) and
-    ``mamba_tail``) unstacked into its layers, the hybrid's
-    ``shared_attn`` taken as it is, an MoE block's expert leaves still
-    stacked (E, ...) over experts."""
+    ``mamba_tail``; ``cross_blocks`` and ``self_groups`` (G, cross_every,
+    ...); ``enc_blocks`` and ``dec_blocks``) unstacked into its layers, the
+    hybrid's ``shared_attn`` taken as it is, an MoE block's expert leaves
+    still stacked (E, ...) over experts; a cross block's gates and every
+    LayerNorm's ``w`` and ``b`` float32."""
     device = resolve_device(device)
     dt = _dtype(cfg)
 
@@ -72,8 +80,16 @@ def lm_params_from_jax(tree: Mapping, cfg: ModelConfig, device=None) -> LM:
                               if isinstance(node, Mapping) else leaf(sub, at(node)))
                         for sub, node in bl.items()})
 
+    audio = cfg.family == "audio"
     stacks = {name: _assemble(n, lambda idx, B=Block, bl=tree[name]: block(B, bl, idx))
-              for name, Block, n in _stacks(cfg)}
+              for name, Block, n in (encdec._stacks if audio else _stacks)(cfg)}
+    if audio:
+        def ln(name):
+            return {k: leaf(k, v) for k, v in tree[name].items()}
+
+        return encdec.EncDec(cfg, leaf("tok_emb", tree["tok_emb"]),
+                             leaf("dec_pos", tree["dec_pos"]), ln("ln_enc"), ln("ln_dec"),
+                             stacks)
     top = {k: leaf(k, tree[k]) for k in MTP_TOP if k in tree}
     head = None if cfg.tie_embeddings else leaf("lm_head", tree["lm_head"])
     return LM(cfg, leaf("tok_emb", tree["tok_emb"]), leaf("final_norm", tree["final_norm"]),
@@ -118,7 +134,8 @@ def _host(ts, lead, of=lambda t: t) -> torch.Tensor:
 
 
 def lm_params_to_jax(params: LM) -> dict:
-    """The reference's ``init_params`` tree of the port's parameters: numpy
+    """The reference's ``init_params`` tree of the port's parameters (an
+    :class:`LM` or an :class:`~repro_torch.models.encdec.EncDec`): numpy
     float32 arrays (every bfloat16 value exactly), the blocks stacked
     (L, ...) or (G, L, ...); cast each leaf to the reference's dtype to feed
     JAX."""

@@ -1,7 +1,8 @@
-"""Decoder-only LM assembly, the dense, MoE, MLA, SSM and hybrid families:
-the port of those parts of ``repro/models/lm.py`` (``_dtype``, the
-"dense", "moe", "mla_dense", "mla_moe" and "mamba" blocks' init and
-apply, ``init_params``, ``forward`` with its per-block remat and its aux
+"""Decoder-only LM assembly, every family but audio (that is
+:mod:`repro_torch.models.encdec`): dense, MoE, MLA, SSM, hybrid and VLM,
+the port of ``repro/models/lm.py`` (``_dtype``, the "dense", "moe",
+"mla_dense", "mla_moe", "mamba" and "cross" blocks' init and apply,
+``init_params``, ``forward`` with its per-block remat and its aux
 loss, ``_unembed``, ``xent_chunked``, ``loss_fn`` with the MLA family's
 MTP term, ``init_cache``, ``_dense_block_decode``, ``_moe_block_decode``,
 ``_mla_block_decode`` and ``_mamba_block_decode`` (one ``_block_decode``
@@ -17,7 +18,14 @@ beside ``mtp_proj``, ``mtp_norm_h`` and ``mtp_norm_e`` for the MLA family
 (deepseek-v3); for the hybrid family (zamba2) ``mamba_groups``, G
 ``ModuleList``\\ s of L :class:`MambaBlock`\\ s (stacked (G, L, ...) in the
 reference), ``shared_attn``, **one** :class:`DenseBlock` that runs before
-every group, and ``mamba_tail``.  Every parameter keeps the reference's
+every group, and ``mamba_tail``; for the VLM family (llama-3.2-vision)
+``cross_blocks``, G :class:`CrossBlock`\\ s, and ``self_groups``, G
+``ModuleList``\\ s of ``cross_every`` :class:`DenseBlock`\\ s (stacked (G,
+...) and (G, cross_every, ...) in the reference), G = ``n_layers //
+(cross_every + 1)``: each group runs its cross block, which attends to the
+batch's image embeddings ``img`` (B, T, d) without RoPE and scales its
+attention and MLP by tanh of its float32 gates, then its self blocks
+(RoPE at ``rope_theta``).  Every parameter keeps the reference's
 leaf name (``tok_emb``, ``final_norm``, ``lm_head``, ``blocks.<l>.attn.wq``,
 ``moe_blocks.<l>.moe.wg``, ``mamba_groups.<g>.<l>.ssm.A_log``,
 ``shared_attn.mlp.wg`` ...) and its orientation, and a block reads like
@@ -35,7 +43,9 @@ rope); for SSM ``{"conv_x", "conv_BC", "ssm"}`` of shapes (L, B, K - 1,
 d_inner), (L, B, K - 1, 2 g n) and (L, B, h, p, n), whatever the context;
 for the hybrid ``attn_k`` / ``attn_v`` (G, B, S, K, Dh), one a shared
 invocation, the three mamba entries (G, L, ...) and their ``*_tail``
-twins (T, ...).
+twins (T, ...); for the VLM ``k`` / ``v`` (G, cross_every, B, S, K, Dh)
+and ``img_k`` / ``img_v`` (G, B, T, K, Dh), the image's written once by
+the prefill.
 
 ``prefill`` fuses the reference's two passes (``forward`` for the logits,
 then a second pass over the blocks for the cache): the second pass
@@ -56,8 +66,9 @@ block too, and :func:`xent_chunked` recomputes each chunk's logits in the
 backward pass, so neither pass holds a (B, S, V) tensor.  :func:`leaves`
 names the trainable tensors in the reference's tree order.
 
-The audio and VLM families come with A8's later parts
-(``repro_torch.models`` refuses them).
+The reference's sequence-parallel pins (``hints.constrain``,
+``cfg.sp_residual``) are the identity on one device; they come back with
+A8's ``parallel/`` part.
 """
 from __future__ import annotations
 
@@ -74,7 +85,7 @@ from . import layers, mla, moe, ssm
 from .config import ModelConfig
 
 __all__ = ["LM", "DenseBlock", "MoEBlock", "MLADenseBlock", "MLAMoEBlock", "MambaBlock",
-           "init_params",
+           "CrossBlock", "vlm_groups", "init_params",
            "forward", "prefill", "decode_step", "init_cache", "xent_chunked", "loss_fn",
            "leaves", "leaf_paths", "ref_ndims", "trainable"]
 
@@ -98,6 +109,7 @@ class _Block(nn.Module):
     FFN = ""
     MLA = False
     SSM = False
+    CROSS = False
 
     def __init__(self, **leaves):
         super().__init__()
@@ -147,12 +159,23 @@ class MambaBlock(_Block):
     SSM = True
 
 
+class CrossBlock(_Block):
+    """One "cross" block of the VLM family: ln1, attn (cross-attention to
+    the image embeddings: no bias, no RoPE), gate_attn (1,) float32, ln2,
+    mlp (gated), gate_mlp (1,) float32; each branch scaled by tanh of its
+    gate, both 0 at init."""
+
+    FFN = "mlp"
+    CROSS = True
+
+
 def _stacks(cfg: ModelConfig) -> list:
     """(name, block class, layers) of each stack of ``cfg``'s family, in the
     reference's init order: ``layers`` is a count, (G, L) for the hybrid's
-    groups, or None for its one shared block; ``mtp_blocks`` (run by the
-    loss only) last.  Raises for the families that ``lm`` does not
-    build."""
+    groups and the VLM's ``self_groups`` (G, cross_every), or None for the
+    hybrid's one shared block; ``mtp_blocks`` (run by the loss only) last.
+    Raises for the families that ``lm`` does not build (the audio family is
+    :mod:`repro_torch.models.encdec`'s)."""
     if cfg.family == "dense":
         return [("blocks", DenseBlock, cfg.n_layers)]
     if cfg.family == "moe" and not cfg.use_mla:
@@ -172,8 +195,17 @@ def _stacks(cfg: ModelConfig) -> list:
         if cfg.hybrid_tail:
             out.append(("mamba_tail", MambaBlock, cfg.hybrid_tail))
         return out
-    raise ValueError(f"lm builds the dense, moe (with or without MLA), ssm and hybrid "
+    if cfg.family == "vlm":
+        G = vlm_groups(cfg)
+        return [("cross_blocks", CrossBlock, G), ("self_groups", DenseBlock, (G, cfg.cross_every))]
+    raise ValueError(f"lm builds the dense, moe (with or without MLA), ssm, hybrid and vlm "
                      f"families, not {cfg.arch_id!r} (family {cfg.family!r})")
+
+
+def vlm_groups(cfg: ModelConfig) -> int:
+    """The VLM family's G groups, each one cross block then ``cross_every``
+    self blocks (the reference's ``n_layers // (cross_every + 1)``)."""
+    return cfg.n_layers // (cfg.cross_every + 1)
 
 
 def _assemble(layers_, make) -> nn.Module:
@@ -223,13 +255,21 @@ class LM(nn.Module):
 
 def _segments(params: LM, cache=None) -> list:
     """(blocks, cache entries) of each run of blocks ``forward`` takes, in
-    order: a stack, or for the hybrid family the shared block before each
-    group, the group, then the tail.  The entries are the cache tensors
-    whose leading axis follows the run's blocks (None without a cache):
-    the shared block's run at group g reads ``attn_k[g:g + 1]``."""
+    order: a stack; for the hybrid family the shared block before each
+    group, the group, then the tail; for the VLM family each group's cross
+    block, then its self blocks.  The entries are the cache tensors whose
+    leading axis follows the run's blocks (None without a cache): the
+    shared block's run at group g reads ``attn_k[g:g + 1]``, the cross
+    block's ``img_k[g:g + 1]``."""
     def entries(keys, at=slice(None)):
         return None if cache is None else [cache[k][at] for k in keys]
 
+    if hasattr(params, "cross_blocks"):
+        out = []
+        for g, (cross, group) in enumerate(zip(params.cross_blocks, params.self_groups)):
+            out.append(([cross], entries(("img_k", "img_v"), slice(g, g + 1))))
+            out.append((group, entries(("k", "v"), g)))
+        return out
     if hasattr(params, "shared_attn"):
         out = []
         for g, group in enumerate(params.mamba_groups):
@@ -251,6 +291,13 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, Block) -> _Block:
 
     if Block.SSM:
         return Block(ln1=ln(), ssm=ssm.mamba_init(gen, cfg, dt))
+    if Block.CROSS:
+        def gate():
+            return torch.zeros((1,), dtype=torch.float32, device=gen.device)
+
+        return Block(ln1=ln(), attn=layers.attn_init(gen, cfg, dt, cross=True),
+                     gate_attn=gate(), ln2=ln(), mlp=layers.mlp_init(gen, d, cfg.d_ff, dt),
+                     gate_mlp=gate())
     attn = mla.mla_init(gen, cfg, dt) if Block.MLA else layers.attn_init(gen, cfg, dt)
     if Block.FFN == "moe":
         ffn = moe.moe_init(gen, cfg, dt)
@@ -267,7 +314,8 @@ def init_params(gen: Union[int, torch.Generator], cfg: ModelConfig,
     sqrt(H dv), ``wd`` and ``w2`` / sqrt(f)), biases 0, norms 1; an MoE
     block's FFN as :func:`repro_torch.models.moe.moe_init` draws it, an MLA
     block's attention as :func:`repro_torch.models.mla.mla_init`, a mamba
-    block's leaves as :func:`repro_torch.models.ssm.mamba_init`; with
+    block's leaves as :func:`repro_torch.models.ssm.mamba_init`, a cross
+    block's gates 0 (float32, shape (1,)) and its MLP gated; with
     ``cfg.mtp_depth`` the MTP head (``mtp_proj`` (2d, d), two norms,
     ``mtp_depth`` "mla_moe" blocks).  ``gen`` is a ``torch.Generator`` (its
     device is the model's) or a seed for one on ``device`` (default the
@@ -313,12 +361,17 @@ def _ffn(lp, h, cfg: ModelConfig):
     return layers.mlp_apply(lp["mlp"], h, cfg.act), None
 
 
-def _block_apply(lp, x, cfg: ModelConfig, cache_out=None):
+def _gated(gate, y):
+    # tanh of the float32 gate, cast to the activation dtype, then the product
+    return torch.tanh(gate).to(y.dtype) * y
+
+
+def _block_apply(lp, x, cfg: ModelConfig, cache_out=None, img=None):
     """Full-sequence block: (x, aux), aux None for a block without MoE;
     ``cache_out``, this layer's cache slices (k and v, the MLA latent, or a
-    mamba block's two conv windows and SSM state), if given, receive the
-    block's keys and values (its latents; the states a decode continues
-    from)."""
+    mamba block's two conv windows and SSM state; a cross block's image K/V),
+    if given, receive the block's keys and values (its latents; the states a
+    decode continues from).  A cross block attends to ``img`` (B, T, d)."""
     h = layers.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if lp.SSM:
         if cache_out is None:
@@ -330,12 +383,18 @@ def _block_apply(lp, x, cfg: ModelConfig, cache_out=None):
     if lp.MLA:
         a = mla.mla_apply(lp["attn"], h, cfg)
         new = () if cache_out is None else (mla.mla_prefill_cache(lp["attn"], h, cfg),)
+    elif lp.CROSS:
+        a, new = layers.attn_apply(lp["attn"], h, cfg, kv_x=img, causal=False,
+                                   use_rope=False, return_kv=True)
     else:
         a, new = layers.attn_apply(lp["attn"], h, cfg, return_kv=True)
     if cache_out is not None:
-        S = x.shape[1]
         for dst, src in zip(cache_out, new):
-            dst[:, :S] = src.to(dst.dtype)
+            dst[:, :src.shape[1]] = src.to(dst.dtype)
+    if lp.CROSS:
+        x = x + _gated(lp["gate_attn"], a)
+        h = layers.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        return x + _gated(lp["gate_mlp"], layers.mlp_apply(lp["mlp"], h, cfg.act)), None
     x = x + a
     y, aux = _ffn(lp, layers.rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
     return x + y, aux
@@ -346,38 +405,52 @@ def _embed(params: LM, tokens, cfg: ModelConfig):
 
 
 def _remat(x, lp) -> bool:
-    return torch.is_grad_enabled() and (x.requires_grad or lp.ln1.requires_grad)
+    return torch.is_grad_enabled() and (x.requires_grad
+                                        or next(lp.parameters()).requires_grad)
 
 
-def _run_stack(blocks, x, cfg: ModelConfig, cache_entries=None):
+def _run_stack(blocks, x, cfg: ModelConfig, cache_entries=None, img=None):
     """x through one stack: (x, the stack's aux summed in layer order from
     0, as the reference's scan carries it).  ``cache_entries``: the
-    stack's cache tensors (L, B, ...), layer l's written at [l]."""
+    stack's cache tensors (L, B, ...), layer l's written at [l]; ``img``:
+    what a cross block attends to."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kw = {} if img is None else {"img": img}
     for l, lp in enumerate(blocks):
         if cache_entries is None and cfg.remat and _remat(x, lp):
-            x, a = checkpoint(_block_apply, lp, x, cfg, use_reentrant=False,
-                              preserve_rng_state=False)
+            x, a = checkpoint(_block_apply, lp, x, cfg, None, use_reentrant=False,
+                              preserve_rng_state=False, **kw)
         else:
             x, a = _block_apply(lp, x, cfg,
-                                None if cache_entries is None else [c[l] for c in cache_entries])
+                                None if cache_entries is None else [c[l] for c in cache_entries],
+                                **kw)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
+def _img(params: LM, batch, cfg: ModelConfig):
+    """The VLM family's image embeddings (B, T, d) in the model dtype on the
+    model's device; None for the other families."""
+    if cfg.family != "vlm":
+        return None
+    return batch["img"].to(device=params.device, dtype=_dtype(cfg))
+
+
 def forward(params: LM, batch, cfg: ModelConfig, *, cache=None):
-    """Token inputs -> final hidden states (B, S, d), aux loss (float32;
-    the MoE blocks' aux summed in layer order, a stack at a time, 0 for
-    the other families).  ``cache`` (from :func:`init_cache`), if given,
-    receives every layer's keys and values (MLA: latents) at positions
-    [0, S), and every mamba layer's conv windows and SSM state.  With
-    ``cfg.remat`` and gradients on (a train step), each block's
+    """Token (+ image, ``batch["img"]`` (B, T, d) for the VLM family)
+    inputs -> final hidden states (B, S, d), aux loss (float32; the MoE
+    blocks' aux summed in layer order, a stack at a time, 0 for the other
+    families).  ``cache`` (from :func:`init_cache`), if given, receives
+    every layer's keys and values (MLA: latents) at positions [0, S), every
+    mamba layer's conv windows and SSM state, and every cross block's image
+    K/V.  With ``cfg.remat`` and gradients on (a train step), each block's
     activations are recomputed in the backward pass."""
     x = _embed(params, batch["tokens"], cfg)
+    img = _img(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blocks, entries in _segments(params, cache):
-        x, a = _run_stack(blocks, x, cfg, entries)
+        x, a = _run_stack(blocks, x, cfg, entries, img)
         aux = aux + a
     return layers.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
 
@@ -494,24 +567,32 @@ def _indexed_blocks(module) -> list:
     return out
 
 
-def leaf_paths(params: LM) -> list:
-    """``(name, path, layer)`` for every parameter, in the reference's tree
+def leaf_paths(params: nn.Module) -> list:
+    """``(name, path, layer)`` for every parameter of an :class:`LM` or an
+    :class:`~repro_torch.models.encdec.EncDec`, in the reference's tree
     order (``jax.tree_util`` sorts dict keys, upper case first, so the
     stacks and the leaves outside them interleave by name: ``dense_blocks``,
     ``final_norm``, ``lm_head``, ``moe_blocks``, ``mtp_blocks``,
     ``mtp_norm_e`` ...; or ``final_norm``, ``lm_head``, ``mamba_groups``,
-    ``mamba_tail``, ``shared_attn``, ``tok_emb``; a block leaf is stacked
-    over layers there, so its layers follow one another here, g-major for
-    the hybrid's groups): ``name`` is the module's parameter name
-    (``blocks.3.attn.wq``, ``mamba_groups.1.0.ssm.A_log``), ``path`` the
-    reference's key path (``("blocks", "attn", "wq")``), ``layer`` the
-    block's index in its stack: l, (g, l) in the hybrid's groups, None
-    outside the stacks and for its shared block, which is not stacked."""
+    ``mamba_tail``, ``shared_attn``, ``tok_emb``; or ``cross_blocks``,
+    ``final_norm``, ``lm_head``, ``self_groups``, ``tok_emb``; or
+    ``dec_blocks``, ``dec_pos``, ``enc_blocks``, ``ln_dec``, ``ln_enc``,
+    ``tok_emb``; a block leaf is stacked over layers there, so its layers
+    follow one another here, g-major for the hybrid's and the VLM's
+    groups): ``name`` is the module's parameter name
+    (``blocks.3.attn.wq``, ``mamba_groups.1.0.ssm.A_log``,
+    ``enc_blocks.0.ln1.b``), ``path`` the reference's key path
+    (``("blocks", "attn", "wq")``), ``layer`` the block's index in its
+    stack: l, (g, l) in the groups, None outside the stacks and for the
+    hybrid's shared block, which is not stacked."""
     stacks = dict(params.named_children())
     out = []
     for top in sorted(list(stacks) + [n for n, _ in params.named_parameters(recurse=False)]):
         if top not in stacks:
             out.append((top, (top,), None))
+            continue
+        if isinstance(stacks[top], nn.ParameterDict):      # a LayerNorm's w and b
+            out += [(f"{top}.{k}", (top, k), None) for k in sorted(stacks[top].keys())]
             continue
         blocks = _indexed_blocks(stacks[top])
         if not blocks:
@@ -529,7 +610,7 @@ def leaf_paths(params: LM) -> list:
     return out
 
 
-def leaves(params: LM) -> Dict[str, torch.Tensor]:
+def leaves(params: nn.Module) -> Dict[str, torch.Tensor]:
     """{name: parameter} in :func:`leaf_paths`' order: the dict the
     optimizer steps (``optim.init(leaves(params), ocfg)``), whose global
     norm sums the leaves in the reference's order, a block leaf layer by
@@ -538,19 +619,20 @@ def leaves(params: LM) -> Dict[str, torch.Tensor]:
     return {name: named[name] for name, _, _ in leaf_paths(params)}
 
 
-def ref_ndims(params: LM) -> Dict[str, int]:
+def ref_ndims(params: nn.Module) -> Dict[str, int]:
     """{name: the leaf's rank in the reference's tree}: a block leaf is
     stacked (L, ...) there, one rank more than its layer's tensor here, two
-    in the hybrid's (G, L, ...) groups, none in its shared block (so AdamW
-    decays a stacked ``q_ln`` or ``A_log``, not ``mtp_norm_h`` or the shared
-    block's ``ln1``)."""
+    in the hybrid's and the VLM's (G, L, ...) groups, none in the hybrid's
+    shared block (so AdamW decays a stacked ``q_ln``, ``A_log``, cross
+    block ``gate_attn`` (G, 1) or encoder LayerNorm ``b`` (L, d), not
+    ``mtp_norm_h``, ``ln_enc`` or the shared block's ``ln1``)."""
     named = dict(params.named_parameters())
     return {name: named[name].ndim + len(np.atleast_1d(layer) if layer is not None else ())
             for name, _, layer in leaf_paths(params)}
 
 
 @contextlib.contextmanager
-def trainable(params: LM):
+def trainable(params: nn.Module):
     """Gradients on every parameter inside the block, off again after it
     (each back to what it was), so serving never records a graph."""
     ps = list(params.parameters())
@@ -572,7 +654,8 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> dict:
     (L, B, K - 1, 2 g n), (L, B, h, p, n) for SSM (no S); for the hybrid
     "attn_k" / "attn_v" (G, B, S, K, Dh), the three mamba entries (G, L,
     B, ...) and, with a tail, "conv_x_tail", "conv_BC_tail", "ssm_tail"
-    (T, B, ...)."""
+    (T, B, ...); for the VLM "k" / "v" (G, cross_every, B, S, K, Dh) and
+    "img_k" / "img_v" (G, B, ``cfg.n_img_tokens``, K, Dh)."""
     specs = dict((name, n) for name, _, n in _stacks(cfg))
     dev = resolve_device(device)
     dt = _dtype(cfg)
@@ -601,14 +684,21 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> dict:
         if cfg.hybrid_tail:
             out.update({k + "_tail": v for k, v in mamba(cfg.hybrid_tail).items()})
         return out
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    K, Dh = cfg.n_kv_heads, cfg.head_dim
+    if cfg.family == "vlm":
+        G = vlm_groups(cfg)
+        img = (G, B, cfg.n_img_tokens, K, Dh)
+        kv = (G, cfg.cross_every, B, S, K, Dh)
+        return {"k": zeros(*kv), "v": zeros(*kv), "img_k": zeros(*img), "img_v": zeros(*img)}
+    shape = (cfg.n_layers, B, S, K, Dh)
     return {"k": zeros(*shape), "v": zeros(*shape)}
 
 
 def _block_decode(p, x, cfg: ModelConfig, cache_slices, pos: int):
     """One block's step, the reference's ``_dense_block_decode``,
     ``_moe_block_decode``, ``_mla_block_decode`` and
-    ``_mamba_block_decode``: writes the layer's cache slices (k and v, or
+    ``_mamba_block_decode``, and the VLM's cross block (its image K/V
+    read, never written): writes the layer's cache slices (k and v, or
     the latent, at ``pos``; a mamba block's conv windows and SSM state) in
     place; an MoE block's FFN routes the step's B tokens (capacity for B
     tokens: 8 slots an expert at a small batch), its aux dropped."""
@@ -618,7 +708,11 @@ def _block_decode(p, x, cfg: ModelConfig, cache_slices, pos: int):
     if p.MLA:
         a, _ = mla.mla_decode(p["attn"], h, cfg, cache_slices[0], pos)
     else:
-        a, _, _ = layers.attn_decode(p["attn"], h, cfg, *cache_slices, pos)
+        a, _, _ = layers.attn_decode(p["attn"], h, cfg, *cache_slices, pos, cross=p.CROSS)
+    if p.CROSS:
+        x = x + _gated(p["gate_attn"], a)
+        h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        return x + _gated(p["gate_mlp"], layers.mlp_apply(p["mlp"], h, cfg.act))
     x = x + a
     y, _ = _ffn(p, layers.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
     return x + y
@@ -627,8 +721,10 @@ def _block_decode(p, x, cfg: ModelConfig, cache_slices, pos: int):
 def decode_step(params: LM, batch, cache, cfg: ModelConfig):
     """One serve step: batch {'token': (B, 1) integer, 'pos': int}.  Writes
     the cache in place (at ``pos`` for attention; the hybrid's shared
-    block at group g into ``attn_k[g]`` / ``attn_v[g]``) and returns
-    (logits (B, vocab) float32, cache)."""
+    block at group g into ``attn_k[g]`` / ``attn_v[g]``; the VLM's self
+    blocks into ``k[g, l]`` / ``v[g, l]``, its cross blocks reading the
+    image K/V the prefill wrote) and returns (logits (B, vocab) float32,
+    cache)."""
     pos = int(batch["pos"])
     x = _embed(params, batch["token"], cfg)
     for blocks, entries in _segments(params, cache):
@@ -639,9 +735,10 @@ def decode_step(params: LM, batch, cache, cfg: ModelConfig):
 
 
 def prefill(params: LM, batch, cfg: ModelConfig, cache_len: Optional[int] = None):
-    """Forward over the prompt, building the decode cache (capacity
-    ``cache_len``, default the prompt's length; positions past the prompt
-    stay 0; the SSM states hold no positions).  Returns (last-token logits
+    """Forward over the prompt (and, for the VLM family, ``batch["img"]``),
+    building the decode cache (capacity ``cache_len``, default the prompt's
+    length; positions past the prompt stay 0; the SSM states hold no
+    positions; the VLM's image K/V written once, here).  Returns (last-token logits
     (B, vocab) float32, cache).  A mamba layer's conv window is the
     prompt's last ``ssm_conv - 1`` raw projections, so an SSM or hybrid
     prompt shorter than that raises ``ValueError``

@@ -11,8 +11,9 @@ Counterpart of ``repro/runtime/loop.py``, with its behaviours:
 * **stragglers**: a step slower than ``straggler_factor`` times the
   running median of the last 50 is counted and logged.
 
-``params`` is a nested dict of tensors or an LM (``repro_torch.models.lm
-.LM``, stepped in place by ``launch.steps.make_train_step``); an LM's
+``params`` is a nested dict of tensors or a model (``repro_torch.models.lm
+.LM`` or ``repro_torch.models.encdec.EncDec``, stepped in place by
+``launch.steps.make_train_step``); a model's
 checkpoint is the reference's tree (``models.convert.train_state_to_jax``),
 so either package resumes the other's run from the same directory.  A step
 ends with a read of its loss, which waits for the device (the reference's
@@ -32,7 +33,6 @@ import torch
 from .. import checkpoint
 from ..core.gp import _not_ported
 from ..models import convert
-from ..models.lm import LM
 
 __all__ = ["TrainLoopConfig", "train_loop"]
 
@@ -60,15 +60,15 @@ def _device(tree) -> torch.device:
 
 def _state(params, opt_state) -> dict:
     """The checkpoint's tree, ``{"params", "opt"}``."""
-    if isinstance(params, LM):
+    if isinstance(params, torch.nn.Module):          # an LM or an EncDec
         return convert.train_state_to_jax(params, opt_state)
     return {"params": params, "opt": opt_state}
 
 
 def _restore(ckpt_dir, params, opt_state):
-    """(step, params, opt_state) from the latest checkpoint; an LM and its
-    AdamW state are written in place."""
-    if isinstance(params, LM):
+    """(step, params, opt_state) from the latest checkpoint; a model (an LM
+    or an EncDec) and its AdamW state are written in place."""
+    if isinstance(params, torch.nn.Module):
         step, tree = checkpoint.restore(ckpt_dir, convert.train_state_keys(params),
                                         device="cpu")
         convert.load_train_state(params, opt_state, tree)

@@ -205,9 +205,6 @@ def _lm_model(arch):
 
 REFUSALS = {
     "make_production_mesh": (lambda tp: t_mesh.make_production_mesh(), "A8", "LM"),
-    # the LM half past its dense, MoE, MLA, SSM and hybrid paths
-    "get_model(audio)": (lambda tp: _lm_model("whisper-small"), "A8", "LM"),
-    "get_model(vlm)": (lambda tp: _lm_model("llama-3.2-vision-11b"), "A8", "LM"),
     # the LM half's training path runs on one device; a mesh is parallel/'s
     "train_loop(shardings)": (lambda tp: t_runtime.train_loop(
         None, {}, {}, None, t_runtime.TrainLoopConfig(steps=1), shardings=(None, None)),
@@ -334,7 +331,30 @@ PORTED = {
     # ROADMAP A8, the LM half's SSM and hybrid part
     "get_model(ssm)": lambda tp: _ssm_model("mamba2-130m"),
     "get_model(hybrid)": lambda tp: _ssm_model("zamba2-7b"),
+    # ROADMAP A8, the LM half's audio and VLM part
+    "get_model(audio)": lambda tp: _extras_model("whisper-small"),
+    "get_model(vlm)": lambda tp: _extras_model("llama-3.2-vision-11b"),
 }
+
+
+def _extras_model(arch):
+    """whisper's or llama-3.2-vision's SMOKE model serves (its self and
+    cross K/V, or its self and image K/V) and trains on the extras that
+    ``launch.train.build`` draws."""
+    from repro_torch.models import lm as t_lm
+
+    cfg, model, params, opt, step, stream, extras, _ = t_train.build(
+        arch, smoke=True, batch=2, seq=8, lr=1e-3, device="cpu")
+    logits, cache = model.prefill(params, {"tokens": torch.zeros((2, 8), dtype=torch.int32),
+                                           **extras}, cache_len=9)
+    before = {k: v.clone() for k, v in t_lm.leaves(params).items()}
+    _, _, m = step(params, opt, stream.batch(0, extras, device="cpu"))
+    want = ({"self_k", "self_v", "cross_k", "cross_v"} if cfg.family == "audio"
+            else {"k", "v", "img_k", "img_v"})
+    return (set(extras) == ({"frames"} if cfg.family == "audio" else {"img"})
+            and bool(torch.isfinite(logits).all()) and set(cache) == want
+            and bool(torch.isfinite(m["loss"]))
+            and any(not torch.equal(before[k], v) for k, v in t_lm.leaves(params).items()))
 
 
 def _ssm_model(arch):
@@ -428,7 +448,7 @@ def _value_error(call) -> str:
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_formerly_refused_call_works(name, tmp_path):
     """Each call that named ROADMAP A2, A3, A4, A5, A6 or A8's training, MoE,
-    MLA or SSM part in its refusal now runs (the window without a cold tier
+    MLA, SSM or audio and VLM part in its refusal now runs (the window without a cold tier
     raises the JAX package's ValueError)."""
     assert PORTED[name](tmp_path)
 

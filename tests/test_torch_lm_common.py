@@ -1,8 +1,9 @@
 """Shared helpers for the LM half's parity tests (this file holds no tests).
 
 One set of weights goes to both packages: the JAX package's
-``init_params`` pytree as numpy, with its biases and norm weights set to
-seeded random values (zeros and ones would hide a bias or norm fault),
+``init_params`` pytree as numpy, with its biases, norm weights and the
+VLM's cross-block gates set to seeded random values (zeros and ones would
+hide a bias, norm or gate fault),
 fed to JAX as it is and to the port through
 ``repro_torch.models.convert.lm_params_from_jax``.
 """
@@ -26,12 +27,17 @@ DENSE = ("qwen2-1.5b", "qwen2.5-3b", "smollm-360m", "starcoder2-3b")
 MOE = ("olmoe-1b-7b",)
 MLA = ("deepseek-v3-671b",)
 SSM = ("mamba2-130m", "zamba2-7b")
-BIASES = ("bq", "bk", "bv", "b1", "b2", "conv_x_b", "conv_BC_b")
+# biases (``b``: a LayerNorm's) and norm weights (``w``: a LayerNorm's)
+BIASES = ("bq", "bk", "bv", "b1", "b2", "conv_x_b", "conv_BC_b", "b")
 # norm weights and the mamba block's skip D: ones in the reference's init
-NORMS = ("ln1", "ln2", "final_norm", "q_ln", "kv_ln", "mtp_norm_h", "mtp_norm_e", "norm_w",
-         "D")
-# leaves the reference keeps in float32 in a bfloat16 model
-F32_LEAVES = NORMS + ("router", "A_log", "dt_bias")
+NORMS = ("ln1", "ln2", "ln3", "final_norm", "q_ln", "kv_ln", "mtp_norm_h", "mtp_norm_e",
+         "norm_w", "D", "w")
+# the VLM's cross-block gates: zeros in the reference's init, which would
+# keep the image out of every logit and every cross-block leaf's gradient
+GATES = ("gate_attn", "gate_mlp")
+# leaves the reference keeps in float32 in a bfloat16 model (``b``: a
+# LayerNorm's bias)
+F32_LEAVES = NORMS + GATES + ("router", "A_log", "dt_bias", "b")
 
 
 def f32(a):
@@ -62,6 +68,9 @@ def numpy_params(jcfg, seed=0):
             return (0.1 * rng.standard_normal(node.shape)).astype(np.float32)
         if name in NORMS:
             return (1.0 + 0.2 * rng.standard_normal(node.shape)).astype(np.float32)
+        if name in GATES:        # tanh(gate) of either sign, 0.3-0.8 in size
+            size = rng.uniform(0.3, 1.1, node.shape)
+            return (size * rng.choice([-1.0, 1.0], node.shape)).astype(np.float32)
         return node
 
     return perturb(tree)
