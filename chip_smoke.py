@@ -281,7 +281,28 @@ Drives ``src/repro_torch`` only (no JAX, nothing of ``src/repro``):
    reckoned memory fits, the cut printed), a falling loss, beside the
    step's bound; (d) on both SMOKE configs, straight runs, a restart from
    an async checkpoint and the checkpoint itself, bitwise.  TF32 checked
-   off; no kernel of this repository runs there (launch counts checked).
+   off; no kernel of this repository runs there (launch counts checked);
+18. the production mesh and ``parallel/`` (ROADMAP A8.7; ``phase18()``),
+   on meshes of four cells over the one card (``devices=[cuda:0] * 4``;
+   the port shards on a single controller, the cells run in turn): (a)
+   olmoe-1b-7b uncut served through ``generate`` under a (data 2, model 2)
+   mesh, its weights as pieces by ``param_shardings`` (the bytes reckoned
+   first), a 4 x 256 prompt (the MoE layers' gather-at-use branch) and 32
+   decode steps of 4 tokens (their serve mode), the cache placed by
+   ``cache_shardings``, the dropped share beside phase 14's; the same
+   mesh at 2 layers against the CPU's at phase 14's gate; (b) qwen2-1.5b
+   uncut: one unsharded step at 4 x 1,024 checkpointed, restored into a
+   (2, 2) mesh's pieces through ``train_loop(shardings=)`` (bitwise), then
+   the sharded step of ``build(mesh=)`` against the unsharded step from
+   the same state (loss and every parameter at twice the unsharded step's
+   bfloat16-vs-float32 distance), its warm time and peak beside phase
+   13's; (c) ``gpipe`` over qwen2's 28 blocks, 4 stages of 7, 8
+   microbatches of 1 x 1,024: forward and gradients bitwise the stages in
+   sequence, the logits within 0.15 of the unpipelined forward, the bubble
+   share 3/11; (d) ``compress_allreduce`` of (b)'s gradient over its two
+   data members, within blockmax / 127 * 0.51 of the plain mean and
+   bitwise equal across members, timed.  No kernel of this repository
+   runs there (launch counts checked).
 
 Prints the features kernel's times by shape on a ``[features]`` line, one
 JSON line with every kernel's numbers (the features kernel's ``ms`` its
@@ -4307,6 +4328,459 @@ def phase17(dev, smi, compare) -> dict:
     return report
 
 
+# phase 18, ROADMAP A8.7: the production mesh and parallel/ on the card, at
+# full width, on meshes of four cells over the one card (a mesh may repeat
+# a device: every cell's path, placement and launch runs here, the cells
+# one after another).  (a) olmoe-1b-7b uncut, served under a (data 2,
+# model 2) mesh: the prefill of 4 x 256 tokens takes the MoE layers'
+# gather-at-use branch ((1,024 * 8) // 64 = 128 > 64), the decode steps of
+# 4 tokens their serve mode; the card held against the same mesh on the
+# CPU at 2 layers (8 decode steps there, the CPU's greedy tokens fed); (b)
+# qwen2-1.5b uncut: one unsharded step at 4 x 1,024 checkpointed, restored
+# into a (2, 2) mesh's pieces through train_loop(shardings=), then the
+# sharded step against the unsharded one from the same state; (c) gpipe
+# over qwen2's 28 blocks, 4 stages of 7, 8 microbatches of 1 x 1,024; (d)
+# compress_allreduce of (b)'s gradient over its two data members
+PAR = dict(moe_arch="olmoe-1b-7b", train_arch="qwen2-1.5b", mesh=(2, 2), cpu_layers=2,
+           batch=4, prompt_len=256, gen=32, cpu_steps=8, train_batch=4, train_seq=1024,
+           lr=3e-4, stages=4, micro=8, micro_batch=1, seed=0)
+
+
+class ShardDropSpy:
+    """While active, counts the assignments the MoE layers drop over
+    capacity, once per routed token set: it wraps
+    ``repro_torch.models.moe._dispatch_tables`` and reads the calls of
+    model column 0 (an expert-parallel call routes the same tokens in every
+    column).  Reads to the host, so never around a timed region."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe = moe
+        self.dropped = self.total = 0
+
+    def __enter__(self):
+        import torch
+
+        m, self._tables = self.moe, self.moe._dispatch_tables
+
+        def tables(topi, topv, T, k, C, e_lo, n_local, dtype):
+            if e_lo == 0:
+                rank = m._expert_ranks(topi.reshape(-1).to(torch.int32), T * k)
+                self.dropped += int((rank >= C).sum())
+                self.total += T * k
+            return self._tables(topi, topv, T, k, C, e_lo, n_local, dtype)
+
+        m._dispatch_tables = tables
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._dispatch_tables = self._tables
+        return False
+
+    def share(self) -> float:
+        return self.dropped / max(self.total, 1)
+
+
+def phase18(dev, smi, compare, r13, r14) -> dict:
+    """The production mesh and ``parallel/`` (ROADMAP A8.7) on the card,
+    four cells over the one card: (a) olmoe-1b-7b uncut served under a (2,
+    2) mesh through ``generate`` (the cache placed by ``cache_shardings``),
+    the bytes reckoned first, the dropped share beside phase 14's, and the
+    same mesh at 2 layers against the CPU's at phase 14's gate; (b) one
+    qwen2-1.5b train step uncut through ``build(mesh=)``, restored from an
+    unsharded checkpoint through ``train_loop(shardings=)``, the loss and
+    every parameter against the unsharded step at twice the unsharded
+    step's bfloat16-vs-float32 distance, the warm step's time and peak
+    beside phase 13's; (c) ``gpipe`` over qwen2's 28 blocks (4 stages of 7,
+    8 microbatches of 1 x 1,024), its forward and gradients bitwise the
+    stages run in sequence and its logits within tests/test_arch_smoke.py's
+    0.15 of the unpipelined forward, the bubble share printed; (d)
+    ``compress_allreduce`` of (b)'s gradient over its two data members:
+    every entry within blockmax / 127 * 0.51 of the plain mean, bitwise
+    equal across members, timed."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (dp_cells, expert_leaf, make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import lm as tlm
+    from repro_torch.models import moe as tmoe
+    from repro_torch.parallel import compress, hints, sharding
+    from repro_torch.parallel.pipeline import gpipe
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+
+    t_phase = time.perf_counter()
+    cfg = ARCHS[PAR["moe_arch"]].CONFIG
+    qcfg = ARCHS[PAR["train_arch"]].CONFIG
+    check(cfg.n_layers == 16 and cfg.n_experts == 64 and cfg.fsdp and qcfg.n_layers == 28
+          and qcfg.d_model == 1536, "phase 18 runs olmoe-1b-7b's and qwen2-1.5b's full "
+                                    "configurations")
+    data, model_ax = PAR["mesh"]
+    cells = data * model_ax
+    mesh = make_local_mesh(data, model_ax, devices=[dev] * cells)
+    cpu_mesh = make_local_mesh(data, model_ax, devices=["cpu"] * cells)
+    free, total = torch.cuda.mem_get_info()
+    report = {"card": smi, "mesh": f"{data} x {model_ax} over {dev} x {cells}",
+              "free_bytes_at_start": free, "held_at_start": torch.cuda.memory_allocated()}
+    print(f"[phase 18] {smi}: the production mesh and parallel/ on a (data {data}, model "
+          f"{model_ax}) mesh of {cells} cells over {dev}; free {free / 1e9:.2f} GB of "
+          f"{total / 1e9:.2f} GB, earlier phases hold "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB; temporary directory "
+          f"{shutil.disk_usage(tempfile.gettempdir()).free / 1e9:.1f} GB free")
+    ops.reset_launch_counts()
+    B_, P = PAR["batch"], PAR["prompt_len"]
+    E, k = cfg.n_experts, cfg.top_k
+    T_l = B_ * P // data
+    check((T_l * data * k) // E > 64 and (B_ // data * data * k) // E <= 64,
+          "(a) the prefill takes the gather branch and the decode steps the serve mode")
+    toks = torch.from_numpy(np.random.default_rng(PAR["seed"]).integers(
+        0, cfg.vocab, size=(B_, P)))
+
+    # -- (a) the CPU check: the same mesh at 2 layers, card against CPU ---------
+    t_a = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=PAR["cpu_layers"])
+    m2, m2_32 = get_model(cfg2), get_model(dataclasses.replace(cfg2, dtype="float32"))
+    cpu_p = m2.init_params(torch.Generator().manual_seed(PAR["seed"]))
+    cpu_p32 = copy.deepcopy(cpu_p).float()
+    card_p = copy.deepcopy(cpu_p).to(dev)
+
+    def placed(params, c, msh):
+        return sharding.place(params, sharding.param_shardings(params, c, msh, serving=True))
+
+    cap = P + PAR["cpu_steps"]
+
+    @torch.no_grad()
+    def run(model, params, feed):
+        """Prefill, then one decode step per token of ``feed`` (None: the
+        run's own greedy tokens): (logits per step, tokens fed, spy)."""
+        d = params.device
+        prefill, decode = make_prefill_step(model, cache_len=cap), make_decode_step(model)
+        with ShardDropSpy() as spy:
+            logits, cache = prefill(params, {"tokens": toks.to(d)})
+            out, fed = [logits.float().cpu()], []
+            for i in range(PAR["cpu_steps"]):
+                tok = torch.argmax(logits, -1)[:, None] if feed is None else feed[i].to(d)
+                fed.append(tok.cpu())
+                logits, cache = decode(params, {"token": tok, "pos": P + i}, cache)
+                out.append(logits.float().cpu())
+        check(all(isinstance(v, sharding.Sharded) for v in cache.values()),
+              "(a) the cache placed by cache_shardings")
+        return out, fed, spy
+
+    t0 = time.perf_counter()
+    ref, fed, spy_cpu = run(m2, placed(cpu_p, cfg2, cpu_mesh), None)
+    t1 = time.perf_counter()
+    ref32, _, _ = run(m2_32, placed(cpu_p32, dataclasses.replace(cfg2, dtype="float32"),
+                                    cpu_mesh), fed)
+    t2 = time.perf_counter()
+    got, _, spy_card2 = run(m2, placed(card_p, cfg2, mesh), fed)
+    bf16_vs_f32 = max(float((a - b).abs().max()) for a, b in zip(ref, ref32))
+    a_err = compare(
+        f"sharded MoE card vs CPU ({cfg.arch_id} cut to {PAR['cpu_layers']} layers on a "
+        f"{data} x {model_ax} mesh each; prefill of {B_} x {P} + {PAR['cpu_steps']} decode "
+        f"steps on the CPU's greedy tokens, logits)", got, ref, rtol=0.0,
+        atol=2.0 * bf16_vs_f32,
+        why=f"phase 14's gate: twice the CPU's bfloat16-vs-float32 distance, "
+            f"{bf16_vs_f32:.4e}")
+    report["card_vs_cpu"] = {"max_abs_err": a_err, "cpu_bf16_vs_f32": bf16_vs_f32,
+                             "dropped_share_cpu": spy_cpu.share(),
+                             "dropped_share_card": spy_card2.share(),
+                             "cpu_bf16_s": t1 - t0, "cpu_f32_s": t2 - t1,
+                             "seconds": time.perf_counter() - t_a}
+    print(f"[phase 18] (a) 2 layers on the mesh: the CPU's bf16 run {t1 - t0:.1f} s, f32 "
+          f"{t2 - t1:.1f} s ({torch.get_num_threads()} threads); dropped share CPU "
+          f"{spy_cpu.share():.5f} card {spy_card2.share():.5f}; took "
+          f"{report['card_vs_cpu']['seconds']:.1f} s")
+    del cpu_p, cpu_p32, card_p, got, ref, ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (a) the 16 layers served under the mesh --------------------------------
+    model = get_model(cfg)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    full = model.init_params(PAR["seed"], device=dev)
+    pd = placed(full, cfg, mesh)
+    del full
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    el = E // model_ax
+    gathered = sum(int(np.prod(v.shape)) * v.pieces.flat[0].element_size()
+                   for n, v in pd.leaves.items() if not expert_leaf(n))
+    cell_experts = 3 * el * cfg.d_model * cfg.d_expert * 2
+    kv = 2 * cfg.n_layers * B_ * (P + PAR["gen"]) * cfg.n_kv_heads * cfg.head_dim * 2
+    print(f"[phase 18] (a) memory reckoned: {pd.nbytes / 1e9:.3f} GB of bfloat16 pieces "
+          f"({cfg.param_count() / 1e9:.3f}e9 parameters; {held / 1e9:.3f} GB allocated), "
+          f"plus at use every non-expert leaf gathered, {gathered / 1e9:.3f} GB a call, and in "
+          f"the prefill's gather branch one cell's {el} experts of a layer, "
+          f"{cell_experts / 1e9:.3f} GB; the cache {kv / 1e9:.4f} GB in pieces; placed in "
+          f"{place_s:.1f} s")
+    check(pd.nbytes <= 1.001 * held, "(a) the pieces are what the card holds")
+    torch.cuda.reset_peak_memory_stats()
+    out = tserve.generate(model, pd, toks, PAR["gen"])
+    peak = torch.cuda.max_memory_allocated() - base
+    check(out["generated"].shape == (B_, PAR["gen"])
+          and ((out["generated"] >= 0) & (out["generated"] < cfg.vocab)).all(),
+          "(a) generate's tokens")
+    with torch.no_grad(), ShardDropSpy() as spy:
+        logits, cache = make_prefill_step(model, cache_len=P + 1)(pd, {"tokens": toks.to(dev)})
+        logits_d, _ = make_decode_step(model)(
+            pd, {"token": torch.argmax(logits, -1)[:, None], "pos": P}, cache)
+    check(bool(torch.isfinite(logits).all() and torch.isfinite(logits_d).all()),
+          "(a) finite logits")
+    check(tuple(cache["k"].spec) == (None, "data", None, "model", None),
+          f"(a) the cache's spec {cache['k'].spec!r}")
+    share14 = r14["serve"]["consistency"]["dropped_share_prefill_S"]
+    report["serve"] = {
+        "pieces_bytes": pd.nbytes, "gathered_bytes_a_call": gathered,
+        "prefill_cell_experts_bytes": cell_experts, "cache_bytes": kv,
+        "prefill_first_ms": out["prefill_s"] * 1e3,
+        "decode_ms_per_token": out["decode_s_per_token"] * 1e3,
+        "tokens_per_s": out["tokens_per_s"], "peak_above_pieces": peak - held,
+        "dropped_share_prefill": spy.share(), "dropped_share_phase14": share14,
+        "capacity_per_dp_shard": tmoe.capacity(T_l, cfg),
+        "capacity_phase14": tmoe.capacity(B_ * P, cfg)}
+    print(f"[phase 18] {smi}: generate({cfg.arch_id}, {cfg.n_layers} layers on the mesh, "
+          f"batch {B_}, prompt {P}, gen {PAR['gen']}): prefill {out['prefill_s'] * 1e3:.1f} "
+          f"ms, decode {out['decode_s_per_token'] * 1e3:.2f} ms a token, "
+          f"{out['tokens_per_s']:.1f} tok/s; peak {(peak - held) / 1e9:.3f} GB above the "
+          f"pieces; dropped share of the prefill {spy.share():.5f} at C = "
+          f"{tmoe.capacity(T_l, cfg)} a dp shard (phase 14, unsharded at C = "
+          f"{tmoe.capacity(B_ * P, cfg)}: {share14:.5f})")
+    del pd, cache, logits, logits_d, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) qwen2-1.5b: one unsharded step checkpointed, restored on the mesh --
+    t_b = time.perf_counter()
+    B2, S2 = PAR["train_batch"], PAR["train_seq"]
+    ocfg = optim.AdamWConfig(lr=optim.warmup_cosine(PAR["lr"], 20, 10_000))
+    qmodel = get_model(qcfg)
+    q32 = get_model(dataclasses.replace(qcfg, dtype="float32"))
+    base = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as td:
+        _, _, U, optU, stepU, stream, extras, _ = ttrain.build(
+            PAR["train_arch"], smoke=False, batch=B2, seq=S2, lr=PAR["lr"], seed=PAR["seed"],
+            device=dev)
+
+        def batch_fn(s):
+            return stream.batch(s, extras, device=dev)
+
+        t0 = time.perf_counter()
+        U, optU, _ = train_loop(stepU, U, optU, batch_fn,
+                                TrainLoopConfig(steps=1, ckpt_dir=td, ckpt_every=1,
+                                                async_ckpt=False, handle_signals=False),
+                                log_fn=lambda s: None)
+        ckpt_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in Path(td).rglob("*") if f.is_file())
+        nq = qcfg.param_count()
+        print(f"[phase 18] (b) memory reckoned: {nq / 1e9:.3f}e9 parameters, as pieces "
+              f"{2 * nq / 1e9:.2f} GB of bfloat16 weights and {4 * nq / 1e9:.2f} GB of AdamW "
+              f"moments; at use a dp cell gathers {2 * nq / 1e9:.2f} GB and makes as much "
+              f"gradient, summed into {2 * nq / 1e9:.2f} GB of gradient pieces, plus its "
+              f"half batch's activations; beside them the unsharded model and state, "
+              f"{6 * nq / 1e9:.2f} GB")
+        *_, S, optS, stepS, _, _, (p_sh, o_sh) = ttrain.build(
+            PAR["train_arch"], smoke=False, batch=B2, seq=S2, lr=PAR["lr"],
+            seed=PAR["seed"] + 1, mesh=mesh, device=dev)
+        t0 = time.perf_counter()
+        S, optS, rep = train_loop(stepS, S, optS, batch_fn,
+                                  TrainLoopConfig(steps=1, ckpt_dir=td, handle_signals=False),
+                                  shardings=(p_sh, o_sh), log_fn=lambda s: None)
+        restore_s = time.perf_counter() - t0
+    check(rep["final_step"] == 1 and isinstance(S, sharding.ShardedParams),
+          "(b) restored into the mesh's pieces")
+    restored = all(torch.equal(S.leaves[n].gather(dev), t)
+                   for n, t in tlm.leaves(U).items())
+    check(restored and int(optS["step"].gather("cpu")) == 1,
+          "(b) the restored pieces are the unsharded checkpoint's, bitwise")
+    # (d)'s members: each data cell's gradient of the loss on its half of the
+    # next batch at the restored weights (the step sums them, halved)
+    b1 = batch_fn(1)
+    members = []
+    for r, row in enumerate(dp_cells(mesh)):
+        cell = S.materialize(dev, requires_grad=True)
+        with hints.activate(row):
+            loss_r, _ = qmodel.loss_fn(cell, {"tokens": b1["tokens"][r * B2 // data:
+                                                                     (r + 1) * B2 // data]})
+            named = tlm.leaves(cell)
+            members.append(dict(zip(named, torch.autograd.grad(loss_r,
+                                                               list(named.values())))))
+        del cell, named, loss_r
+    # -- (d) compress_allreduce of (b)'s gradient over its two data members -----
+    # the payload in float32, as the reference's compression takes it, a leaf
+    # at a time (the members' float32 trees whole would be 12 GB more)
+    comp_s, worst, same, n_el = 0.0, 0.0, True, 0
+    for n in members[0]:
+        gs = [m[n].float() for m in members]
+        states = [compress.CompressionState.init(g) for g in gs]
+        (red, _), s_ = sync_s(lambda: compress.compress_allreduce(gs, states, mesh,
+                                                                   axis="data"))
+        comp_s += s_
+        plain = sum(gs) / data
+        bound = torch.stack([compress._pad_flat(g)[0].reshape(-1, compress.BLOCK).abs().amax(1)
+                             for g in gs]).amax(0) / 127.0 * 0.51
+        diff = compress._pad_flat(red[0] - plain)[0].reshape(-1, compress.BLOCK)
+        worst = max(worst, float((diff.abs().amax(1) / torch.clamp(bound, min=1e-30)).max()))
+        same = same and all(torch.equal(red[0], r) for r in red[1:])
+        n_el += gs[0].numel()
+        del gs, states, red, plain, bound, diff
+    check(worst <= 1.0, f"(d) an entry {worst:.3f} x blockmax / 127 * 0.51 from the mean")
+    check(same, "(d) the members' results are not bitwise equal")
+    report["compress"] = {"members": data, "elements": n_el, "seconds": comp_s,
+                          "worst_over_bound": worst, "bitwise_across_members": same}
+    print(f"[phase 18] {smi}: compress_allreduce of {n_el / 1e9:.3f}e9 float32 gradient "
+          f"entries over {data} data members, a leaf a call: {comp_s * 1e3:.1f} ms in all; "
+          f"worst entry {worst:.3f} of blockmax / 127 * 0.51 from the plain mean; bitwise "
+          f"equal across members {same}")
+    del members
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the unsharded reference in bfloat16 and in float32 from the same state
+    U32 = copy.deepcopy(U).float()
+    opt32 = {"mu": {n: {"m": s["m"].float(), "v": s["v"].float()}
+                    for n, s in optU["mu"].items()}, "step": optU["step"].clone()}
+    _, _, m32 = make_train_step(q32, ocfg)(U32, opt32, b1)
+    del opt32
+    _, _, mU = stepU(U, optU, b1)
+    del optU
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaves_u = tlm.leaves(U)
+    p_dist = max(float((a.float() - b).abs().max())
+                 for a, b in zip(leaves_u.values(), tlm.leaves(U32).values()))
+    l_dist = abs(float(mU["loss"]) - float(m32["loss"]))
+    del U32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_b = torch.cuda.memory_allocated()
+    (_, _, mS), first_s = sync_s(lambda: stepS(S, optS, b1))
+    loss_gap = abs(float(mS["loss"]) - float(mU["loss"]))
+    # leaf by leaf (a float32 copy of every leaf at once would be 12 GB)
+    b_err = max(float((S.leaves[n].gather(dev).float() - t.float()).abs().max())
+                for n, t in leaves_u.items())
+    ok = b_err <= 2.0 * p_dist
+    print(f"[check] sharded vs unsharded step ({PAR['train_arch']} uncut, {B2} x {S2}, a "
+          f"{data} x {model_ax} mesh; every parameter after the step): max_abs_err="
+          f"{b_err:.3e} tol=rtol 0, atol {2.0 * p_dist:g} (twice the unsharded step's "
+          f"bfloat16-vs-float32 distance, {p_dist:.4e}); worst error/tolerance "
+          f"{b_err / (2.0 * p_dist):.3f} -> {'ok' if ok else 'FAIL'}")
+    check(ok, "(b) the sharded step's parameters disagree with the unsharded step's")
+    check(loss_gap <= 2.0 * l_dist,
+          f"(b) the sharded loss {loss_gap:.3e} from the unsharded, over twice its "
+          f"bf16-vs-f32 {l_dist:.3e}")
+    (_, _, mS2), warm_s = sync_s(lambda: stepS(S, optS, batch_fn(2)))
+    peak_b = torch.cuda.max_memory_allocated() - base_b
+    check(math.isfinite(float(mS2["loss"])), "(b) the warm step's loss")
+    t13 = r13["train"]
+    report["train"] = {
+        "ckpt_bytes": ckpt_bytes, "ckpt_write_s": ckpt_s, "restore_s": restore_s,
+        "loss": {"sharded": float(mS["loss"]), "unsharded": float(mU["loss"]),
+                 "unsharded_f32": float(m32["loss"])}, "loss_gap": loss_gap,
+        "loss_bf16_vs_f32": l_dist, "param_max_abs_err": b_err, "param_bf16_vs_f32": p_dist,
+        "grad_norm": {"sharded": float(mS["grad_norm"]), "unsharded": float(mU["grad_norm"])},
+        "first_step_s": first_s, "warm_step_s": warm_s, "peak_above_state": peak_b,
+        "state_pieces_bytes": S.nbytes + sum(v.nbytes for v in
+                                             [*(x for m in optS["mu"].values()
+                                                for x in m.values()), optS["step"]]),
+        "phase13_warm_median_s": t13["warm_median_s"], "phase13_peak_bytes": t13["peak_bytes"],
+        "seconds": time.perf_counter() - t_b}
+    print(f"[phase 18] {smi}: train({PAR['train_arch']} uncut on the mesh, {B2} x {S2}): "
+          f"checkpoint {ckpt_bytes / 1e9:.2f} GB written in {ckpt_s:.1f} s, restored into "
+          f"the pieces in {restore_s:.1f} s; loss sharded {float(mS['loss']):.6f} unsharded "
+          f"{float(mU['loss']):.6f} f32 {float(m32['loss']):.6f}; first sharded step "
+          f"{first_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms (phase 13, unsharded: warm "
+          f"median {t13['warm_median_s'] * 1e3:.1f} ms); peak {peak_b / 1e9:.3f} GB above "
+          f"the {report['train']['state_pieces_bytes'] / 1e9:.3f} GB of state pieces (phase "
+          f"13: {t13['peak_bytes'] / 1e9:.3f} GB above its model and AdamW state); (b) took "
+          f"{report['train']['seconds']:.1f} s")
+    del S, optS
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) gpipe over qwen2's 28 blocks ---------------------------------------
+    S_, M_ = PAR["stages"], PAR["micro"]
+    per = qcfg.n_layers // S_
+    pipe_mesh = make_local_mesh(1, S_, devices=[dev] * S_)
+    stage_blocks = [list(U.blocks[s * per:(s + 1) * per]) for s in range(S_)]
+    ptoks = torch.from_numpy(np.random.default_rng(PAR["seed"] + 18).integers(
+        0, qcfg.vocab, size=(M_ * PAR["micro_batch"], S2))).to(dev)
+
+    def stage_fn(blocks, x):
+        return tlm._run_stack(blocks, x, qcfg)[0]
+
+    def pipe_run(pipelined):
+        with tlm.trainable(U):
+            x = tlm._embed(U, ptoks, qcfg).detach().reshape(M_, PAR["micro_batch"], S2, -1)
+            if pipelined:
+                y = gpipe(stage_fn, stage_blocks, x, pipe_mesh, axis="model")
+            else:
+                outs = []
+                for m in range(M_):
+                    h = x[m]
+                    for s in range(S_):
+                        h = stage_fn(stage_blocks[s], h)
+                    outs.append(h)
+                y = torch.stack(outs)
+            params = [p for blocks in stage_blocks for b in blocks for p in b.parameters()]
+            grads = torch.autograd.grad(torch.mean(torch.square(y.float())), params)
+        return y.detach(), grads
+
+    (y_p, g_p), pipe_s = sync_s(lambda: pipe_run(True))
+    (y_s, g_s), seq_s = sync_s(lambda: pipe_run(False))
+    fwd_bitwise = torch.equal(y_p, y_s)
+    grad_bitwise = all(torch.equal(a, b) for a, b in zip(g_p, g_s))
+    check(fwd_bitwise and grad_bitwise, f"(c) gpipe against the stages in sequence: forward "
+                                        f"bitwise {fwd_bitwise}, gradients {grad_bitwise}")
+    del g_p, g_s
+    with torch.no_grad():
+        x = tlm._embed(U, ptoks, qcfg)
+        y_u = tlm._run_stack(list(U.blocks), x, qcfg)[0]
+
+        def last_logits(y):
+            h = tlayers.rmsnorm(y.reshape(M_ * PAR["micro_batch"], S2, -1)[:, -1],
+                                U.final_norm, qcfg.norm_eps)
+            return tlm._logits(U, h, qcfg)
+
+        c_err = compare(f"gpipe ({S_} stages of {per} blocks, {M_} microbatches of "
+                        f"{PAR['micro_batch']} x {S2}) vs the unpipelined forward (last-token "
+                        f"logits)", [last_logits(y_p)], [last_logits(y_u)], rtol=0.15,
+                        atol=0.15, why="tests/test_arch_smoke.py:81-83 gate")
+    bubble = (S_ - 1) / (M_ + S_ - 1)
+    report["pipeline"] = {"stages": S_, "microbatches": M_, "bubble_share": bubble,
+                          "forward_bitwise": fwd_bitwise, "grads_bitwise": grad_bitwise,
+                          "vs_unpipelined_max_abs_err": c_err, "pipelined_s": pipe_s,
+                          "sequential_s": seq_s}
+    print(f"[phase 18] {smi}: gpipe over {qcfg.n_layers} blocks, {S_} stages of {per}, "
+          f"{M_} microbatches of {PAR['micro_batch']} x {S2}: forward and gradients bitwise "
+          f"the stages in sequence; bubble share (S - 1) / (M + S - 1) = {S_ - 1}/"
+          f"{M_ + S_ - 1} = {bubble:.4f}; forward + backward {pipe_s:.2f} s pipelined, "
+          f"{seq_s:.2f} s in sequence (one card: the stages share it)")
+    del U, y_p, y_s, y_u, x, stage_blocks
+    check(ops.launch_counts() == NO_LAUNCHES,
+          f"the parallel/ paths launched a kernel: {ops.launch_counts()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print("[phase 18] " + json.dumps(report))
+    print(f"[phase 18] took {report['seconds']:.1f} s")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -5972,10 +6446,10 @@ def main() -> int:
     phase12(dev, smi, compare)
 
     # -- 13. the LM half's training path (ROADMAP A8) -------------------------
-    phase13(dev, smi, compare)
+    r13 = phase13(dev, smi, compare)
 
     # -- 14. the LM half's MoE family (ROADMAP A8) ----------------------------
-    phase14(dev, smi, compare)
+    r14 = phase14(dev, smi, compare)
 
     # -- 15. the LM half's MLA family: deepseek-v3 (ROADMAP A8) ---------------
     phase15(dev, smi, compare)
@@ -5985,6 +6459,9 @@ def main() -> int:
 
     # -- 17. the LM half's audio and VLM families (ROADMAP A8) ------------------
     phase17(dev, smi, compare)
+
+    # -- 18. the production mesh and parallel/ (ROADMAP A8.7) ------------------
+    phase18(dev, smi, compare, r13, r14)
 
     # -- results --------------------------------------------------------------
     kernels = []

@@ -143,13 +143,16 @@ def latest_step(ckpt_dir: Union[str, Path]) -> Optional[int]:
 
 
 def restore(ckpt_dir: Union[str, Path], like: Any, *, step: Optional[int] = None,
-            device=None, host: tuple = ()) -> tuple:
+            device=None, host: tuple = (), shardings: Any = None) -> tuple:
     """Restore the leaves named by the nested dict ``like`` (its leaves are
     placeholders: shapes come from the file).  Returns ``(step, tree)``
     with every leaf a tensor on ``device`` (default ``"cuda"``; raises
     without a card), except the subtrees whose top-level keys ``host``
-    names, which stay CPU tensors."""
-    dev = resolve_device(device)
+    names, which stay CPU tensors.  ``shardings``, a nested dict of
+    ``parallel.sharding.NamedSharding`` matching ``like``, places each leaf
+    on the CURRENT mesh instead (a ``Sharded``, its pieces on their cells'
+    devices): elastic restore, whatever mesh (or none) wrote the file."""
+    dev = torch.device("cpu") if shardings is not None else resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)          # also reaps dead-writer tmp dirs
@@ -168,6 +171,11 @@ def restore(ckpt_dir: Union[str, Path], like: Any, *, step: Optional[int] = None
             else:
                 t = torch.from_numpy(arr)
             flat[key] = t if key.split(_SEP, 1)[0] in host else t.to(dev)
+    if shardings is not None:
+        from ..parallel.sharding import place
+
+        sh = _flatten(shardings)
+        flat = {key: place(t, sh[key]) for key, t in flat.items()}
     return manifest["step"], _unflatten(flat)
 
 

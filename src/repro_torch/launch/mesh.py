@@ -4,9 +4,10 @@ Counterpart of ``repro/launch/mesh.py``.  The JAX package shards over a
 ``jax.sharding.Mesh`` of this host's devices and runs one ``shard_map``
 program across it.  The port keeps that single controller: a :class:`Mesh`
 is a named grid of ``torch.device``, and the sharded paths
-(``core/distributed.py``, ``bank/sharded.py``) place each shard's tensors
-on its grid cell and launch its kernels there, one shard after another
-from the one host thread (each card runs its own queue).
+(``core/distributed.py``, ``bank/sharded.py``, the LM half's
+``parallel/``) place each shard's tensors on its grid cell and launch its
+work there, one shard after another from the one host thread (each card
+runs its own queue).
 
 By default a mesh takes the visible CUDA devices and raises, naming the
 count, when fewer are visible than it asks for; it never moves to the CPU
@@ -24,8 +25,6 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-
-from ..core.gp import _not_ported
 
 __all__ = ["Mesh", "make_production_mesh", "make_local_mesh", "make_bank_mesh"]
 
@@ -78,9 +77,16 @@ def _grid(shape: tuple, names: tuple, devices: Optional[Sequence], who: str) -> 
     return Mesh(grid.reshape(shape), names)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The LM half's pod mesh, not ported yet."""
-    _not_ported("make_production_mesh", "LM half (ROADMAP A8)")
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> Mesh:
+    """The LM half's pod mesh: 16 x 16 = 256 cells over ("data", "model");
+    ``multi_pod`` adds the leading "pod" axis (2 x 16 x 16 = 512 cells).
+    Gradient sync across "pod" is a pure all-reduce; FSDP and TP stay
+    inside a pod (axes "data" and "model").  Over this host's cards (it
+    raises, naming the count, with fewer), or over ``devices``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _grid(shape, axes, devices, f"make_production_mesh(multi_pod={multi_pod})")
 
 
 def make_local_mesh(data: int = 1, model: int = 1, devices: Optional[Sequence] = None) -> Mesh:

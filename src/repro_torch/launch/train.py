@@ -13,8 +13,10 @@ loss), MLA (deepseek-v3, its MTP term in the loss), SSM (mamba2-130m),
 hybrid (zamba2-7b: the shared block's gradient summed over its
 invocations), VLM (llama-3.2-vision-11b) and audio (whisper-small); the
 latter two train on fixed ``extras`` (image embeddings or frames, drawn
-once from ``--seed``, bfloat16), merged into every batch.  A production
-mesh (``mesh=``) comes with A8's ``parallel/`` part.
+once from ``--seed``, bfloat16), merged into every batch.  ``build(mesh=)``
+places the parameters and the AdamW state on a mesh
+(``parallel.sharding.param_shardings`` / ``opt_state_shardings``); the
+step function then runs the sharded step of ``launch/steps.py``.
 """
 from __future__ import annotations
 
@@ -25,10 +27,10 @@ import torch
 
 from .. import optim
 from ..configs import ARCHS
-from ..core.gp import _not_ported
 from ..data import TokenStream
 from ..device import resolve_device
 from ..models import get_model, lm
+from ..parallel import sharding
 from ..runtime import TrainLoopConfig, train_loop
 from .serve import extra_input
 from .steps import make_train_step
@@ -40,13 +42,16 @@ def build(arch_id: str, *, smoke: bool, batch: int, seq: int, lr: float,
           mesh=None, seed: int = 0, device=None):
     """(cfg, model, params, opt_state, step_fn, stream, extras, shardings)
     as the reference's ``build`` returns them, on ``device`` (default the
-    card); ``shardings`` is ``(None, None)``.  ``extras`` holds the audio
+    card); ``shardings`` is ``(None, None)``.  With ``mesh`` (a
+    ``launch.mesh.Mesh``) the weights are drawn on ``device`` as without
+    it, then placed as pieces on the mesh's cells: ``params`` a
+    ``parallel.sharding.ShardedParams``, ``opt_state`` a dict of
+    ``Sharded`` leaves, ``shardings`` their ``(param_shardings,
+    opt_state_shardings)``.  ``extras`` holds the audio
     family's ``frames`` (batch, enc_len, d) or the VLM's ``img`` (batch,
     n_img_tokens, d): standard normal from numpy's generator at ``seed``,
     cast to float32 then bfloat16, as the reference draws them; {} for the
     other families."""
-    if mesh is not None:
-        _not_ported("launch.train.build(mesh=...)", "LM half's parallel/ part (ROADMAP A8)")
     dev = resolve_device(device)
     mod = ARCHS[arch_id]
     cfg = mod.SMOKE if smoke else mod.CONFIG
@@ -61,7 +66,13 @@ def build(arch_id: str, *, smoke: bool, batch: int, seq: int, lr: float,
     if spec is not None:
         x = np.random.default_rng(seed).standard_normal(spec[1]).astype(np.float32)
         extras[spec[0]] = torch.from_numpy(x).to(dev).to(torch.bfloat16)
-    return cfg, model, params, opt_state, step_fn, stream, extras, (None, None)
+    p_sh = o_sh = None
+    if mesh is not None:
+        p_sh = sharding.param_shardings(params, cfg, mesh)
+        o_sh = sharding.opt_state_shardings(opt_state, params, cfg, mesh)
+        params = sharding.place(params, p_sh)
+        opt_state = sharding.place(opt_state, o_sh)
+    return cfg, model, params, opt_state, step_fn, stream, extras, (p_sh, o_sh)
 
 
 def main(argv=None):

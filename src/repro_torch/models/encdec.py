@@ -22,6 +22,11 @@ scans over them; here a loop over the list does the same, each block under
 :func:`repro_torch.models.lm.leaves`, ``leaf_paths``, ``ref_ndims`` and
 ``trainable`` take this model as they take an ``LM``.
 
+Each block's residual input keeps the reference's sequence-parallel pin
+(``parallel.hints.constrain`` under ``cfg.sp_residual`` in the loss's
+``sp_scope``), which on the port's single controller returns its argument
+itself.
+
 The cache is the reference's: ``self_k`` / ``self_v`` (L, B, S, K, Dh),
 written at ``pos`` in place by every :func:`decode_step`, and ``cross_k``
 / ``cross_v`` (L, B, enc_len, K, Dh), the encoder output's keys and
@@ -38,6 +43,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..parallel import hints
 from . import layers
 from .config import ModelConfig
 from .lm import _Block, _assemble, _dtype, _pdict, _remat, _shift, xent_chunked
@@ -165,7 +171,14 @@ def _run(body, blocks, x, cfg: ModelConfig, *args):
     return x
 
 
+def _sp_pin(h, cfg: ModelConfig):
+    if cfg.sp_residual and hints.sp_enabled():
+        h = hints.constrain(h, ("dp", "model", None))
+    return h
+
+
 def _enc_block(lp, h, cfg: ModelConfig):
+    h = _sp_pin(h, cfg)
     eps = cfg.norm_eps
     h = h + layers.attn_apply(lp["attn"], _ln(h, lp["ln1"], eps), cfg, causal=False,
                               use_rope=False)
@@ -187,6 +200,7 @@ def _dec_block(lp, h, cfg: ModelConfig, enc_out, cache_out=None):
     """One decoder block over the sequence; ``cache_out`` (self k, self v,
     cross k, cross v of this layer), if given, receives its keys and
     values."""
+    h = _sp_pin(h, cfg)
     eps = cfg.norm_eps
     a, (sk, sv) = layers.attn_apply(lp["self_attn"], _ln(h, lp["ln1"], eps), cfg,
                                     causal=True, use_rope=False, return_kv=True)
@@ -233,8 +247,10 @@ def loss_fn(params: EncDec, batch, cfg: ModelConfig):
     term)."""
     tokens = batch["tokens"].to(params.device)
     B, S = tokens.shape
-    enc_out = encode(params, batch["frames"], cfg)
-    h = _decode_full(params, tokens, enc_out, cfg)
+    with hints.sp_scope(True):
+        enc_out = encode(params, batch["frames"], cfg)
+        h = _decode_full(params, tokens, enc_out, cfg)
+    h = hints.constrain(h, ("dp", None, None))
     labels = _shift(tokens, tokens.dtype)
     mask = _shift(torch.ones((B, S), dtype=torch.float32, device=tokens.device),
                   torch.float32)

@@ -12,9 +12,9 @@ Conventions (the reference's):
 Both attention routes are written out in plain PyTorch, as the reference
 writes them in ``jnp``: no fused attention operator stands in for them.
 The projections and MLP products are plain products, as in the reference
-(which leaves them to XLA): ``@``.  The reference's sharding hints
-(``parallel/hints.constrain``) are the identity without a mesh; they are
-left out here and come back with A8's production-mesh part.
+(which leaves them to XLA): ``@``.  The reference's layer library holds
+no sharding pin; its callers' pins (``parallel.hints.constrain``) stand in
+:mod:`.lm`, :mod:`.mla`, :mod:`.ssm` and :mod:`.encdec`.
 """
 from __future__ import annotations
 

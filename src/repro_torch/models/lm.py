@@ -66,9 +66,12 @@ block too, and :func:`xent_chunked` recomputes each chunk's logits in the
 backward pass, so neither pass holds a (B, S, V) tensor.  :func:`leaves`
 names the trainable tensors in the reference's tree order.
 
-The reference's sequence-parallel pins (``hints.constrain``,
-``cfg.sp_residual``) are the identity on one device; they come back with
-A8's ``parallel/`` part.
+The reference's sequence-parallel pins stand where it has them
+(``parallel.hints.constrain`` of the embeddings, of a mamba block's input
+under ``cfg.ssm_seq_parallel``, of each block's residual input under
+``cfg.sp_residual`` in a train step's ``sp_scope``, and of the loss's
+hidden states); on the port's single controller a pin returns its
+argument itself, so no value changes under a mesh.
 """
 from __future__ import annotations
 
@@ -81,6 +84,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..parallel import hints
 from . import layers, mla, moe, ssm
 from .config import ModelConfig
 
@@ -372,6 +376,11 @@ def _block_apply(lp, x, cfg: ModelConfig, cache_out=None, img=None):
     mamba block's two conv windows and SSM state; a cross block's image K/V),
     if given, receive the block's keys and values (its latents; the states a
     decode continues from).  A cross block attends to ``img`` (B, T, d)."""
+    if (lp.SSM and cfg.ssm_seq_parallel and x.ndim == 3
+            and (cfg.family == "ssm" or hints.sp_enabled())):
+        # sequence-parallel SSM: per-token work shards over 'model' on the
+        # sequence axis (the hybrid scopes it to training, ssm._ssm_mode)
+        x = hints.constrain(x, ("dp", "model", None))
     h = layers.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if lp.SSM:
         if cache_out is None:
@@ -417,6 +426,9 @@ def _run_stack(blocks, x, cfg: ModelConfig, cache_entries=None, img=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kw = {} if img is None else {"img": img}
     for l, lp in enumerate(blocks):
+        if cfg.sp_residual and hints.sp_enabled() and x.ndim == 3:
+            # the saved-for-backward residual stack, sequence-sharded
+            x = hints.constrain(x, ("dp", "model", None))
         if cache_entries is None and cfg.remat and _remat(x, lp):
             x, a = checkpoint(_block_apply, lp, x, cfg, None, use_reentrant=False,
                               preserve_rng_state=False, **kw)
@@ -446,7 +458,7 @@ def forward(params: LM, batch, cfg: ModelConfig, *, cache=None):
     mamba layer's conv windows and SSM state, and every cross block's image
     K/V.  With ``cfg.remat`` and gradients on (a train step), each block's
     activations are recomputed in the backward pass."""
-    x = _embed(params, batch["tokens"], cfg)
+    x = hints.constrain(_embed(params, batch["tokens"], cfg), ("dp", None, None))
     img = _img(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blocks, entries in _segments(params, cache):
@@ -529,7 +541,9 @@ def loss_fn(params: LM, batch, cfg: ModelConfig):
     labels = _shift(tokens, tokens.dtype)
     mask = _shift(torch.ones((B, S), dtype=torch.float32, device=tokens.device),
                   torch.float32)
-    h, aux = forward(params, {**batch, "tokens": tokens}, cfg)
+    with hints.sp_scope(True):
+        h, aux = forward(params, {**batch, "tokens": tokens}, cfg)
+    h = hints.constrain(h, ("dp", None, None))
     emb_out = _unembed(params, cfg)
     loss_sum, count = xent_chunked(h, emb_out, labels, mask, cfg.logits_chunk)
     loss = loss_sum / torch.clamp(count, min=1.0)

@@ -16,8 +16,10 @@ both score products in float32 and scales their sum.  Its float32
 products need TF32 off on the card, PyTorch's default for matmul (the
 package's ``__init__`` sets it off again).
 
-The reference's sharding pins (``hints.constrain``) are the identity on
-one device; they come back with A8's ``parallel/`` part.
+The absorbed decode keeps the reference's sharding pins
+(``parallel.hints.constrain`` of q, q_abs, the scores and the latent
+context); on the port's single controller a pin returns its argument
+itself.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import math
 
 import torch
 
+from ..parallel import hints
 from .layers import dense_init, gqa_attention, rmsnorm, rope
 
 __all__ = ["mla_init", "mla_apply", "mla_prefill_cache", "mla_decode"]
@@ -113,6 +116,8 @@ def mla_decode(p, x, cfg, cache, pos: int):
     f32 = torch.float32
 
     q_nope, q_rope = _q_proj(p, x, cfg)                 # (B,1,H,dn), (B,1,H,dr)
+    q_nope = hints.constrain(q_nope, ("dp", None, None, None))
+    q_rope = hints.constrain(q_rope, ("dp", None, None, None))
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q_rope = rope(q_rope, posv, cfg.rope_theta)
 
@@ -125,15 +130,18 @@ def mla_decode(p, x, cfg, cache, pos: int):
     w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]             # (kvr,H,dn),(kvr,H,dv)
 
     q_abs = torch.einsum("bqhd,khd->bqhk", q_nope, w_uk)      # (B,1,H,kvr), x's dtype
+    q_abs = hints.constrain(q_abs, ("dp", None, None, None))
     scale = 1.0 / math.sqrt(dn + dr)
     logits = (
         torch.einsum("bqhk,bsk->bhqs", q_abs.to(f32), ckv_c.to(f32))
         + torch.einsum("bqhd,bsd->bhqs", q_rope.to(f32), k_rope_c.to(f32))
     ) * scale
+    logits = hints.constrain(logits, ("dp", None, None, "model"))     # S-local
     spos = torch.arange(cache.shape[1], device=x.device)
     # a Python fill value: no host-to-device copy, so the step can be graphed
     logits = logits.masked_fill((spos > pos)[None, None, None, :], -1e30)
     probs = torch.softmax(logits, dim=-1)
     ctx = torch.einsum("bhqs,bsk->bqhk", probs, ckv_c.to(f32))           # latent ctx
+    ctx = hints.constrain(ctx, ("dp", None, None, None))
     out = torch.einsum("bqhk,khd->bqhd", ctx.to(x.dtype), w_uv)          # (B,1,H,dv)
     return out.reshape(B, 1, H * dv) @ p["wo"], cache

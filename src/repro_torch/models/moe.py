@@ -35,18 +35,35 @@ Where the port departs from the reference's operations, and why:
   the gates cast to x's dtype before the combine, the expert products and
   the combine in x's dtype.
 
-``moe_apply_sharded``, the expert-parallel path under a production mesh,
-comes with ``parallel/`` (ROADMAP A8); without a mesh ``moe_dispatch`` is
-``moe_apply``, as in the reference when no mesh is active.
+``moe_apply_sharded`` is the reference's expert-parallel path under an
+active mesh (``parallel.hints.activate``), on A5's single controller: each
+(pod, data, model) cell holds E / model experts and its T / dp tokens, and
+the host runs every cell's work on the cell's device, in cell order.  The
+reference's collectives become host-ordered ``torch.cat`` and sums over
+the cells: the all-gather of the tokens over 'data', the serve mode's
+psum over 'data' of the partial products, the FSDP gather of the expert
+weights at use, and the one combining psum over 'model'.  Both branches
+are the reference's: the serve mode ((T_g k) // E <= 64 with FSDP: the
+pod's tokens gathered, the expert pieces never move, each data member
+contracting its d_model slice) and the branch that gathers the expert
+weights at use.  Capacity is taken per dp shard (``capacity(T_l)``; the
+serve mode's over the pod's T_g tokens), as in the reference.  An expert
+leaf given as a :class:`~repro_torch.parallel.sharding.Sharded` placed on
+the mesh with this path's spec is used piece by piece; a whole tensor is
+sliced cell by cell (differentiably).  ``moe_dispatch`` takes this path
+when a mesh is active, E divides the 'model' axis and T the dp size, and
+``moe_apply`` (a ``Sharded`` leaf gathered first) otherwise.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.gp import _not_ported
+from ..parallel import hints
+from ..parallel.sharding import NamedSharding, PartitionSpec as P, Sharded
 from .layers import dense_init
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_sharded", "moe_dispatch", "capacity"]
@@ -215,12 +232,142 @@ def moe_apply(p, x, cfg):
     return y, aux
 
 
+def _whole(p, device) -> dict:
+    """``p`` with every :class:`Sharded` leaf gathered onto ``device``."""
+    return {k: v.gather(device) if isinstance(v, Sharded) else v for k, v in p.items()}
+
+
 def moe_apply_sharded(p, x, cfg):
-    """The expert-parallel path under a production mesh: not ported yet."""
-    _not_ported("moe_apply_sharded", "LM half's parallel/ part (ROADMAP A8)")
+    """The expert-parallel path under the active mesh (see the module's
+    docstring).  x: (T, d), the GLOBAL flattened tokens, the dp shard r
+    holding rows [r T / dp, (r + 1) T / dp).  Returns (y (T, d) on x's
+    device, aux: the mean of the dp shards' load-balance losses)."""
+    mesh = hints.active_mesh()
+    if mesh is None:
+        raise ValueError("moe_apply_sharded runs under a mesh: wrap the call in "
+                         "parallel.hints.activate(mesh)")
+    pod_axis = "pod" in mesh.axis_names
+    npod = mesh.shape.get("pod", 1)
+    msize = mesh.shape["model"]
+    dsize = mesh.shape["data"]
+    dp_size = npod * dsize
+    T, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    E_local = E // msize
+    T_l = T // dp_size
+    C = capacity(T_l, cfg)
+    fsdp = cfg.fsdp and d % dsize == 0
+
+    specs = {
+        "router": P(None, None),
+        "wg": P("model", "data", None) if fsdp else P("model", None, None),
+        "wu": P("model", "data", None) if fsdp else P("model", None, None),
+        "wd": P("model", None, "data") if fsdp else P("model", None, None),
+    }
+    if "shared_wg" in p:
+        specs.update(shared_wg=P(None, "model"), shared_wu=P(None, "model"),
+                     shared_wd=P("model", None))
+    shardings = {n: NamedSharding(mesh, s) for n, s in specs.items()}
+    # a leaf placed with this path's spec is used piece by piece; any other
+    # is taken whole (gathered first if placed otherwise) and sliced a cell
+    leaf = {}
+    for n, sh in shardings.items():
+        v = p[n]
+        placed = isinstance(v, Sharded) and v.spec == sh.spec and v.mesh is mesh
+        leaf[n] = v if placed or not isinstance(v, Sharded) else v.gather(x.device)
+
+    def cell(pod, i, j):
+        return (pod, i, j) if pod_axis else (i, j)
+
+    def piece(name, c):
+        v = leaf[name]
+        if isinstance(v, Sharded):
+            return v.piece(c)
+        b = shardings[name].bounds(c, v.shape)
+        return v[tuple(slice(*s) for s in b)].to(mesh.devices[c])
+
+    # serve mode: when tokens-per-expert is tiny (decode), moving the expert
+    # weights through FSDP gathers costs more than the tokens: gather the
+    # pod's tokens over 'data', keep the weights where they are, contract
+    # each member's d_model slice, and sum the small partial products
+    T_g = T_l * dsize                       # tokens per pod row after the gather
+    serve_mode = fsdp and (T_g * k) // max(E, 1) <= 64
+    C_g = capacity(T_g, cfg)
+    rows = [x[r * T_l:(r + 1) * T_l] for r in range(dp_size)]
+
+    def serve_column(pod, j):
+        """The serve mode's routed output of model column j of one pod:
+        {data member i: (its T_l rows' partial y on its device, aux)}."""
+        c0 = cell(pod, 0, j)
+        dev0 = mesh.devices[c0]
+        x_g = torch.cat([rows[pod * dsize + i].to(dev0) for i in range(dsize)])
+        topv, topi, aux = _route({"router": piece("router", c0)}, x_g, cfg)
+        tok, w, slot_of = _dispatch_tables(topi, topv, T_g, k, C_g, j * E_local, E_local,
+                                           x_g.dtype)
+        dloc = d // dsize
+        xe = _Dispatch.apply(x_g, tok, slot_of).reshape(E_local, C_g, d)
+        gh = uh = None
+        for i in range(dsize):              # the psum over 'data', in cell order
+            c = cell(pod, i, j)
+            xg = xe[..., i * dloc:(i + 1) * dloc].to(mesh.devices[c])
+            pg = torch.bmm(xg, piece("wg", c)).to(dev0)
+            pu = torch.bmm(xg, piece("wu", c)).to(dev0)
+            gh, uh = (pg, pu) if gh is None else (gh + pg, uh + pu)
+        h = F.silu(gh) * uh
+        y_parts = []
+        for i in range(dsize):
+            c = cell(pod, i, j)
+            dev = mesh.devices[c]
+            ye = torch.bmm(h.to(dev), piece("wd", c)).reshape(E_local * C_g, dloc)
+            y_p = _Combine.apply(ye * w.to(dev)[:, None], slot_of.to(dev), tok.to(dev))
+            y_parts.append(y_p.to(dev0))
+        y_full = torch.cat(y_parts, dim=1)  # the all-gather over 'data' of d_model
+        return {i: (y_full[i * T_l:(i + 1) * T_l].to(mesh.devices[cell(pod, i, j)]), aux)
+                for i in range(dsize)}
+
+    out, auxes = [], []
+    for pod in range(npod):
+        served = ([serve_column(pod, j) for j in range(msize)] if serve_mode else None)
+        for i in range(dsize):
+            r = pod * dsize + i
+            y = aux_r = None
+            for j in range(msize):
+                c = cell(pod, i, j)
+                dev = mesh.devices[c]
+                x_l = rows[r].to(dev)
+                if serve_mode:
+                    y_c, aux = served[j][i]
+                else:
+                    wg, wu, wd = piece("wg", c), piece("wu", c), piece("wd", c)
+                    if fsdp:                 # manual ZeRO-3: gather the experts at use
+                        def gathered(name, axis):
+                            return torch.cat([piece(name, cell(pod, i2, j)).to(dev)
+                                              for i2 in range(dsize)], dim=axis)
+
+                        wg, wu, wd = gathered("wg", 1), gathered("wu", 1), gathered("wd", 2)
+                    topv, topi, aux = _route({"router": piece("router", c)}, x_l, cfg)
+                    tok, w, slot_of = _dispatch_tables(topi, topv, T_l, k, C, j * E_local,
+                                                       E_local, x_l.dtype)
+                    y_c = _expert_ffn(x_l, tok, w, wg, wu, wd, T_l, d, C, slot_of)
+                if "shared_wg" in p:
+                    g = F.silu(x_l @ piece("shared_wg", c)) * (x_l @ piece("shared_wu", c))
+                    y_c = y_c + g @ piece("shared_wd", c)   # partial over 'model'
+                y_c = y_c.to(x.device)
+                y = y_c if y is None else y + y_c           # the combining psum over 'model'
+                if aux_r is None:
+                    aux_r = aux.to(x.device)
+            out.append(y)
+            auxes.append(aux_r)
+    return torch.cat(out), torch.mean(torch.stack(auxes))
 
 
 def moe_dispatch(p, x, cfg):
-    """The execution path: ``moe_apply`` (the port has no production mesh
-    yet, so the reference's expert-parallel branch never applies)."""
-    return moe_apply(p, x, cfg)
+    """The execution path: the expert-parallel ``moe_apply_sharded`` when
+    a mesh is active, the expert count divides its 'model' axis and the
+    tokens its dp size; ``moe_apply`` otherwise."""
+    mesh = hints.active_mesh()
+    if mesh is not None and cfg.n_experts % mesh.shape["model"] == 0:
+        dp_size = int(np.prod([mesh.shape[a] for a in hints.dp_axes(mesh)]))
+        if x.shape[0] % dp_size == 0:
+            return moe_apply_sharded(p, x, cfg)
+    return moe_apply(_whole(p, x.device), x, cfg)

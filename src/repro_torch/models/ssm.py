@@ -18,18 +18,20 @@ casts dt (softplus in float32) and A = -exp(A_log) to the model dtype
 exp(dt A) in float32 and then casts it; the SSM state is kept in the model
 dtype; ``A_log``, ``D``, ``dt_bias`` and ``norm_w`` are float32 leaves.
 
-The reference's sequence-parallel pins (``_ssm_mode`` and ``_act``,
-``cfg.ssm_seq_parallel``) are the identity when no mesh is active; they
-are left out here and come back with A8's ``parallel/`` part.
+The reference's sequence-parallel pins stand where it has them
+(``_ssm_mode`` and ``_act``, under ``cfg.ssm_seq_parallel``); on the port's
+single controller a pin returns its argument itself.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import hints
 from .layers import dense_init, rmsnorm
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_prefill", "mamba_decode", "ssd_chunked"]
@@ -154,18 +156,56 @@ def _causal_depthwise_conv(xBC, w, b):
     return out + b
 
 
+def _ssm_mode(cfg) -> str:
+    """'sp_tp': Megatron-SP (a sequence-sharded residual, a channel- or
+    head-sharded interior); 'sp_only': replicated weights, everything
+    sequence-sharded (heads do not divide the model axis); 'off': no mesh
+    active, or a hybrid outside training (its attention blocks need the
+    whole sequence).  'sp_tp' only under ``REPRO_SSM_TP=1``, as in the
+    reference."""
+    mesh = hints.active_mesh()
+    if mesh is None or not cfg.ssm_seq_parallel:
+        return "off"
+    if cfg.family == "hybrid" and not hints.sp_enabled():
+        return "off"
+    msize = mesh.shape.get("model", 1)
+    if (os.environ.get("REPRO_SSM_TP") == "1"
+            and cfg.ssm_heads % msize == 0 and cfg.d_inner % msize == 0):
+        return "sp_tp"
+    return "sp_only"
+
+
+def _act(t, cfg, role: str):
+    """The mode's sharding pin for (b, l, ch...) activations."""
+    mode = _ssm_mode(cfg)
+    if mode == "off":
+        return t
+    tail = (None,) * (t.ndim - 3)
+    if mode == "sp_only":
+        return hints.constrain(t, ("dp", "model", None) + tail)
+    if role == "chan":      # z / x / dt: channel- or head-sharded, whole sequence
+        return hints.constrain(t, ("dp", None, "model") + tail)
+    if role == "bc":        # B/C: small, every head shard needs all of it
+        return hints.constrain(t, ("dp", None, None) + tail)
+    if role == "seq":       # the residual exit: back to sequence-sharded
+        return hints.constrain(t, ("dp", "model", None) + tail)
+    raise ValueError(role)
+
+
 def _project(p, u, cfg, raw=None):
     """u (b, l, d) -> z (b,l,din), x_conv (b,l,din), BC_conv (b,l,2gn),
     dt_raw (b,l,h); conv+silu applied (the depthwise conv factorizes exactly
     across the x | BC split).  ``raw``, a list, receives the projections
     before the conv (x, then BC)."""
-    z = u @ p["in_z"]
+    z = _act(u @ p["in_z"], cfg, "chan")
     x_raw, bc_raw = u @ p["in_x"], u @ p["in_BC"]
     if raw is not None:
         raw += [x_raw, bc_raw]
-    xc = F.silu(_causal_depthwise_conv(x_raw, p["conv_x_w"], p["conv_x_b"]))
-    bc = F.silu(_causal_depthwise_conv(bc_raw, p["conv_BC_w"], p["conv_BC_b"]))
-    return z, xc, bc, u @ p["in_dt"]
+    xc = _act(F.silu(_causal_depthwise_conv(x_raw, p["conv_x_w"], p["conv_x_b"])), cfg,
+              "chan")
+    bc = _act(F.silu(_causal_depthwise_conv(bc_raw, p["conv_BC_w"], p["conv_BC_b"])), cfg,
+              "bc")
+    return z, xc, bc, _act(u @ p["in_dt"], cfg, "chan")
 
 
 def _split_heads(xc, bc, cfg):
@@ -186,8 +226,9 @@ def _mamba(p, u, cfg, init_state=None, raw=None):
     y, state = ssd_chunked(x, dt.to(u.dtype), A.to(u.dtype), B, C, cfg.ssm_chunk,
                            init_state=init_state)
     y = y + x * p["D"].to(u.dtype)[None, None, :, None]
-    y = rmsnorm(y.reshape(b, l, cfg.d_inner) * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"], state
+    y = _act(y.reshape(b, l, cfg.d_inner), cfg, "chan")
+    y = rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    return _act(y @ p["out_proj"], cfg, "seq"), state
 
 
 def mamba_apply(p, u, cfg, *, return_state: bool = False, init_state=None):

@@ -62,11 +62,11 @@ def _lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(lr, dtype=torch.float32, device=step.device)
 
 
-def _prepare(grads: dict, state: dict, cfg: AdamWConfig):
-    """The step's shared scalars: (step, grad norm, clip scale or None, lr,
-    c1, c2)."""
+def _prepare(grads: dict, state: dict, cfg: AdamWConfig, gnorm=None):
+    """The step's shared scalars: (step, grad norm (``gnorm`` where given),
+    clip scale or None, lr, c1, c2)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -119,7 +119,8 @@ CHUNK = {"cpu": 1 << 20, "cuda": 1 << 26}
 
 @torch.no_grad()
 def apply_updates_(params: dict, grads: dict, state: dict, cfg: AdamWConfig, *,
-                   ndims: Optional[dict] = None) -> dict:
+                   ndims: Optional[dict] = None,
+                   grad_norm: Optional[torch.Tensor] = None) -> dict:
     """:func:`apply_updates` written into ``params`` and ``state`` in place,
     leaf by leaf and, within a leaf, :data:`CHUNK` elements of its device
     at a time: the port's form of the reference's
@@ -128,8 +129,11 @@ def apply_updates_(params: dict, grads: dict, state: dict, cfg: AdamWConfig, *,
     :func:`apply_updates`, bit for bit.  ``ndims`` gives a leaf's rank in
     the reference's tree where it differs from the tensor's (an LM block's
     leaf is stacked over layers there, so its norms and biases are
-    decayed): the default decay rule reads it.  Returns the metrics."""
-    step, gnorm, scale, lr, c1, c2 = _prepare(grads, state, cfg)
+    decayed): the default decay rule reads it.  ``grad_norm``, where given,
+    is the clip's global norm (a sharded step's, over every piece of the
+    model, where ``grads`` holds one device's pieces).  Returns the
+    metrics."""
+    step, gnorm, scale, lr, c1, c2 = _prepare(grads, state, cfg, grad_norm)
     for k, p in params.items():
         s = state["mu"][k]
         decay = _decay(p, p.ndim if ndims is None else ndims[k], cfg)

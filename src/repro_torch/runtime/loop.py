@@ -17,8 +17,15 @@ Counterpart of ``repro/runtime/loop.py``, with its behaviours:
 checkpoint is the reference's tree (``models.convert.train_state_to_jax``),
 so either package resumes the other's run from the same directory.  A step
 ends with a read of its loss, which waits for the device (the reference's
-``block_until_ready``).  Elastic restore onto a mesh (``shardings=``)
-comes with A8's ``parallel/`` part.
+``block_until_ready``).
+
+Under a mesh ``params`` is a ``parallel.sharding.ShardedParams`` (or a
+dict of ``Sharded`` leaves) and ``opt_state`` a dict of ``Sharded``
+leaves; a checkpoint gathers them to the host and holds the same tree.
+``shardings=(param_shardings, opt_state_shardings)`` restores a
+checkpoint, written on any mesh or on none, into the CURRENT mesh's
+pieces: elastic restore (an unsharded model and state given with
+``shardings`` come back placed).
 """
 from __future__ import annotations
 
@@ -31,8 +38,8 @@ import numpy as np
 import torch
 
 from .. import checkpoint
-from ..core.gp import _not_ported
 from ..models import convert
+from ..parallel.sharding import ShardedParams, gather_tree, place
 
 __all__ = ["TrainLoopConfig", "train_loop"]
 
@@ -59,23 +66,50 @@ def _device(tree) -> torch.device:
 
 
 def _state(params, opt_state) -> dict:
-    """The checkpoint's tree, ``{"params", "opt"}``."""
+    """The checkpoint's tree, ``{"params", "opt"}`` (placed leaves gathered
+    to the host)."""
+    if isinstance(params, ShardedParams):
+        params = params.materialize("cpu")
+        opt_state = gather_tree(opt_state, "cpu")
     if isinstance(params, torch.nn.Module):          # an LM or an EncDec
         return convert.train_state_to_jax(params, opt_state)
-    return {"params": params, "opt": opt_state}
+    return {"params": gather_tree(params, "cpu"), "opt": gather_tree(opt_state, "cpu")}
 
 
-def _restore(ckpt_dir, params, opt_state):
+def _shardings_of(tree):
+    if isinstance(tree, dict):
+        return {k: _shardings_of(v) for k, v in tree.items()}
+    return tree.sharding
+
+
+def _restore(ckpt_dir, params, opt_state, shardings=None):
     """(step, params, opt_state) from the latest checkpoint; a model (an LM
-    or an EncDec) and its AdamW state are written in place."""
+    or an EncDec) and its AdamW state are written in place.  With
+    ``shardings`` every leaf comes back placed on the current mesh (a
+    ``ShardedParams`` and its state, given without, on their own
+    shardings)."""
+    if isinstance(params, ShardedParams):
+        shardings = shardings or (params.shardings(), _shardings_of(opt_state))
+        # host tensors for the file's values to land in
+        params, opt_state = params.empty("cpu"), _empty_like(opt_state)
     if isinstance(params, torch.nn.Module):
         step, tree = checkpoint.restore(ckpt_dir, convert.train_state_keys(params),
                                         device="cpu")
         convert.load_train_state(params, opt_state, tree)
+        if shardings is not None:
+            params, opt_state = place(params, shardings[0]), place(opt_state, shardings[1])
         return step, params, opt_state
-    step, tree = checkpoint.restore(ckpt_dir, {"params": params, "opt": opt_state},
-                                    device=_device(params) or "cpu")
+    step, tree = checkpoint.restore(
+        ckpt_dir, {"params": params, "opt": opt_state}, device=_device(params) or "cpu",
+        shardings=None if shardings is None else {"params": shardings[0],
+                                                  "opt": shardings[1]})
     return step, tree["params"], tree["opt"]
+
+
+def _empty_like(tree):
+    if isinstance(tree, dict):
+        return {k: _empty_like(v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype)
 
 
 def train_loop(
@@ -88,14 +122,13 @@ def train_loop(
     shardings: tuple | None = None,
     log_fn: Callable[[str], None] = print,
 ):
-    if shardings is not None:
-        _not_ported("train_loop(shardings=...)", "LM half's parallel/ part (ROADMAP A8)")
     start_step = 0
     ckpt = None
     if cfg.ckpt_dir:
         ckpt = checkpoint.AsyncCheckpointer(cfg.ckpt_dir)
         if checkpoint.latest_step(cfg.ckpt_dir) is not None:
-            start_step, params, opt_state = _restore(cfg.ckpt_dir, params, opt_state)
+            start_step, params, opt_state = _restore(cfg.ckpt_dir, params, opt_state,
+                                                     shardings)
             log_fn(f"[restore] resumed from step {start_step}")
 
     preempted = {"flag": False}

@@ -204,29 +204,67 @@ def _lm_model(arch):
 
 
 REFUSALS = {
-    "make_production_mesh": (lambda tp: t_mesh.make_production_mesh(), "A8", "LM"),
-    # the LM half's training path runs on one device; a mesh is parallel/'s
-    "train_loop(shardings)": (lambda tp: t_runtime.train_loop(
-        None, {}, {}, None, t_runtime.TrainLoopConfig(steps=1), shardings=(None, None)),
-        "A8", "LM"),
-    "launch.train.build(mesh)": (lambda tp: t_train.build(
-        "qwen2-1.5b", smoke=True, batch=1, seq=8, lr=1e-3, mesh=object(), device="cpu"),
-        "A8", "LM"),
+    # the HLO lowerings wait for the LM half's dry run (ROADMAP A8.8)
     "lower_fit": (lambda tp: t_dist.lower_fit(None, t_mesh.make_local_mesh(devices=["cpu"])),
                   "A8", "LM"),
     "lower_predict": (lambda tp: t_dist.lower_predict(
         None, t_mesh.make_local_mesh(devices=["cpu"])), "A8", "LM"),
-    # the expert-parallel MoE path is parallel/'s
-    "moe_apply_sharded": (lambda tp: _moe_sharded(), "A8", "LM"),
 }
 
 
+def _mesh(data=2, model=2):
+    return t_mesh.make_local_mesh(data, model, devices=["cpu"] * (data * model))
+
+
 def _moe_sharded():
+    """The expert-parallel MoE path runs under a mesh and equals the dense
+    path where nothing drops."""
     from repro_torch.models import moe as t_moe
+    from repro_torch.parallel import hints
 
     cfg = t_configs.ARCHS["olmoe-1b-7b"].SMOKE
     p = t_moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
-    t_moe.moe_apply_sharded(p, torch.zeros((4, cfg.d_model)), cfg)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((8, cfg.d_model))
+                         .astype(np.float32))
+    with hints.activate(_mesh()):
+        y, aux = t_moe.moe_apply_sharded(p, x, cfg)
+    return bool(torch.allclose(y, t_moe.moe_apply(p, x, cfg)[0], rtol=1e-5, atol=1e-6)
+                and torch.isfinite(aux))
+
+
+def _build_on_mesh():
+    """``build(mesh=)`` places the state; its step trains the pieces."""
+    from repro_torch.parallel import sharding
+
+    cfg, model, params, opt, step, stream, extras, sh = t_train.build(
+        "qwen2-1.5b", smoke=True, batch=2, seq=8, lr=1e-3, mesh=_mesh(), device="cpu")
+    before = params.leaves["tok_emb"].gather("cpu")
+    _, _, m = step(params, opt, stream.batch(0, extras, device="cpu"))
+    return (isinstance(params, sharding.ShardedParams) and sh[0] == params.shardings()
+            and bool(torch.isfinite(m["loss"]))
+            and not torch.equal(before, params.leaves["tok_emb"].gather("cpu")))
+
+
+def _elastic_restore(tmp_path):
+    """An unsharded run's checkpoint restores into a mesh's pieces through
+    ``train_loop(shardings=)``."""
+    from repro_torch.models import lm as t_lm
+
+    def run(mesh):
+        cfg, model, params, opt, step, stream, extras, sh = t_train.build(
+            "qwen2-1.5b", smoke=True, batch=2, seq=8, lr=1e-3, mesh=mesh, device="cpu",
+            seed=int(mesh is not None))
+        return t_runtime.train_loop(
+            step, params, opt, lambda s: stream.batch(s, extras, device="cpu"),
+            t_runtime.TrainLoopConfig(steps=1, ckpt_dir=str(tmp_path), handle_signals=False,
+                                      async_ckpt=False),
+            shardings=None if mesh is None else sh, log_fn=lambda s: None)
+
+    p1, _, _ = run(None)
+    p2, _, rep = run(_mesh())
+    return rep["final_step"] == 1 and all(
+        torch.equal(a, b) for a, b in zip(t_lm.leaves(p1).values(),
+                                          t_lm.leaves(p2.materialize("cpu")).values()))
 
 
 def _opt_bank():
@@ -279,8 +317,9 @@ def _sharded_fleet_matches_unsharded():
         abs(h["rmse"] - g["rmse"]) < 1e-5 for h, g in zip(out["rounds"], flat["rounds"]))
 
 
-# the calls ROADMAP A2, A3, A4, A5, A6 and A8's training, MoE, MLA and SSM
-# parts refused until they were ported, and what each now returns
+# the calls ROADMAP A2, A3, A4, A5, A6 and A8's training, MoE, MLA, SSM, audio
+# and VLM and parallel/ parts refused until they were ported, and what each
+# now returns
 PORTED = {
     "GPBank.downdate": lambda tp: _bank()[0].downdate(
         [0], tt(gp_data(16, 2, 0)[0][None, :2]), tt(gp_data(16, 2, 0)[1][None, :2]))[1].tolist()
@@ -334,6 +373,12 @@ PORTED = {
     # ROADMAP A8, the LM half's audio and VLM part
     "get_model(audio)": lambda tp: _extras_model("whisper-small"),
     "get_model(vlm)": lambda tp: _extras_model("llama-3.2-vision-11b"),
+    # ROADMAP A8.7, parallel/ and the production mesh
+    "make_production_mesh": lambda tp: t_mesh.make_production_mesh(
+        devices=["cpu"] * 256).shape == {"data": 16, "model": 16},
+    "train_loop(shardings)": _elastic_restore,
+    "launch.train.build(mesh)": lambda tp: _build_on_mesh(),
+    "moe_apply_sharded": lambda tp: _moe_sharded(),
 }
 
 
@@ -448,8 +493,8 @@ def _value_error(call) -> str:
 @pytest.mark.parametrize("name", sorted(PORTED))
 def test_formerly_refused_call_works(name, tmp_path):
     """Each call that named ROADMAP A2, A3, A4, A5, A6 or A8's training, MoE,
-    MLA, SSM or audio and VLM part in its refusal now runs (the window without a cold tier
-    raises the JAX package's ValueError)."""
+    MLA, SSM, audio and VLM or parallel/ part in its refusal now runs (the
+    window without a cold tier raises the JAX package's ValueError)."""
     assert PORTED[name](tmp_path)
 
 

@@ -38,7 +38,6 @@ from hypothesis import strategies as st  # noqa: E402
 
 from repro.configs import ARCHS as JARCHS  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
-from repro_torch.core.approximation import UnsupportedError  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.config import ModelConfig as TConfig  # noqa: E402
 
@@ -372,9 +371,25 @@ def test_moe_init_leaves_and_dtypes():
 
 
 def test_moe_apply_sharded_refuses_naming_a8():
-    _, tcfg, _, tp, x = _setup("smoke")
-    with pytest.raises(UnsupportedError, match="ROADMAP A8"):
+    """The expert-parallel path is ported (ROADMAP A8.7): it refuses only a
+    call without an active mesh, naming what it needs; under a (2, 2)
+    mesh of the CPU it equals the JAX package's dense path on the SMOKE
+    config (nothing drops at its capacity factor) at the float32 gate."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import hints
+
+    jcfg, tcfg, jp, tp, x = _setup("smoke")
+    with pytest.raises(ValueError, match="parallel.hints.activate"):
         tmoe.moe_apply_sharded(tp, torch.from_numpy(x), tcfg)
+    with hints.activate(make_local_mesh(2, 2, devices=["cpu"] * 4)):
+        y, aux = tmoe.moe_apply_sharded(tp, torch.from_numpy(x), tcfg)
+    jy, jaux = jmoe.moe_apply(jp, jnp.asarray(x), jcfg)
+    np.testing.assert_allclose(_np(y), np.asarray(jy), rtol=1e-4, atol=1e-5)
+    # the aux is the mean of the dp shards' own load-balance losses
+    half = len(x) // 2
+    halves = [jmoe.moe_apply(jp, jnp.asarray(x[h * half:(h + 1) * half]), jcfg)[1]
+              for h in range(2)]
+    np.testing.assert_allclose(float(aux), float(np.mean(halves)), rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

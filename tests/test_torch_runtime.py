@@ -33,7 +33,6 @@ from repro.launch.steps import make_train_step as jmake_train_step  # noqa: E402
 from repro.runtime import TrainLoopConfig as JLoopConfig  # noqa: E402
 from repro.runtime import train_loop as jtrain_loop  # noqa: E402
 from repro_torch import checkpoint, optim  # noqa: E402
-from repro_torch.core.approximation import UnsupportedError  # noqa: E402
 from repro_torch.data import TokenStream  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
@@ -217,11 +216,30 @@ class TestTrainLoop:
         _, _, rep = train_loop(slow, params, opt, batch_fn, cfg, log_fn=logs.append)
         assert rep["stragglers"] >= 1 and any(s.startswith("[straggler] step 8") for s in logs)
 
-    def test_shardings_name_a8(self):
+    def test_shardings_name_a8(self, tmp_path):
+        """``shardings=`` is ported (ROADMAP A8.7): a checkpoint of the
+        unplaced tree restores into the mesh's pieces, bitwise."""
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.parallel import sharding
+
         params, opt, step_fn, batch_fn = _tiny_problem()
-        with pytest.raises(UnsupportedError, match="ROADMAP A8"):
-            train_loop(step_fn, params, opt, batch_fn, TrainLoopConfig(steps=1),
-                       shardings=(None, None), **QUIET)
+        cfg = TrainLoopConfig(steps=3, ckpt_dir=str(tmp_path), ckpt_every=3,
+                              handle_signals=False, async_ckpt=False)
+        p3, o3, _ = train_loop(step_fn, params, opt, batch_fn, cfg, **QUIET)
+        mesh = make_local_mesh(2, 2, devices=["cpu"] * 4)
+        P = sharding.PartitionSpec
+        p_sh = {"w1": sharding.NamedSharding(mesh, P(None, "model")),
+                "w2": sharding.NamedSharding(mesh, P("data")),
+                "b": sharding.NamedSharding(mesh, P())}
+        o_sh = sharding.tree_shardings(o3, mesh)
+        fresh, fo, _, _ = _tiny_problem(seed=1)
+        p, o, rep = train_loop(step_fn, fresh, fo, batch_fn, cfg, shardings=(p_sh, o_sh),
+                               **QUIET)
+        assert rep["final_step"] == 3
+        for k, v in p3.items():
+            assert isinstance(p[k], sharding.Sharded) and p[k].spec == p_sh[k].spec
+            assert torch.equal(p[k].gather("cpu"), v), k
+        assert torch.equal(o["mu"]["w1"]["m"].gather("cpu"), o3["mu"]["w1"]["m"])
 
 
 class TestOptim:
@@ -386,6 +404,20 @@ def test_bf16_checkpoint_round_trip(tmp_path):
 
 
 def test_build_refuses_a_mesh_naming_a8():
-    with pytest.raises(UnsupportedError, match="ROADMAP A8"):
-        ttrain.build(ARCH, smoke=True, batch=2, seq=16, lr=1e-3, mesh=object(),
-                     device="cpu")
+    """``build(mesh=)`` is ported (ROADMAP A8.7): it returns the state
+    placed on the mesh and the reference's (param, opt-state) shardings,
+    its pieces holding the weights it draws without a mesh."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import sharding
+
+    mesh = make_local_mesh(2, 2, devices=["cpu"] * 4)
+    *_, p, o, _, _, _, sh = ttrain.build(ARCH, smoke=True, batch=2, seq=16, lr=1e-3,
+                                         mesh=mesh, device="cpu")
+    *_, p0, _, _, _, _, sh0 = ttrain.build(ARCH, smoke=True, batch=2, seq=16, lr=1e-3,
+                                           device="cpu")
+    assert sh0 == (None, None) and isinstance(p, sharding.ShardedParams)
+    assert sh[0] == p.shardings() and set(sh[1]) == {"mu", "step"}
+    full = p.materialize("cpu")
+    assert all(torch.equal(a, b) for a, b in zip(tlm.leaves(full).values(),
+                                                 tlm.leaves(p0).values()))
+    assert int(o["step"].gather("cpu")) == 0

@@ -32,7 +32,6 @@ from repro_torch.bank import (  # noqa: E402
     TieredBank,
 )
 from repro_torch.bank import sharded as sh_mod  # noqa: E402
-from repro_torch.core.approximation import UnsupportedError  # noqa: E402
 from repro_torch.core.convert import bank_from_numpy  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch.serve_gp import serve_fleet  # noqa: E402
@@ -492,7 +491,7 @@ def test_serve_fleet_shards_on_the_cpu(tmp_path):
 def test_mesh_takes_cards_or_the_devices_given():
     """A mesh asks the visible cards by default and raises, naming the
     count, with fewer; an explicit list may repeat a device and is reshaped
-    to the grid; the production mesh is the LM half's (ROADMAP A8)."""
+    to the grid; the production mesh (ROADMAP A8.7) wants its 256 cells."""
     m = tmesh.make_bank_mesh(4, 2, devices=CPU8)
     assert m.shape == {"bank": 4, "data": 2} and m.axis_names == ("bank", "data")
     assert m.devices.shape == (4, 2) and {str(d) for d in m.devices.flat} == {"cpu"}
@@ -503,8 +502,9 @@ def test_mesh_takes_cards_or_the_devices_given():
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="wants 2 devices; only 0 CUDA devices visible"):
             tmesh.make_bank_mesh(2)
-    with pytest.raises(UnsupportedError, match=r"ROADMAP A8"):
-        tmesh.make_production_mesh()
+    with pytest.raises(ValueError, match="wants 256 devices; only 8 devices given"):
+        tmesh.make_production_mesh(devices=CPU8)
+    assert tmesh.make_production_mesh(devices=CPU8 * 32).shape == {"data": 16, "model": 16}
 
 
 # ---------------------------------------------------------------------------
